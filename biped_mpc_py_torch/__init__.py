@@ -1,24 +1,31 @@
 """biped_mpc_py_torch: the PyTorch and CUDA port of ``biped_mpc_py_tpu``.
 
-The HECTOR force-and-moment MPC closed around the single-rigid-body
-simulator, batched over thousands of envs on one NVIDIA Hopper GPU. The
-layout mirrors the JAX package module for module, so each function's
-counterpart is found by path; every function takes a leading env axis
-instead of being vmapped.
+The HECTOR force-and-moment MPC with low-level control, closed around the
+single-rigid-body simulator or the 11-body articulated engine, batched over
+thousands of envs on one NVIDIA Hopper GPU. The layout mirrors the JAX
+package module for module, so each function's counterpart is found by
+path; every function takes a leading env axis instead of being vmapped.
 
-The main path is :func:`biped_mpc_py_torch.parallel.rollout.batched_rollout`.
-Its one kernel, the fused ADMM QP solve, is hand-written CUDA for sm_90a
-(``csrc/qp_admm.cu``), built with ``nvcc`` the first time a CUDA tensor
-reaches :func:`biped_mpc_py_torch.ops.cuda.qp_kernel.fused_qp_solve`; on
-CPU tensors the same wrapper runs its plain PyTorch version. Importing the
-package needs neither CUDA nor ``nvcc``.
+The main paths are :func:`biped_mpc_py_torch.parallel.rollout.batched_rollout`
+(SRB) and :func:`biped_mpc_py_torch.parallel.rollout_art.batched_art_rollout_kernel`
+(articulated). Their kernels are hand-written CUDA for sm_90a, built with
+``nvcc`` the first time a CUDA tensor reaches their wrappers: the fused ADMM
+QP solve (``csrc/qp_admm.cu``, ``ops.cuda.qp_kernel.fused_qp_solve``) and
+the fused physics substeps (``csrc/substep.cu``,
+``ops.cuda.substep_kernel.fused_substeps``). On CPU tensors the same
+wrappers run their plain PyTorch versions. Importing the package needs
+neither CUDA nor ``nvcc``.
 
 Layer map:
-  L0 config            -> config, models.biped
-  L1 math utilities    -> ops.rotations, ops.linalg3
+  L0 config            -> config, models.biped, sim.model
+  L1 math utilities    -> ops.rotations, ops.linalg3, sim.spatial
+  L2 kinematics        -> models.kinematics
   L3 planning/refs     -> control.gait, control.reference, control.swing
   L4 MPC (dyn + QP)    -> models.srb, ops.qp, ops.cuda.qp_kernel, control.mpc
+  L5 low-level         -> control.lowlevel
   L6 driver            -> control.controller, sim.srb_sim, parallel.rollout
+  L7 articulated sim   -> sim.dynamics, sim.contact, sim.engine,
+                          ops.cuda.substep_kernel, parallel.rollout_art
 """
 
 from biped_mpc_py_torch.config import (
@@ -41,6 +48,16 @@ from biped_mpc_py_torch.parallel.rollout import (
     init_world,
     randomize_params,
 )
+from biped_mpc_py_torch.parallel.rollout_art import (
+    ArtWorld,
+    art_config_for_run,
+    art_config_for_speed,
+    art_config_for_turn,
+    art_mpc_config,
+    batched_art_rollout,
+    batched_art_rollout_kernel,
+    init_art_world,
+)
 
 __version__ = "0.1.0"
 
@@ -59,5 +76,13 @@ __all__ = [
     "batched_rollout",
     "init_world",
     "randomize_params",
+    "ArtWorld",
+    "art_config_for_run",
+    "art_config_for_speed",
+    "art_config_for_turn",
+    "art_mpc_config",
+    "batched_art_rollout",
+    "batched_art_rollout_kernel",
+    "init_art_world",
     "__version__",
 ]

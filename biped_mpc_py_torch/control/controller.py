@@ -1,7 +1,9 @@
-"""Controller state carried across ticks: the counterpart of the state half
-of ``biped_mpc_py_tpu/control/controller.py``. ``control_tick`` (FK, swing
-PD and the Jᵀ torque map) comes with the kinematics and the low-level
-controller."""
+"""The control tick (L6) and the controller state carried across ticks: the
+counterpart of ``biped_mpc_py_tpu/control/controller.py``.
+
+:func:`control_tick` runs FK -> contact schedule -> MPC solve -> low-level
+torques for a batch of envs, the reference main script's stage chain.
+"""
 
 from __future__ import annotations
 
@@ -9,7 +11,12 @@ import dataclasses
 
 import torch
 
-from biped_mpc_py_torch.config import MpcConfig, config_tensor
+from biped_mpc_py_torch.config import GaitConfig, MpcConfig, config_tensor
+from biped_mpc_py_torch.control.gait import advance_gait_clock, contact_sequence
+from biped_mpc_py_torch.control.lowlevel import low_level_control
+from biped_mpc_py_torch.control.mpc import solve_mpc
+from biped_mpc_py_torch.models.biped import BipedParams
+from biped_mpc_py_torch.models.kinematics import foot_positions_world
 from biped_mpc_py_torch.ops.qp import QpSolution, m_step
 from biped_mpc_py_torch.utils.struct import TensorStruct
 
@@ -101,3 +108,74 @@ def advance_v_int(v_int: torch.Tensor, x_fb: torch.Tensor,
     )
     gate = (v_cmd != 0)[None]
     return torch.where(gate, nxt, torch.zeros_like(nxt))
+
+
+def control_tick(
+    x_fb: torch.Tensor,
+    q: torch.Tensor,
+    qd: torch.Tensor,
+    t,
+    mpc: MpcConfig,
+    gait: GaitConfig,
+    biped: BipedParams,
+    ctrl_state: ControllerState | None = None,
+    contact_meas: torch.Tensor | None = None,
+):
+    """One full control tick for every env (``controller.py:166``).
+
+    Args:
+      x_fb: (N,12) state [roll, pitch, yaw, p, w, v].
+      q, qd: (N,10) joint positions and velocities.
+      t: (N,) times [s], or one float for every env.
+      ctrl_state: the previous tick's state (warm start); None = cold.
+      contact_meas: (N,2) measured contact flags; required with
+        ``gait.contact_clock``, which then runs the schedule on the held
+        gait clock instead of ``t``.
+
+    Returns (tau (N,10), the next ControllerState, the QpSolution).
+    """
+    n, dtype, device = x_fb.shape[0], x_fb.dtype, x_fb.device
+    t = torch.as_tensor(t, dtype=dtype, device=device).expand(n).contiguous()
+    pf_w = foot_positions_world(x_fb, q, biped)
+    warm = None if ctrl_state is None else ctrl_state.qp
+    cmd_ref = None if ctrl_state is None else ctrl_state.cmd_ref
+    v_int = None if ctrl_state is None else ctrl_state.v_int
+    p_ref = None if ctrl_state is None else ctrl_state.pitch_ref
+    if gait.contact_clock:
+        if contact_meas is None:
+            raise ValueError("gait.contact_clock=True requires contact_meas")
+        if ctrl_state is None:
+            raise ValueError(
+                "gait.contact_clock=True requires ctrl_state "
+                "(ControllerState.init carries the gait clock)"
+            )
+        t_g, hold = advance_gait_clock(
+            ctrl_state.t_gait, ctrl_state.hold_count, contact_meas, mpc, gait
+        )
+    else:
+        t_g = t
+        hold = (ctrl_state.hold_count if ctrl_state is not None
+                else torch.zeros(n, dtype=torch.int32, device=device))
+    contact = contact_sequence(t_g, mpc, gait)
+    foot_yaw = x_fb[:, 2:3] + q[:, [0, 5]] if mpc.foot_frame_wrench else None
+    sol = solve_mpc(
+        x_fb, t_g, pf_w, mpc, biped, contact, warm=warm, gait=gait,
+        cmd_ref=cmd_ref, foot_yaw=foot_yaw, v_int=v_int, pitch_ref=p_ref,
+    )
+    tau = low_level_control(
+        x_fb, t_g, pf_w, q, qd, mpc, biped, contact, sol.controls[:, 0],
+        gait=gait, cmd_ref=cmd_ref, v_int=v_int,
+    )
+
+    def zeros(*shape):
+        return torch.zeros((n,) + shape, dtype=dtype, device=device)
+
+    state_next = ControllerState(
+        qp=sol,
+        cmd_ref=advance_cmd_ref(zeros(3) if cmd_ref is None else cmd_ref, x_fb, mpc),
+        v_int=advance_v_int(zeros(2) if v_int is None else v_int, x_fb, mpc),
+        t_gait=t_g.to(dtype),
+        hold_count=hold,
+        pitch_ref=advance_pitch_ref(zeros() if p_ref is None else p_ref, x_fb, mpc),
+    )
+    return tau, state_next, sol

@@ -2,8 +2,9 @@
 ``biped_mpc_py_tpu/control/gait.py``.
 
 The contact window is computed in closed form from modular arithmetic on
-each env's time ``t`` (N,). ``measured_contact`` and ``advance_gait_clock``
-come with the contact simulator and the control tick.
+each env's time ``t`` (N,). The contact-sensed clock
+(``GaitConfig.contact_clock``) holds the schedule for a late touchdown
+(:func:`advance_gait_clock`).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from biped_mpc_py_torch.config import GaitConfig, MpcConfig
+from biped_mpc_py_torch.sim.contact import no_terrain
 
 
 def _inv_dt(mpc: MpcConfig) -> float:
@@ -87,3 +89,37 @@ def swing_clock(t: torch.Tensor, mpc: MpcConfig, gait: GaitConfig | None, side, 
     start = p * mpc.dt if side > 0 else (2 * p + f) * mpc.dt
     u = torch.remainder(t - start, period)
     return torch.clamp(u / T_sw, 0.0, 1.0), T_sw
+
+
+def measured_contact(pf_w: torch.Tensor, terrain, gait: GaitConfig) -> torch.Tensor:
+    """Per-foot ground-contact flags (N,2) bool from the measured sole
+    heights pf_w (N,6) (``gait.py:93``): a sole within
+    ``gait.clock_z_tol`` of the plane z = 0 is down."""
+    no_terrain(terrain)
+    return torch.stack([pf_w[:, 2], pf_w[:, 5]], -1) < gait.clock_z_tol
+
+
+# The clock stores the exact f32 product (k + 1/16) dt, never a sum, so
+# that phase_index recovers k with a ~0.44-step margin (``gait.py:122``).
+_CLOCK_STEP_BIAS = 1.0 / 16.0
+
+
+def advance_gait_clock(t_gait: torch.Tensor, hold_count: torch.Tensor,
+                       down: torch.Tensor, mpc: MpcConfig, gait: GaitConfig):
+    """One tick of the contact-sensed gait clock -> (t_used (N,),
+    hold_next (N,) int32) (``gait.py:125``).
+
+    The clock advances one MPC step per tick, except when the next step
+    enters a stance window (left at cycle step 0, right at p+f) whose foot
+    ``down`` (N,2) reports no contact: then it holds, for at most
+    ``gait.clock_max_hold`` ticks. Standing never holds.
+    """
+    k = torch.floor(t_gait * _inv_dt(mpc) + (0.5 - _CLOCK_STEP_BIAS)).to(torch.int32)
+    p, f = gait.steps_per_phase, gait.flight_steps
+    s_next = torch.remainder(k + 1, 2 * (p + f))
+    wait = ((s_next == 0) & ~down[:, 0]) | ((s_next == p + f) & ~down[:, 1])
+    wait = wait & (hold_count < gait.clock_max_hold) & (gait.gait_mode == 1)
+    k_used = torch.where(wait, k, k + 1)
+    t_used = (k_used.to(t_gait.dtype) + _CLOCK_STEP_BIAS) * mpc.dt
+    hold_next = torch.where(wait, hold_count + 1, torch.zeros_like(hold_count))
+    return t_used, hold_next

@@ -4,7 +4,7 @@
 Batched over a leading env axis. See the JAX module for the reference
 defects the ``compat_*`` flags replicate and for the framework extensions
 (body-frame commands, velocity-integral boost, leaky pitch reference).
-Terrain-adaptive references wait for the contact simulator: a non-None
+Terrain-adaptive references wait for the height-field terrain: a non-None
 ``terrain`` raises.
 """
 
@@ -16,14 +16,7 @@ import torch
 
 from biped_mpc_py_torch.config import GaitConfig, MpcConfig, config_tensor
 from biped_mpc_py_torch.control.gait import phase_time
-
-
-def _no_terrain(terrain) -> None:
-    if terrain is not None:
-        raise NotImplementedError(
-            "terrain-adaptive references need sim/contact.py, which the "
-            "torch port does not have yet"
-        )
+from biped_mpc_py_torch.sim.contact import no_terrain
 
 
 def com_reference(
@@ -148,7 +141,7 @@ def foot_reference(
       foot: (N, 6) current world foot positions.
       contact: (N, h, 2) contact flags.
     """
-    _no_terrain(terrain)
+    no_terrain(terrain)
     n, h = x_fb.shape[0], mpc.h
     t_p = phase_time(mpc, gait)
     fx1, fy1 = _raibert_xy(x_fb, mpc, t_p, v_int)

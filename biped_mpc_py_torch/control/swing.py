@@ -1,10 +1,9 @@
 """Swing-foot targets (L5): the counterpart of
 ``biped_mpc_py_tpu/control/swing.py``.
 
-The Raibert target with its stance-width offset and the swing height
-profile, batched over envs; ``side`` is +1 for the left leg (leg 0) and -1
-for the right. The swing PD force (``swing_leg_force``) comes with the
-low-level controller.
+The Raibert target with its stance-width offset, the swing height profile
+and the swing PD force, batched over envs; ``side`` is +1 for the left leg
+(leg 0) and -1 for the right.
 """
 
 from __future__ import annotations
@@ -16,6 +15,7 @@ import torch
 from biped_mpc_py_torch.config import GaitConfig, MpcConfig
 from biped_mpc_py_torch.control.gait import phase_time, swing_clock
 from biped_mpc_py_torch.control.reference import _raibert_xy
+from biped_mpc_py_torch.sim.contact import no_terrain
 
 Y_OFFSET = 0.04  # lateral swing-target offset [m] (reference ``:427``)
 
@@ -81,3 +81,37 @@ def swing_phase_z_vel(t: torch.Tensor, mpc: MpcConfig, gait: GaitConfig | None,
     if mpc.swing_z_sin2:
         return mpc.swing_height * rate * torch.sin(2.0 * rate * u)
     return mpc.swing_height * rate * torch.cos(rate * u)
+
+
+def swing_leg_force(
+    x_fb: torch.Tensor, t: torch.Tensor, pf_w: torch.Tensor, vf_w: torch.Tensor,
+    mpc: MpcConfig, side, gait: GaitConfig | None = None, terrain=None,
+    v_int: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """World PD force (N,3) driving the swing foot (pf_w, vf_w (N,3)) to its
+    Raibert target (``swing.py:113``), with the touchdown damping and
+    retraction ramps, the tracking feedforward and the touchdown overdrive
+    of the JAX function (each 0 by default)."""
+    no_terrain(terrain)
+    dtype = x_fb.dtype
+    fx, fy = swing_target_xy(x_fb, mpc, side, gait, v_int)
+    fz = swing_phase_z(t, mpc, gait, dtype, side=side)
+    foot_des = torch.stack([fx, fy, fz], -1)
+    if gait is not None and gait.flight_steps > 0:
+        frac, _ = swing_clock(t, mpc, gait, side, dtype)
+    else:
+        t_p = phase_time(mpc, gait)
+        frac = torch.remainder(t.to(dtype), t_p) / t_p
+    ramp = torch.square(torch.clamp((frac - 0.6) / 0.4, 0.0, 1.0))
+    yaw = x_fb[:, 2]
+    foot_des = foot_des - (mpc.swing_retract * ramp)[:, None] * torch.stack(
+        [torch.cos(yaw), torch.sin(yaw), torch.zeros_like(yaw)], -1
+    )
+    dfz = swing_phase_z_vel(t, mpc, gait, dtype, side=side)
+    v_des = mpc.swing_track_ff * torch.stack([x_fb[:, 9], x_fb[:, 10], dfz], -1)
+    f = mpc.kp_swing * (foot_des - pf_w) + mpc.kd_swing * (v_des - vf_w)
+    f = torch.cat(
+        [f[:, :2], f[:, 2:] + (-mpc.kp_swing * mpc.swing_td_overdrive * ramp)[:, None]], -1
+    )
+    damp = (mpc.swing_td_damp * ramp)[:, None]
+    return f - damp * torch.cat([vf_w[:, :2], torch.zeros_like(vf_w[:, :1])], -1)

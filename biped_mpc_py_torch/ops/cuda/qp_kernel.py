@@ -1,4 +1,4 @@
-"""The fused ADMM QP solve: CUDA kernel wrapper, build, and plain version.
+"""The fused ADMM QP solve: CUDA kernel wrapper and plain version.
 
 Counterpart of ``biped_mpc_py_tpu/ops/pallas/qp_kernel.py::fused_qp_solve``.
 :func:`fused_qp_solve` solves a batch of Ruiz-scaled box QPs
@@ -15,32 +15,22 @@ polish follows (ρ_pol = 1e4, a second inverse, 3 augmented-Lagrangian steps,
 accepted by an exact-penalty merit).
 
 Tensors on the card go to the CUDA kernel in ``csrc/qp_admm.cu``, built with
-``nvcc`` into ``build/torch_kernels/`` at first use and loaded with ctypes.
-Tensors on the CPU go to :func:`fused_qp_solve_reference`, the plain
-PyTorch version of the same algorithm (the scaled core of the JAX
-``solve_qp``, ``qp.py:547-680``). Nothing else chooses between the two.
+``nvcc`` into ``build/torch_kernels/`` at first use and loaded with ctypes
+(``ops/cuda/build.py``). Tensors on the CPU go to
+:func:`fused_qp_solve_reference`, the plain PyTorch version of the same
+algorithm (the scaled core of the JAX ``solve_qp``, ``qp.py:547-680``).
+Nothing else chooses between the two.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "qp_admm.cu"
-BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from biped_mpc_py_torch.ops.cuda import build
+
+SOURCE = build.CSRC / "qp_admm.cu"
 EQ_RHO_BOOST = 1e3
 _N_MAX = 120  # variables the kernel's shared-memory tiles hold (h <= 10)
 _MS_MAX = 28  # constraint rows per step the kernel holds
@@ -48,55 +38,16 @@ _MS_MAX = 28  # constraint rows per step the kernel holds
 _lib = None
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA QP kernel cannot be built")
-    return path
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/qp_admm.cu`` for sm_90a into a shared library named by
-    the source's hash; reuse it if it exists. Returns its path."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libqp_admm_{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        t0 = time.time()
-        res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-            )
-        if verbose:
-            print(f"nvcc {time.time() - t0:.1f}s\n{res.stdout}{res.stderr}", end="")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
-
-
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.qp_admm_solve.argtypes = (
-            [ptr] * 11 + [i32] * 3 + [f32] * 3 + [i32] * 4 + [i32, ptr]
-        )
-        lib.qp_admm_solve.restype = i32
-        lib.qp_admm_error_string.argtypes = [i32]
-        lib.qp_admm_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = build.load(SOURCE, {
+            "qp_admm_solve": (
+                [ptr] * 11 + [i32] * 3 + [f32] * 3 + [i32] * 4 + [i32, ptr], i32,
+            ),
+            "qp_admm_error_string": ([i32], ctypes.c_char_p),
+        })
     return _lib
 
 

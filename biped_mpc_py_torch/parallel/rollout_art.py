@@ -1,0 +1,301 @@
+"""Batched closed-loop rollouts on the articulated engine: the counterpart of
+``biped_mpc_py_tpu/parallel/rollout_art.py``.
+
+One 40 ms tick for every env:
+
+  25 Hz   MPC: feedback (whole-body CoM, sole positions) -> contact
+          schedule -> references -> SRB linearization -> condensed QP ->
+          the fused ADMM solve (one CUDA launch on the card)
+  200 Hz  low-level: swing PD + Jᵀ torque map, re-evaluated on the current
+          articulated state while holding the first MPC control
+  1 kHz   physics: the leg-vectorized Featherstone substeps
+
+then fall reset, controller-state advance and metrics. The mass-matrix
+inverse is refreshed once per group of ``minv_ll_hold`` low-level periods.
+
+Two entry points differ only in how a low-level period's substeps run:
+:func:`batched_art_rollout_kernel` launches the fused substep kernel once
+per period (the counterpart of ``batched_art_rollout_kernel_fn`` and of
+``bench.py BENCH_MODE=art BENCH_ART_BACKEND=kernel``);
+:func:`batched_art_rollout` runs the plain ``art_step`` chain (the
+counterpart of ``batched_art_rollout_fn``). Flat ground only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from biped_mpc_py_torch.config import GaitConfig, MpcConfig
+from biped_mpc_py_torch.control.controller import (
+    ControllerState,
+    advance_cmd_ref,
+    advance_pitch_ref,
+    advance_v_int,
+)
+from biped_mpc_py_torch.control.gait import (
+    advance_gait_clock,
+    contact_sequence,
+    gait_for_speed,
+    measured_contact,
+)
+from biped_mpc_py_torch.control.lowlevel import low_level_control
+from biped_mpc_py_torch.control.mpc import solve_mpc
+from biped_mpc_py_torch.models.biped import BipedParams
+from biped_mpc_py_torch.ops.cuda.substep_kernel import fused_substeps
+from biped_mpc_py_torch.sim.contact import no_terrain
+from biped_mpc_py_torch.sim.engine import (
+    ArtState,
+    art_step,
+    feedback_and_soles,
+    mass_matrix_inv,
+)
+from biped_mpc_py_torch.sim.model import ArticulatedModel, hector_model
+from biped_mpc_py_torch.utils.metrics import RolloutMetrics
+from biped_mpc_py_torch.utils.precision import f32_precision
+from biped_mpc_py_torch.utils.struct import TensorStruct
+
+FALL_Z_MIN = 0.25
+FALL_Z_MAX = 0.85
+
+
+def _x_cmd(vx: float = 0.0, wz: float = 0.0, vy: float = 0.0) -> tuple:
+    x = [0.0] * 12
+    x[5], x[8], x[9], x[10] = 0.55, wz, vx, vy
+    return tuple(x)
+
+
+def art_mpc_config(**overrides) -> MpcConfig:
+    """MpcConfig tuned for the articulated closed loop (``rollout_art.py:43``):
+    swing height 0.04, capture gain 0.5, stance width 0.04, foot-heading
+    wrench 2.4/0.3, yaw-couple bound 8, touchdown damping 8, heel margin
+    0.015. The JAX docstring gives the measurement behind each."""
+    cfg = dataclasses.replace(
+        MpcConfig(), swing_height=0.04, raibert_capture_gain=0.5,
+        swing_y_offset=0.04, kp_hipyaw=2.4, kd_hipyaw=0.3, tau_z_max=8.0,
+        swing_td_damp=8.0, lf_heel_shrink=0.015,
+    )
+    return dataclasses.replace(cfg, **overrides)
+
+
+def art_config_for_speed(speed: float, **overrides):
+    """(MpcConfig, GaitConfig) for a commanded forward speed
+    (``rollout_art.py:106``): cadence by speed band, sin² swing above
+    0.3 m/s, a higher apex and softer capture gain from 0.9 m/s."""
+    s = abs(float(speed))
+    if s > 0.3:
+        overrides.setdefault("swing_z_sin2", True)
+    if s >= 0.9:
+        overrides.setdefault("swing_height", 0.06)
+        overrides.setdefault("raibert_capture_gain", 0.3)
+    return art_mpc_config(x_cmd=_x_cmd(vx=float(speed)), **overrides), gait_for_speed(s)
+
+
+def art_config_for_run(speed: float, stabilized: bool = False, **overrides):
+    """(MpcConfig, GaitConfig) for the running gait, p = 2 with one flight
+    step (``rollout_art.py:141``); ``stabilized`` adds the measured
+    stabilizer triple. Explicit ``overrides`` win."""
+    kw = dict(
+        swing_z_sin2=True, swing_height=0.08, raibert_capture_gain=0.3,
+        swing_land_frac=0.8, swing_y_offset=0.06, raibert_ff_scale=0.85,
+        swing_track_ff=1.0,
+    )
+    if stabilized:
+        kw.update(
+            raibert_ff_scale=0.77, raibert_pitch_place=0.2,
+            raibert_pitch_nom=0.15, swing_land_frac=0.7,
+        )
+    kw.update(overrides)
+    return (art_mpc_config(x_cmd=_x_cmd(vx=float(speed)), **kw),
+            GaitConfig(steps_per_phase=2, flight_steps=1))
+
+
+def art_config_for_turn(wz: float, vx: float = 0.0, **overrides):
+    """(MpcConfig, GaitConfig) for a commanded turn rate [rad/s], optionally
+    while walking at ``vx`` (``rollout_art.py:192``): the unified
+    turn-in-place point up to 0.3 rad/s, else no heading wrench and a
+    faster yaw leak."""
+    x_cmd = _x_cmd(vx=float(vx), wz=float(wz))
+    if abs(vx) < 0.05 and abs(wz) <= 0.3:
+        kw = dict(cmd_body_frame=True, kp_hipyaw=3.0, kd_hipyaw=0.4, swing_z_sin2=True)
+        kw.update(overrides)
+        return art_mpc_config(x_cmd=x_cmd, **kw), GaitConfig(steps_per_phase=3)
+    kw = dict(cmd_body_frame=True, kp_hipyaw=0.0, kd_hipyaw=0.0, cmd_leak_yaw=0.12)
+    if abs(vx) >= 0.35:
+        kw["swing_z_sin2"] = True
+        gait = gait_for_speed(abs(vx))
+    else:
+        gait = GaitConfig(steps_per_phase=3)
+    kw.update(overrides)
+    return art_mpc_config(x_cmd=x_cmd, **kw), gait
+
+
+@dataclasses.dataclass(frozen=True)
+class ArtWorld(TensorStruct):
+    """Every env's articulated world state."""
+
+    sim: ArtState
+    ctrl: ControllerState
+    metrics: RolloutMetrics
+
+
+def init_art_world(mpc: MpcConfig, n: int = 1, device=None,
+                   z0: float = 0.533) -> ArtWorld:
+    """``n`` standing envs at rest with cold controllers."""
+    return ArtWorld(
+        sim=ArtState.standing(n, z0=z0, device=device),
+        ctrl=ControllerState.init(mpc, n, device=device),
+        metrics=RolloutMetrics.zeros(n, device=device),
+    )
+
+
+def _art_control_stage(world: ArtWorld, biped: BipedParams, mpc: MpcConfig,
+                       gait: GaitConfig, model: ArticulatedModel, terrain=None):
+    """The MPC stage of a tick (``rollout_art.py:419``): feedback -> gait
+    clock -> contact schedule -> solve_mpc. Returns (x_fb, t_g, hold,
+    contact, sol)."""
+    sim = world.sim
+    x_fb, pf_w = feedback_and_soles(model, sim)
+    if gait.contact_clock:
+        down = measured_contact(pf_w, terrain, gait)
+        t_g, hold = advance_gait_clock(
+            world.ctrl.t_gait, world.ctrl.hold_count, down, mpc, gait
+        )
+    else:
+        t_g, hold = sim.t, world.ctrl.hold_count
+    contact = contact_sequence(t_g, mpc, gait)
+    foot_yaw = x_fb[:, 2:3] + sim.q[:, [0, 5]] if mpc.foot_frame_wrench else None
+    sol = solve_mpc(
+        x_fb, t_g, pf_w, mpc, biped, contact, warm=world.ctrl.qp, gait=gait,
+        cmd_ref=world.ctrl.cmd_ref, foot_yaw=foot_yaw, terrain=terrain,
+        v_int=world.ctrl.v_int, pitch_ref=world.ctrl.pitch_ref,
+    )
+    return x_fb, t_g, hold, contact, sol
+
+
+def _art_post_stage(world: ArtWorld, sim_new: ArtState, energy, x_fb, sol,
+                    t_g, hold, mpc: MpcConfig) -> ArtWorld:
+    """Fall reset, controller-state advance and metrics
+    (``rollout_art.py:446``). A fallen env restarts standing with a cold
+    controller; its clock runs on."""
+    n, dtype, device = x_fb.shape[0], x_fb.dtype, x_fb.device
+    z = sim_new.pos[:, 2]
+    fell = (z < FALL_Z_MIN) | (z > FALL_Z_MAX)
+    reset = dataclasses.replace(
+        ArtState.standing(n, device=device, dtype=dtype), t=sim_new.t
+    )
+    ctrl = ControllerState(
+        qp=sol,
+        cmd_ref=advance_cmd_ref(world.ctrl.cmd_ref, x_fb, mpc),
+        v_int=advance_v_int(world.ctrl.v_int, x_fb, mpc),
+        t_gait=t_g.to(dtype), hold_count=hold,
+        pitch_ref=advance_pitch_ref(world.ctrl.pitch_ref, x_fb, mpc),
+    )
+    metrics = world.metrics.update(
+        sim_new.torso_state(), mpc.x_cmd, sol.controls[:, 0], sol.res_prim,
+        fell.to(dtype), energy=energy,
+    )
+    return ArtWorld(
+        sim=sim_new.where(fell, reset),
+        ctrl=ctrl.where(fell, ControllerState.init(mpc, n, device, dtype)),
+        metrics=metrics,
+    )
+
+
+def _lowlevel_stage(model, sim, t_ll, contact, u0, world, biped, mpc, gait,
+                    terrain=None):
+    """Joint torques of one low-level period on the current state."""
+    x, pf = feedback_and_soles(model, sim)
+    return low_level_control(
+        x, t_ll, pf, sim.q, sim.qd, mpc, biped, contact, u0, gait=gait,
+        cmd_ref=world.ctrl.cmd_ref, terrain=terrain, v_int=world.ctrl.v_int,
+    )
+
+
+def _art_tick(world: ArtWorld, biped: BipedParams, mpc: MpcConfig,
+              gait: GaitConfig, model: ArticulatedModel, n_lowlevel: int,
+              minv_ll_hold: int, physics) -> ArtWorld:
+    """One tick; ``physics(sim, tau, Minv, ll_dt)`` advances a low-level
+    period."""
+    if n_lowlevel % minv_ll_hold:
+        raise ValueError(
+            f"n_lowlevel {n_lowlevel} is not a multiple of minv_ll_hold {minv_ll_hold}"
+        )
+    x_fb, t_g, hold, contact, sol = _art_control_stage(world, biped, mpc, gait, model)
+    u0 = sol.controls[:, 0]
+    ll_dt = mpc.dt / n_lowlevel
+    sim = world.sim
+    t0 = sim.t
+    energy = torch.zeros_like(t0)
+    for _ in range(n_lowlevel // minv_ll_hold):
+        # one mass-matrix inverse per group of low-level periods
+        Minv = mass_matrix_inv(model, sim.q)
+        for _ in range(minv_ll_hold):
+            # gait-local low-level clock: the within-tick offset on the
+            # (possibly held) MPC gait time
+            t_ll = sim.t if not gait.contact_clock else t_g + (sim.t - t0)
+            tau = _lowlevel_stage(model, sim, t_ll, contact, u0, world, biped, mpc, gait)
+            # positive mechanical joint work this period (metrics.energy)
+            energy = energy + torch.sum(torch.clamp(tau * sim.qd, min=0.0), 1) * ll_dt
+            sim = physics(sim, tau, Minv, ll_dt)
+    return _art_post_stage(world, sim, energy, x_fb, sol, t_g, hold, mpc)
+
+
+def art_closed_loop_tick(world: ArtWorld, mpc: MpcConfig, gait: GaitConfig,
+                         biped: BipedParams, model: ArticulatedModel,
+                         n_lowlevel: int = 8, n_substeps: int = 10,
+                         terrain=None, minv_ll_hold: int = 1) -> ArtWorld:
+    """One full MPC period on the articulated robot with the plain substep
+    chain (``rollout_art.py:254``). ``minv_ll_hold`` low-level periods share
+    one Newton-Schulz mass-matrix inverse: 1 refreshes it every 5 ms, 8
+    once per tick."""
+    no_terrain(terrain)
+
+    def physics(sim, tau, Minv, dt):
+        return art_step(model, sim, tau, dt, n_substeps, Minv=Minv)
+
+    return _art_tick(world, biped, mpc, gait, model, n_lowlevel, minv_ll_hold, physics)
+
+
+@f32_precision
+@torch.no_grad()
+def batched_art_rollout(worlds: ArtWorld, bipeds: BipedParams, n_steps: int,
+                        mpc: MpcConfig, gait: GaitConfig,
+                        model: ArticulatedModel | None = None,
+                        n_lowlevel: int = 8, n_substeps: int = 10,
+                        minv_ll_hold: int = 1) -> ArtWorld:
+    """``n_steps`` articulated ticks with the plain substep chain: the
+    counterpart of ``batched_art_rollout_fn(n_steps, mpc, gait, model,
+    n_lowlevel=, n_substeps=, minv_ll_hold=)``. ``worlds`` and ``bipeds``
+    share the env axis and the device."""
+    model = model or hector_model(device=worlds.sim.q.device)
+    w = worlds
+    for _ in range(n_steps):
+        w = art_closed_loop_tick(w, mpc, gait, bipeds, model, n_lowlevel,
+                                 n_substeps, None, minv_ll_hold)
+    return w
+
+
+@f32_precision
+@torch.no_grad()
+def batched_art_rollout_kernel(worlds: ArtWorld, bipeds: BipedParams,
+                               n_steps: int, mpc: MpcConfig, gait: GaitConfig,
+                               model: ArticulatedModel | None = None,
+                               n_lowlevel: int = 8, n_substeps: int = 5,
+                               minv_ll_hold: int = 8) -> ArtWorld:
+    """``n_steps`` articulated ticks with each low-level period's substeps
+    in one :func:`~biped_mpc_py_torch.ops.cuda.substep_kernel.fused_substeps`
+    call (one kernel launch on the card, ``n_lowlevel`` per tick): the
+    counterpart of ``batched_art_rollout_kernel_fn``. Same semantics as
+    :func:`batched_art_rollout` except that ``t`` advances once per period
+    (not once per substep), as in JAX. Any number of envs."""
+    model = model or hector_model(device=worlds.sim.q.device)
+
+    def physics(sim, tau, Minv, dt):
+        return fused_substeps(model, sim, tau, Minv, dt, n_substeps)
+
+    w = worlds
+    for _ in range(n_steps):
+        w = _art_tick(w, bipeds, mpc, gait, model, n_lowlevel, minv_ll_hold, physics)
+    return w

@@ -8,6 +8,8 @@ raising on a missing or extra field so that drift between the two packages
 fails loudly. :func:`to_numpy` goes back.
 
 Batched JAX objects map one to one: every leaf keeps its leading env axis.
+Fields annotated ``float`` (the scalar parameters of ``ArticulatedModel``)
+stay Python floats.
 """
 
 from __future__ import annotations
@@ -72,6 +74,8 @@ def from_numpy(cls, fields: dict, device=None):
             kwargs[name] = None
         elif sub is not None:
             kwargs[name] = from_numpy(sub, value, device)
+        elif hints[name] is float:  # a scalar parameter (ArticulatedModel)
+            kwargs[name] = _config_value(name, value)
         else:
             kwargs[name] = torch.as_tensor(np.array(value), device=device)  # a copy
     return cls(**kwargs)

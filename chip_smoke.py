@@ -6,21 +6,29 @@
 Phases, each printed on its own lines:
 
 1. device: the card's name and ``nvidia-smi`` name and power limit;
-2. build: ``nvcc`` compiles ``biped_mpc_py_torch/csrc/qp_admm.cu`` for
-   sm_90a from the checkout's sources;
-3. kernel vs plain: the fused ADMM QP-solve kernel and its plain PyTorch
+2. build: ``nvcc`` compiles ``biped_mpc_py_torch/csrc/qp_admm.cu`` and
+   ``csrc/substep.cu`` for sm_90a from the checkout's sources, in parallel;
+3. QP kernel vs plain: the fused ADMM QP-solve kernel and its plain PyTorch
    version on the same 1024 real MPC QPs (perturbed standing states at
    every gait phase, domain-randomized robots, cold and warm starts), at
    the bench budget and at the default budget;
-4. slice: 1024 envs x 50 ticks (2 s) of walking through
+4. SRB slice: 1024 envs x 50 ticks (2 s) of walking through
    ``batched_rollout`` at the bench budget, with the kernel, then with the
    plain core on the card; launch count, finiteness, falls, height, and
    the walking statistics of the two runs;
-5. times: the solve per tick (CUDA events) and the rollout's env-steps/s
-   at both budgets, kernel and plain core, plus a per-stage split of one
-   tick.
+5. substep kernel vs plain: the fused articulated-substep kernel and its
+   plain version on 1024 perturbed in-contact states, 5 substeps of 1 ms;
+6. articulated slice: 1024 envs x 250 ticks (10 s) walking at 0.3 m/s
+   through ``batched_art_rollout_kernel`` at the bench budget (8 low-level
+   periods of 5 substeps per tick, the mass-matrix inverse held all tick);
+   launch counts, finiteness, falls and the walking bounds; then 3 ticks of
+   the plain substep chain (``batched_art_rollout``) from the same worlds
+   against the kernel path's first 3;
+7. times: the QP solve and the substep call (CUDA events), both rollouts'
+   env-steps/s with kernel and plain version, and a per-stage split of one
+   SRB tick and of one articulated tick.
 
-The line before the last is a JSON object describing the kernel; the last
+The line before the last is a JSON object describing the kernels; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
 script then exits non-zero without printing a result. It needs one card;
 without one it exits non-zero at once.
@@ -35,10 +43,13 @@ import time
 
 N_ENVS = 1024
 N_TICKS = 50
+N_ART_TICKS = 250
 SEED = 0
 # Kernel vs plain bounds on unscaled controls [N] (see phase_kernel).
 BOUND_BENCH = 0.05
 BOUND_DEFAULT = 0.1
+# Substep kernel vs plain, per field: tests/test_substep_kernel.py:73-76.
+SUBSTEP_BOUNDS = {"pos": 5e-7, "quat": 1e-6, "v_base": 5e-6, "q": 1e-6, "qd": 1e-4}
 
 
 def log(msg: str) -> None:
@@ -60,11 +71,11 @@ def phase_device(torch):
 
 
 def phase_build():
-    from biped_mpc_py_torch.ops.cuda import qp_kernel
+    from biped_mpc_py_torch.ops.cuda import build, qp_kernel, substep_kernel
 
     t0 = time.time()
-    path = qp_kernel.build(verbose=True)
-    log(f"[build] {path.name} in {time.time() - t0:.1f} s")
+    paths = build.build(qp_kernel.SOURCE, substep_kernel.SOURCE, verbose=True)
+    log(f"[build] {', '.join(p.name for p in paths)} in {time.time() - t0:.1f} s")
 
 
 def mpc_qps(torch, mpc, n, device, seed):
@@ -272,6 +283,20 @@ def time_default_rollouts(torch, device):
             f"falls {float(w.metrics.falls.sum())}")
 
 
+def _timed(torch, fn, reps):
+    """Mean ms per call of ``fn`` over ``reps`` calls (CUDA events, after
+    one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def time_solves(torch, device):
     """Per-tick solve time at the main path's shapes: 1024 envs, bench and
     default budgets, CUDA events over repeated launches."""
@@ -282,15 +307,7 @@ def time_solves(torch, device):
     )
 
     def timed(fn, args, kw, reps):
-        fn(*args, **kw)
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn(*args, **kw)
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
+        return _timed(torch, lambda: fn(*args, **kw), reps)
 
     out = {}
     for budget, mpc in (("bench", _walk_config()), ("default", MpcConfig())):
@@ -357,6 +374,209 @@ def time_stages(torch, device):
         f"{k} {v:.3f}" for k, v in acc.items()) + f", total {total:.3f}")
 
 
+def perturbed_art_states(torch, n, seed):
+    """n near-standing articulated states with the soles pushed into the
+    plane, and random torques, from a numpy seed (as
+    tests/test_substep_kernel.py::_perturbed_states builds them)."""
+    import numpy as np
+
+    from biped_mpc_py_torch.sim.engine import ArtState
+
+    rng = np.random.default_rng(seed)
+    base = ArtState.standing()
+    pos = base.pos.numpy() + 0.02 * rng.normal(size=(n, 3))
+    pos[:, 2] -= 0.03
+    quat = base.quat.numpy() + 0.02 * rng.normal(size=(n, 4))
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float32))
+
+    state = ArtState(
+        pos=f32(pos), quat=f32(quat), v_base=f32(0.3 * rng.normal(size=(n, 6))),
+        q=f32(base.q.numpy() + 0.05 * rng.normal(size=(n, 10))),
+        qd=f32(0.5 * rng.normal(size=(n, 10))), t=torch.zeros(n),
+    )
+    return state, f32(5.0 * rng.normal(size=(n, 10)))
+
+
+def phase_substep_kernel(torch, device):
+    """The substep kernel vs its plain version on the card, 1024 perturbed
+    in-contact envs, dt 5 ms in 5 substeps, held to SUBSTEP_BOUNDS. The
+    plain version on the CPU against itself on the card is printed as the
+    noise floor between two f32 implementations."""
+    from biped_mpc_py_torch.ops.cuda.substep_kernel import (
+        fused_substeps, fused_substeps_reference,
+    )
+    from biped_mpc_py_torch.sim.engine import mass_matrix_inv
+    from biped_mpc_py_torch.sim.model import hector_model
+
+    state, tau = perturbed_art_states(torch, N_ENVS, SEED)
+    model = hector_model(device=device)
+    sc, tc = state.to(device), tau.to(device)
+    Minv = mass_matrix_inv(model, sc.q)
+    out_k = fused_substeps(model, sc, tc, Minv, 0.005, 5)
+    torch.cuda.synchronize()
+    out_p = fused_substeps_reference(model, sc, tc, Minv, 0.005, 5)
+    out_c = fused_substeps_reference(hector_model(), state, tau, Minv.cpu(), 0.005, 5)
+    errs, noise = {}, {}
+    for name in SUBSTEP_BOUNDS:
+        k, p = getattr(out_k, name), getattr(out_p, name)
+        errs[name] = float((k - p).abs().max())
+        noise[name] = float((getattr(out_c, name).to(device) - p).abs().max())
+    finite = all(bool(torch.isfinite(getattr(out_k, n)).all()) for n in SUBSTEP_BOUNDS)
+    log(f"[substep] kernel vs plain max|err| {json.dumps(errs)}; plain CPU vs plain card "
+        f"{json.dumps(noise)}; bounds {json.dumps(SUBSTEP_BOUNDS)}; finite {finite}")
+    bad = [n for n, e in errs.items() if not e < SUBSTEP_BOUNDS[n]]
+    if bad or not finite or not torch.equal(out_k.t, out_p.t):
+        raise AssertionError(f"substep kernel vs plain past the bounds: {bad}")
+    return max(errs.values())
+
+
+def _art_config():
+    from biped_mpc_py_torch.parallel.rollout_art import art_config_for_speed
+
+    return art_config_for_speed(0.3, n_admm_iters=40, admm_rho_phases=1,
+                                admm_polish=False, kinv_ns_iters=10)
+
+
+def art_worlds(torch, device):
+    """1024 standing worlds, each env's joint velocities desynced by
+    0.01 rad/s from a seeded generator, and their robots."""
+    import dataclasses
+
+    from biped_mpc_py_torch import BipedParams
+    from biped_mpc_py_torch.parallel.rollout_art import init_art_world
+
+    mpc, _ = _art_config()
+    w = init_art_world(mpc, N_ENVS, device=device)
+    gen = torch.Generator().manual_seed(SEED)
+    qd = w.sim.qd + (0.01 * torch.randn(N_ENVS, 10, generator=gen)).to(device)
+    w = dataclasses.replace(w, sim=dataclasses.replace(w.sim, qd=qd))
+    return w, BipedParams().expand(N_ENVS).to(device)
+
+
+def phase_art_slice(torch, device):
+    """The articulated main path, then the plain chain's 3-tick check."""
+    from biped_mpc_py_torch.ops.cuda import qp_kernel, substep_kernel
+    from biped_mpc_py_torch.parallel.rollout_art import (
+        batched_art_rollout, batched_art_rollout_kernel,
+    )
+    from biped_mpc_py_torch.sim.model import hector_model
+
+    mpc, gait = _art_config()
+    model = hector_model(device=device)
+    w0, bipeds = art_worlds(torch, device)
+    batched_art_rollout_kernel(w0, bipeds, 2, mpc, gait, model=model)  # warm-up
+    torch.cuda.synchronize()
+    substep_kernel.fused_substeps.launches = 0
+    qp_kernel.fused_qp_solve.launches = 0
+    t0 = time.perf_counter()
+    w3 = batched_art_rollout_kernel(w0, bipeds, 3, mpc, gait, model=model)
+    w = batched_art_rollout_kernel(w3, bipeds, N_ART_TICKS - 3, mpc, gait, model=model)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {"fused_substeps": substep_kernel.fused_substeps.launches,
+                "fused_qp_solve": qp_kernel.fused_qp_solve.launches}
+    s, m = w.sim, w.metrics
+    finite = all(bool(torch.isfinite(t).all()) for t in (s.pos, s.quat, s.v_base, s.q, s.qd))
+    falls = float(m.falls.sum())
+    att = (m.attitude_err_sq / m.n_steps).sqrt()
+    x_min, att_max, res_max = float(s.pos[:, 0].min()), float(att.max()), float(m.res_prim_max.max())
+    log(f"[art] kernel path: {N_ENVS} envs x {N_ART_TICKS} ticks in {sec:.3f} s, launches "
+        f"{json.dumps(launches)}, falls {falls}, finite {finite}, x min {x_min:.4f} mean "
+        f"{float(s.pos[:, 0].mean()):.4f} m, att RMS max {att_max:.5f} mean "
+        f"{float(att.mean()):.5f}, res_prim max {res_max:.3e}, height "
+        f"[{float(s.pos[:, 2].min()):.4f}, {float(s.pos[:, 2].max()):.4f}]")
+    if launches != {"fused_substeps": 8 * N_ART_TICKS, "fused_qp_solve": N_ART_TICKS}:
+        raise AssertionError(f"launch counts {launches} in {N_ART_TICKS} ticks")
+    # the walking bounds of tests/test_rollout_art.py::test_articulated_bench_budget_accuracy
+    if not (finite and falls == 0 and x_min > 1.5 and att_max < 0.08 and res_max < 1.0):
+        raise AssertionError("articulated slice failed its checks")
+
+    wc = batched_art_rollout(w0, bipeds, 3, mpc, gait, model=model, n_substeps=5,
+                             minv_ll_hold=8)
+    d_pos = float((wc.sim.pos - w3.sim.pos).abs().max())
+    d_qd = float((wc.sim.qd - w3.sim.qd).abs().max())
+    d_tg = float((wc.ctrl.t_gait - w3.ctrl.t_gait).abs().max())
+    falls3 = (float(wc.metrics.falls.sum()), float(w3.metrics.falls.sum()))
+    log(f"[art] plain chain vs kernel path, 3 ticks: max|dpos| {d_pos:.3e} m, max|dqd| "
+        f"{d_qd:.3e} rad/s, max|dt_gait| {d_tg:.3e} s, falls {falls3}")
+    # the bounds of tests/test_substep_kernel.py::test_kernel_rollout_matches_xla
+    if not (d_pos < 2e-2 and d_qd < 2.0 and d_tg < 1e-5 and falls3 == (0.0, 0.0)):
+        raise AssertionError("the plain chain and the kernel path differ")
+    return launches, sec
+
+
+def time_art(torch, device):
+    """The substep call (CUDA events), the plain chain's rollout rate, and
+    one articulated tick split into its stages (host clock, synchronized
+    after each stage, mean of 10 ticks after 2)."""
+    from biped_mpc_py_torch.ops.cuda.substep_kernel import (
+        fused_substeps, fused_substeps_reference,
+    )
+    from biped_mpc_py_torch.parallel import rollout_art as ra
+    from biped_mpc_py_torch.sim.engine import mass_matrix_inv
+    from biped_mpc_py_torch.sim.model import hector_model
+
+    model = hector_model(device=device)
+    state, tau = perturbed_art_states(torch, N_ENVS, SEED)
+    sc, tc = state.to(device), tau.to(device)
+    Minv = mass_matrix_inv(model, sc.q)
+    ms_k = _timed(torch, lambda: fused_substeps(model, sc, tc, Minv, 0.005, 5), 50)
+    ms_p = _timed(torch, lambda: fused_substeps_reference(model, sc, tc, Minv, 0.005, 5), 5)
+    log(f"[times] fused_substeps ({N_ENVS} envs, 5 substeps): kernel {ms_k:.4f} ms, "
+        f"plain {ms_p:.3f} ms")
+
+    mpc, gait = _art_config()
+    w, bipeds = art_worlds(torch, device)
+    w = ra.batched_art_rollout(w, bipeds, 1, mpc, gait, model=model, n_substeps=5,
+                               minv_ll_hold=8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ra.batched_art_rollout(w, bipeds, 5, mpc, gait, model=model, n_substeps=5, minv_ll_hold=8)
+    torch.cuda.synchronize()
+    sec_chain = (time.perf_counter() - t0) / 5
+    log(f"[times] art rollout, plain chain: {N_ENVS / sec_chain:.1f} env-steps/s "
+        f"({sec_chain * 1e3:.3f} ms/tick)")
+
+    names = ("control stage (MPC)", "Minv", "low-level x 8", "substeps x 8 (kernel)", "post")
+    acc = dict.fromkeys(names, 0.0)
+    ll_dt = mpc.dt / 8
+    w, bipeds = art_worlds(torch, device)
+    for tick in range(12):
+        torch.cuda.synchronize()
+        t_prev = time.perf_counter()
+
+        def mark(name):
+            nonlocal t_prev
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            if tick >= 2:
+                acc[name] += (now - t_prev) * 1e3 / 10
+            t_prev = now
+
+        x_fb, t_g, hold, contact, sol = ra._art_control_stage(w, bipeds, mpc, gait, model)
+        u0 = sol.controls[:, 0]
+        mark(names[0])
+        sim = w.sim
+        Minv = mass_matrix_inv(model, sim.q)
+        mark(names[1])
+        energy = torch.zeros_like(sim.t)
+        for _ in range(8):
+            tau = ra._lowlevel_stage(model, sim, sim.t, contact, u0, w, bipeds, mpc, gait)
+            energy = energy + torch.sum(torch.clamp(tau * sim.qd, min=0.0), 1) * ll_dt
+            mark(names[2])
+            sim = fused_substeps(model, sim, tau, Minv, ll_dt, 5)
+            mark(names[3])
+        w = ra._art_post_stage(w, sim, energy, x_fb, sol, t_g, hold, mpc)
+        mark(names[4])
+    total = sum(acc.values())
+    log("[times] art tick stages (ms, mean of 10): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in acc.items()) + f", total {total:.3f}")
+    return ms_k, ms_p, sec_chain
+
+
 def main() -> int:
     import torch
 
@@ -366,26 +586,44 @@ def main() -> int:
     from biped_mpc_py_torch.utils.precision import f32_matmul
 
     with torch.no_grad(), f32_matmul():
-        max_err = phase_kernel(torch, device)
-        launches, sec_k, sec_p = phase_slice(torch, device)
+        qp_err = phase_kernel(torch, device)
+        srb_launches, sec_k, sec_p = phase_slice(torch, device)
+        substep_err = phase_substep_kernel(torch, device)
+        art_launches, sec_art = phase_art_slice(torch, device)
         solve_ms = time_solves(torch, device)
         time_default_rollouts(torch, device)
         time_stages(torch, device)
+        substep_ms, substep_plain_ms, sec_chain = time_art(torch, device)
     rate_k = N_ENVS * N_TICKS / sec_k
     rate_p = N_ENVS * N_TICKS / sec_p
     log(f"[times] rollout {N_ENVS} envs x {N_TICKS} ticks: kernel {rate_k:.1f} env-steps/s "
         f"({sec_k * 1e3 / N_TICKS:.3f} ms/tick), plain core {rate_p:.1f} env-steps/s "
-        f"({sec_p * 1e3 / N_TICKS:.3f} ms/tick)")
-    print(json.dumps({"kernels": [{
-        "name": "fused_qp_solve",
-        "route": "cuda",
-        "source": "biped_mpc_py_torch/csrc/qp_admm.cu",
-        "replaces": "biped_mpc_py_tpu/ops/pallas/qp_kernel.py:255",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": solve_ms["bench"][0],
-        "plain_ms": solve_ms["bench"][1],
-    }]}))
+        f"({sec_p * 1e3 / N_TICKS:.3f} ms/tick) (SRB launches {srb_launches})")
+    log(f"[times] art rollout {N_ENVS} envs x {N_ART_TICKS} ticks, kernel path: "
+        f"{N_ENVS * N_ART_TICKS / sec_art:.1f} env-steps/s ({sec_art * 1e3 / N_ART_TICKS:.3f} "
+        f"ms/tick); plain chain {N_ENVS / sec_chain:.1f} env-steps/s")
+    print(json.dumps({"kernels": [
+        {
+            "name": "fused_qp_solve",
+            "route": "cuda",
+            "source": "biped_mpc_py_torch/csrc/qp_admm.cu",
+            "replaces": "biped_mpc_py_tpu/ops/pallas/qp_kernel.py:255",
+            "launches": art_launches["fused_qp_solve"],
+            "max_abs_err": qp_err,
+            "ms": solve_ms["bench"][0],
+            "plain_ms": solve_ms["bench"][1],
+        },
+        {
+            "name": "fused_substeps",
+            "route": "cuda",
+            "source": "biped_mpc_py_torch/csrc/substep.cu",
+            "replaces": "biped_mpc_py_tpu/ops/pallas/substep_kernel.py:466",
+            "launches": art_launches["fused_substeps"],
+            "max_abs_err": substep_err,
+            "ms": substep_ms,
+            "plain_ms": substep_plain_ms,
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -14,10 +14,16 @@ from biped_mpc_py_tpu import config as jcfg
 from biped_mpc_py_tpu.models import biped as jbiped
 from biped_mpc_py_tpu.ops import qp as jqp
 from biped_mpc_py_tpu.parallel import rollout as jroll
+from biped_mpc_py_tpu.parallel import rollout_art as jra
+from biped_mpc_py_tpu.sim import engine as jeng
+from biped_mpc_py_tpu.sim import model as jmodel
 from biped_mpc_py_torch import config as tcfg
 from biped_mpc_py_torch.models import biped as tbiped
 from biped_mpc_py_torch.ops import qp as tqp
 from biped_mpc_py_torch.parallel import rollout as troll
+from biped_mpc_py_torch.parallel import rollout_art as tra
+from biped_mpc_py_torch.sim import engine as teng
+from biped_mpc_py_torch.sim import model as tmodel
 from biped_mpc_py_torch.utils.convert import from_numpy, to_numpy
 
 
@@ -90,6 +96,20 @@ def _jax_objects():
             troll.World,
             _randomized_leaves(jroll.batch_worlds(jcfg.MpcConfig(mu_z=0.03), 2), 1),
         ),
+        "ArticulatedModel": (tmodel.ArticulatedModel, jmodel.hector_model()),
+        "ArticulatedModel/randomized": (
+            tmodel.ArticulatedModel, _randomized_leaves(jmodel.hector_model(), 3),
+        ),
+        "ArtState": (teng.ArtState, _randomized_leaves(_batch(jeng.ArtState.standing(), 3), 4)),
+        "ArtWorld": (
+            tra.ArtWorld,
+            _randomized_leaves(_batch(jra.init_art_world(jra.art_mpc_config()), 2), 5),
+        ),
+        "MpcConfig/art": (tcfg.MpcConfig, jra.art_mpc_config()),
+        "MpcConfig/art_speed": (tcfg.MpcConfig, jra.art_config_for_speed(0.95)[0]),
+        "MpcConfig/art_run": (tcfg.MpcConfig, jra.art_config_for_run(1.2, stabilized=True)[0]),
+        "MpcConfig/art_turn": (tcfg.MpcConfig, jra.art_config_for_turn(0.3, vx=0.4)[0]),
+        "GaitConfig/art_run": (tcfg.GaitConfig, jra.art_config_for_run(1.2)[1]),
         "CondensedQp": (
             tqp.CondensedQp,
             _randomized_leaves(jqp.CondensedQp(
@@ -155,9 +175,33 @@ def _assert_defaults_equal(port_obj, jax_obj, path):
             assert p[k] == j[k] and type(p[k]) is type(j[k]), (f"{path}.{k}", p[k], j[k])
 
 
+_ART_FACTORIES = {
+    "art_mpc_config": ((), {}),
+    "art_config_for_speed/0.3": ((0.3,), {}),
+    "art_config_for_speed/0.95": ((0.95,), {}),
+    "art_config_for_run/stabilized": ((1.2,), {"stabilized": True}),
+    "art_config_for_turn/in_place": ((0.3,), {}),
+    "art_config_for_turn/curve": ((0.3,), {"vx": 0.4}),
+    "art_config_for_turn/slow_curve": ((0.5,), {"vx": 0.2, "kp_pivot": 2.0}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ART_FACTORIES))
+def test_art_factories_match_jax(name):
+    """The articulated config factories of the port give the JAX package's
+    (MpcConfig, GaitConfig), field by field."""
+    fn = name.split("/")[0]
+    args, kw = _ART_FACTORIES[name]
+    port, ref = getattr(tra, fn)(*args, **kw), getattr(jra, fn)(*args, **kw)
+    if fn == "art_mpc_config":
+        port, ref = (port,), (ref,)
+    for p, j in zip(port, ref):
+        _assert_same(_fields(j), to_numpy(p), name)
+
+
 @pytest.mark.parametrize("name", [
     "MpcConfig", "fast_mpc_config", "reference_compat_config", "GaitConfig",
-    "BipedParams", "HECTOR_LEG_FK", "HECTOR_LEG_JAC",
+    "BipedParams", "HECTOR_LEG_FK", "HECTOR_LEG_JAC", "ArticulatedModel",
 ])
 def test_defaults_match_jax_by_name(name):
     """Every field default, by name; per-env tensors hold one env, which
@@ -172,6 +216,7 @@ def test_defaults_match_jax_by_name(name):
         "BipedParams": (tbiped.BipedParams(), jbiped.BipedParams()),
         "HECTOR_LEG_FK": (tbiped.HECTOR_LEG_FK, jbiped.HECTOR_LEG_FK),
         "HECTOR_LEG_JAC": (tbiped.HECTOR_LEG_JAC, jbiped.HECTOR_LEG_JAC),
+        "ArticulatedModel": (tmodel.hector_model(), jmodel.hector_model()),
     }
     port_obj, jax_obj = pairs[name]
     _assert_defaults_equal(port_obj, jax_obj, name)

@@ -1,5 +1,6 @@
-"""The torch port's CUDA kernel on the card: the fused ADMM QP solve held
-against its plain PyTorch version, and the rollout's launch count.
+"""The torch port's CUDA kernels on the card: the fused ADMM QP solve and
+the fused articulated substeps, each held against its plain PyTorch
+version, and the rollouts' launch counts.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one. The
 file imports no JAX, so it also runs where JAX is not installed:
@@ -15,6 +16,11 @@ f32 implementations), so the kernel may put no more envs past 0.1 N than
 the plain version on the CPU does against itself on the card (twice that,
 plus five), and the median env agrees within 0.01 N; see
 chip_smoke.py::phase_kernel.
+
+The substep kernel: the bounds of ``tests/test_substep_kernel.py:73-76``
+(pos 5e-7, quat 1e-6, v_base 5e-6, q 1e-6, qd 1e-4) on 1024 perturbed
+in-contact envs, 5 substeps of 1 ms; the kernel path of the articulated
+loop launches it once per low-level period (8 per tick).
 """
 
 import dataclasses
@@ -22,16 +28,20 @@ import dataclasses
 import pytest
 import torch
 
-from biped_mpc_py_torch import GaitConfig, MpcConfig, fast_mpc_config
+from biped_mpc_py_torch import BipedParams, GaitConfig, MpcConfig, fast_mpc_config
 from biped_mpc_py_torch.control.gait import contact_sequence
 from biped_mpc_py_torch.control.mpc import build_mpc_qp
 from biped_mpc_py_torch.ops import qp as tqp
 from biped_mpc_py_torch.ops.cuda import qp_kernel as tk
+from biped_mpc_py_torch.ops.cuda import substep_kernel as sk
+from biped_mpc_py_torch.parallel import rollout_art as ra
 from biped_mpc_py_torch.parallel.rollout import (
     batch_worlds,
     batched_rollout,
     randomize_params,
 )
+from biped_mpc_py_torch.sim.engine import ArtState, mass_matrix_inv
+from biped_mpc_py_torch.sim.model import hector_model
 
 pytestmark = pytest.mark.cuda
 
@@ -96,4 +106,53 @@ def test_rollout_launches_kernel_once_per_tick(cuda):
     torch.cuda.synchronize()
     assert tk.fused_qp_solve.launches == before + ticks
     assert torch.isfinite(out.sim.x_fb).all()
+    assert float(out.metrics.falls.sum()) == 0
+
+
+def _perturbed_states(n, device, seed=0):
+    """Near-standing states with the soles pushed into the plane, and
+    random torques (as tests/test_substep_kernel.py builds them)."""
+    gen = torch.Generator().manual_seed(seed)
+    base = ArtState.standing(n)
+    pos = base.pos + 0.02 * torch.randn(n, 3, generator=gen)
+    pos[:, 2] -= 0.03
+    quat = base.quat + 0.02 * torch.randn(n, 4, generator=gen)
+    quat = quat / quat.norm(dim=1, keepdim=True)
+    state = ArtState(
+        pos=pos, quat=quat, v_base=0.3 * torch.randn(n, 6, generator=gen),
+        q=base.q + 0.05 * torch.randn(n, 10, generator=gen),
+        qd=0.5 * torch.randn(n, 10, generator=gen), t=torch.zeros(n),
+    )
+    return state.to(device), (5.0 * torch.randn(n, 10, generator=gen)).to(device)
+
+
+@pytest.mark.parametrize("n", [1024, 1000])
+def test_substep_kernel_matches_plain(cuda, n):
+    model = hector_model(device=cuda)
+    state, tau = _perturbed_states(n, cuda)
+    Minv = mass_matrix_inv(model, state.q)
+    before = sk.fused_substeps.launches
+    out_k = sk.fused_substeps(model, state, tau, Minv, 0.005, 5)
+    torch.cuda.synchronize()
+    assert sk.fused_substeps.launches == before + 1
+    out_p = sk.fused_substeps_reference(model, state, tau, Minv, 0.005, 5)
+    bounds = {"pos": 5e-7, "quat": 1e-6, "v_base": 5e-6, "q": 1e-6, "qd": 1e-4}
+    for name, tol in bounds.items():
+        err = float((getattr(out_k, name) - getattr(out_p, name)).abs().max())
+        assert err < tol, (name, err)
+    assert torch.equal(out_k.t, out_p.t)
+
+
+def test_art_rollout_launches_substep_kernel(cuda):
+    mpc, gait = ra.art_config_for_speed(0.3, n_admm_iters=40, admm_rho_phases=1,
+                                        admm_polish=False, kinv_ns_iters=10)
+    n, ticks = 64, 3
+    worlds = ra.init_art_world(mpc, n, device=cuda)
+    bipeds = BipedParams().expand(n).to(cuda)
+    before_s, before_q = sk.fused_substeps.launches, tk.fused_qp_solve.launches
+    out = ra.batched_art_rollout_kernel(worlds, bipeds, ticks, mpc, gait)
+    torch.cuda.synchronize()
+    assert sk.fused_substeps.launches == before_s + 8 * ticks
+    assert tk.fused_qp_solve.launches == before_q + ticks
+    assert torch.isfinite(out.sim.pos).all() and torch.isfinite(out.sim.qd).all()
     assert float(out.metrics.falls.sum()) == 0

@@ -172,7 +172,9 @@ def test_import_leaves_jax_out():
     """The package imports without JAX, CUDA, nvcc or triton."""
     code = (
         "import sys, biped_mpc_py_torch, biped_mpc_py_torch.parallel.rollout, "
-        "biped_mpc_py_torch.utils.convert, biped_mpc_py_torch.ops.cuda.qp_kernel; "
+        "biped_mpc_py_torch.utils.convert, biped_mpc_py_torch.ops.cuda.qp_kernel, "
+        "biped_mpc_py_torch.parallel.rollout_art, biped_mpc_py_torch.ops.cuda.substep_kernel, "
+        "biped_mpc_py_torch.control.controller, biped_mpc_py_torch.sim.dynamics; "
         "bad = [m for m in ('jax', 'flax', 'triton', 'biped_mpc_py_tpu') if m in sys.modules]; "
         "assert not bad, bad"
     )
