@@ -7,12 +7,16 @@ package module for module, so each function's counterpart is found by
 path; every function takes a leading env axis instead of being vmapped.
 
 The main paths are :func:`biped_mpc_py_torch.parallel.rollout.batched_rollout`
-(SRB) and :func:`biped_mpc_py_torch.parallel.rollout_art.batched_art_rollout_kernel`
-(articulated). Their kernels are hand-written CUDA for sm_90a, built with
-``nvcc`` the first time a CUDA tensor reaches their wrappers: the fused ADMM
-QP solve (``csrc/qp_admm.cu``, ``ops.cuda.qp_kernel.fused_qp_solve``) and
-the fused physics substeps (``csrc/substep.cu``,
-``ops.cuda.substep_kernel.fused_substeps``). On CPU tensors the same
+(SRB) and, articulated,
+:func:`biped_mpc_py_torch.parallel.rollout_art.batched_art_rollout_tick_kernel`
+and :func:`~biped_mpc_py_torch.parallel.rollout_art.batched_art_rollout_kernel`.
+Their kernels are hand-written CUDA for sm_90a, built with ``nvcc`` the
+first time a CUDA tensor reaches their wrappers: the fused ADMM QP solve
+(``csrc/qp_admm.cu``, ``ops.cuda.qp_kernel.fused_qp_solve``), the fused
+physics substeps (``csrc/substep.cu``,
+``ops.cuda.substep_kernel.fused_substeps``) and the fused tick of low-level
+control and physics (``csrc/tick.cu``, ``ops.cuda.tick_kernel.fused_tick``,
+sharing the substep's device code). On CPU tensors the same
 wrappers run their plain PyTorch versions. Importing the package needs
 neither CUDA nor ``nvcc``.
 
@@ -25,7 +29,8 @@ Layer map:
   L5 low-level         -> control.lowlevel
   L6 driver            -> control.controller, sim.srb_sim, parallel.rollout
   L7 articulated sim   -> sim.dynamics, sim.contact, sim.engine,
-                          ops.cuda.substep_kernel, parallel.rollout_art
+                          ops.cuda.substep_kernel, ops.cuda.tick_kernel,
+                          parallel.rollout_art
 """
 
 from biped_mpc_py_torch.config import (
@@ -56,6 +61,7 @@ from biped_mpc_py_torch.parallel.rollout_art import (
     art_mpc_config,
     batched_art_rollout,
     batched_art_rollout_kernel,
+    batched_art_rollout_tick_kernel,
     init_art_world,
 )
 
@@ -83,6 +89,7 @@ __all__ = [
     "art_mpc_config",
     "batched_art_rollout",
     "batched_art_rollout_kernel",
+    "batched_art_rollout_tick_kernel",
     "init_art_world",
     "__version__",
 ]

@@ -1,0 +1,437 @@
+// Fused articulated tick of a batch of HECTOR envs, for Hopper (sm_90a):
+// the walking low-level control and the physics below one MPC tick.
+//
+// Replaces the TPU kernel biped_mpc_py_tpu/ops/pallas/tick_kernel.py::
+// make_fused_tick (its pallas_call). One launch advances every env through
+// n_lowlevel periods of ll_dt; period p runs, at t_ll = t0 + p ll_dt:
+//
+//   feedback: the two leg chains' world poses and body velocities, the
+//     whole-body CoM position and velocity, the torso z, the Euler angles of
+//     the torso rotation R0, and the sole points         (feedback_and_soles)
+//   control: the walking swing clock t_ll - t_p floor(t_ll / t_p), the
+//     Raibert target, the swing PD, the stance wrench mapped by Jᵀ, and the
+//     pivot, hip-yaw and flight-yaw channels             (low_level_control)
+//   energy += sum_j max(tau_j qd_j, 0) ll_dt, with qd at the period's start
+//   n_substeps calls of substep() (substep_device.cuh), tau and Minv held
+//
+// and writes the state and the energy; t advances by the MPC dt once, on
+// the host side. The semantics are those of the plain version
+// fused_tick_reference in ops/cuda/tick_kernel.py. The two differ in f32
+// rounding (order of sums, fused multiply-adds, the control's rotation taken
+// from the quaternion where the plain version rebuilds it from the Euler
+// angles) and in one place by design: the swing clock is the floor form of
+// the Pallas kernel, where the plain version takes the exact remainder, so a
+// clock within an ulp of a phase boundary can read the other end of the
+// phase.
+//
+// What bounds it on this card: one long dependent chain of scalar f32 math
+// per env. A period is 5 substeps (~25k dependent instructions, see
+// substep.cu) plus the feedback (two 5-level chains with the CoM sums) and
+// the control (two closed-form leg Jacobians, a few dozen transcendentals),
+// so a tick is ~200k dependent instructions per thread. Memory is small: 33
+// state, 18 control and 256 Minv floats per env, read once (Minv re-read
+// from L1/L2 every substep).
+//
+// What the design does about it (a simple, correct first version):
+//  - One thread per env, as in substep.cu: the state, the torques and the
+//    energy stay in registers across all periods. Any N works.
+//  - Blocks of 32 threads; a block stages the model's 466 constants and the
+//    tick's constants (body masses and CoMs, the sole depth, the gains, the
+//    command, the gait cadence and the Jacobian geometry) in shared memory,
+//    read by every thread at the same address (a broadcast). The gains are
+//    data, so one build serves every config; the four config switches are
+//    the bits of `flags`.
+//  - The native atan2f and asinf (the Pallas kernel's polynomials exist only
+//    because the TPU compiler lacks them). No --use_fast_math.
+// Not done yet: splitting the two legs across threads, fewer live values.
+
+#include "substep_device.cuh"
+
+namespace {
+
+constexpr int kThreads = 32;
+constexpr float kPi = 3.14159265358979323846f;
+
+// tick constant buffer layout (ops/cuda/tick_kernel.py::tick_constants)
+constexpr int kTMass = 0;        // body masses, 11
+constexpr int kTCom = 11;        // body CoMs in their own frames, 11 x 3
+constexpr int kTTipZ = 44;       // the sole point's z in the foot frame
+constexpr int kTTotalMass = 45;  // sum of the masses
+constexpr int kTCtrl = 46;       // control constants, indexed by Ctrl
+enum Ctrl {
+  kTp, kRate, kTwoRate, kXc2, kXc3, kXc4, kXc8, kXc9, kXc10, kKv, kKp, kKd, kH, kHRate,
+  kTff, kTdDamp, kKpOver, kRetract, kYOffset, kCaptureGain, kCaptureSched, kKcBase, kAmY,
+  kAmX, kPitchPlace, kPitchNom, kFf, kVint, kYawLead, kKpHipyaw, kKdHipyaw, kHipyawClip,
+  kHipyawLead, kTauYawClip, kFlightYawKd, kKpPivot, kKdPivot, kLThigh, kLShank, kLFoot,
+  kAbdY, kAbdYConst, kHipX, kHipY, kHipZ, kNCtrl
+};
+constexpr int kNTick = kTCtrl + kNCtrl;
+// flag bits
+constexpr int kSin2 = 1, kCmdBodyFrame = 2, kCompatFrame = 4, kCompatYaw = 8;
+
+__device__ __forceinline__ float clipf(float v, float lo, float hi) {
+  return fminf(fmaxf(v, lo), hi);
+}
+
+__device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
+  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
+}
+
+// o = R v and o = R^T v
+__device__ __forceinline__ void mv3(const float R[3][3], const float v[3], float o[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) o[i] = R[i][0] * v[0] + R[i][1] * v[1] + R[i][2] * v[2];
+}
+__device__ __forceinline__ void mtv3(const float R[3][3], const float v[3], float o[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) o[i] = R[0][i] * v[0] + R[1][i] * v[1] + R[2][i] * v[2];
+}
+
+// The controller's feedback x (12): [roll, pitch, yaw, CoM x, CoM y, torso z,
+// R0 omega, CoM vx, CoM vy, torso vz], the sole points (2 x 3) and R0.
+__device__ __forceinline__ void feedback(const float* __restrict__ C, const float* __restrict__ T,
+                                         const float pos[3], const float quat[4],
+                                         const float vb[6], const float q[10],
+                                         const float qd[10], float R0[3][3], float x[12],
+                                         float soles[2][3]) {
+  quat_to_rotm(quat, R0);
+  const float* mass = T + kTMass;
+  const float* com = T + kTCom;
+  float p_acc[3], v_acc[3];
+  {
+    const float c0[3] = {com[0], com[1], com[2]};
+    float wc[3], rc[3], rv[3];
+    cross3(&vb[0], c0, wc);
+    const float v0[3] = {vb[3] + wc[0], vb[4] + wc[1], vb[5] + wc[2]};
+    mv3(R0, c0, rc);
+    mv3(R0, v0, rv);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      p_acc[i] = mass[0] * (pos[i] + rc[i]);
+      v_acc[i] = mass[0] * rv[i];
+    }
+  }
+#pragma unroll
+  for (int leg = 0; leg < 2; ++leg) {
+    float Rw[3][3], pw[3], v[6];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      pw[i] = pos[i];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) Rw[i][k] = R0[i][k];
+    }
+#pragma unroll
+    for (int i = 0; i < 6; ++i) v[i] = vb[i];
+#pragma unroll
+    for (int l = 0; l < 5; ++l) {
+      const int j = 5 * leg + l, ax = axis_of(l);
+      const float c = cosf(q[j]), s = sinf(q[j]);
+      const float off[3] = {C[kOffJoint + 3 * j], C[kOffJoint + 3 * j + 1],
+                            C[kOffJoint + 3 * j + 2]};
+      float ro[3];
+      mv3(Rw, off, ro);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) pw[i] += ro[i];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {  // Rw <- Rw R_pc, row by row
+        float row[3];
+        rot_cp(ax, c, s, Rw[i], row);
+        Rw[i][0] = row[0]; Rw[i][1] = row[1]; Rw[i][2] = row[2];
+      }
+      motion_to_child(ax, c, s, off, v);
+      v[ax] += qd[j];
+      const float m = mass[1 + j];
+      const float ci[3] = {com[3 * (1 + j)], com[3 * (1 + j) + 1], com[3 * (1 + j) + 2]};
+      float wc[3], rc[3], rv[3];
+      cross3(&v[0], ci, wc);
+      const float vci[3] = {v[3] + wc[0], v[4] + wc[1], v[5] + wc[2]};
+      mv3(Rw, ci, rc);
+      mv3(Rw, vci, rv);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        p_acc[i] += m * (pw[i] + rc[i]);
+        v_acc[i] += m * rv[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) soles[leg][i] = pw[i] + Rw[i][2] * T[kTTipZ];
+  }
+  const float total = T[kTTotalMass];
+  float w_w[3], v_t[3];
+  mv3(R0, &vb[0], w_w);
+  mv3(R0, &vb[3], v_t);
+  x[0] = atan2f(R0[2][1], R0[2][2]);
+  x[1] = -asinf(clipf(R0[2][0], -1.f, 1.f));
+  x[2] = atan2f(R0[1][0], R0[0][0]);
+  x[3] = p_acc[0] / total;
+  x[4] = p_acc[1] / total;
+  x[5] = pos[2];
+  x[6] = w_w[0]; x[7] = w_w[1]; x[8] = w_w[2];
+  x[9] = v_acc[0] / total;
+  x[10] = v_acc[1] / total;
+  x[11] = v_t[2];
+}
+
+// Columns of the controller chain's foot-position Jacobian (jf) and joint
+// axes (ax) of one leg, in the body frame (models/kinematics.py::
+// leg_jacobians): p(q) = Rz(q0) (hip + Rx(q1) (abd + pitch chain)).
+__device__ __forceinline__ void leg_jacobian(const float* __restrict__ K, const float q5[5],
+                                             float side, float jf[5][3], float ax[5][3]) {
+  const float c0 = cosf(q5[0]), s0 = sinf(q5[0]);
+  const float c1 = cosf(q5[1]), s1 = sinf(q5[1]);
+  const float th[3] = {q5[2], q5[2] + q5[3], q5[2] + q5[3] + q5[4]};
+  const float L[3] = {K[kLThigh], K[kLShank], K[kLFoot]};
+  float lc[3], ls[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) { lc[i] = L[i] * cosf(th[i]); ls[i] = L[i] * sinf(th[i]); }
+  const float u0 = -(ls[0] + ls[1] + ls[2]), u2 = -(lc[0] + lc[1] + lc[2]);
+  const float u1 = K[kAbdY] * side + K[kAbdYConst];
+  const float w0 = K[kHipX] + u0;
+  const float w1 = K[kHipY] * side + (c1 * u1 - s1 * u2);
+  jf[0][0] = -s0 * w0 - c0 * w1; jf[0][1] = c0 * w0 - s0 * w1; jf[0][2] = 0.f;
+  const float du1 = -s1 * u1 - c1 * u2, du2 = c1 * u1 - s1 * u2;
+  jf[1][0] = -s0 * du1; jf[1][1] = c0 * du1; jf[1][2] = du2;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float ds = 0.f, dz = 0.f;
+#pragma unroll
+    for (int i = k; i < 3; ++i) { ds += lc[i]; dz += ls[i]; }
+    const float y = -s1 * dz;  // Rz Rx (-ds, 0, dz)
+    jf[2 + k][0] = c0 * -ds - s0 * y; jf[2 + k][1] = s0 * -ds + c0 * y; jf[2 + k][2] = c1 * dz;
+  }
+  ax[0][0] = 0.f; ax[0][1] = 0.f; ax[0][2] = 1.f;
+  ax[1][0] = c0; ax[1][1] = s0; ax[1][2] = 0.f;
+#pragma unroll
+  for (int k = 2; k < 5; ++k) { ax[k][0] = -s0 * c1; ax[k][1] = c0 * c1; ax[k][2] = s1; }
+}
+
+// Joint torques (10) of one low-level period.
+__device__ __forceinline__ void control_tau(const float* __restrict__ T, int flags,
+                                            const float R0[3][3], const float x[12],
+                                            const float soles[2][3], const float q[10],
+                                            const float qd[10], const float u0[12],
+                                            const float c0[2], float t_ll, float cmd_yaw,
+                                            const float v_int[2], float tau[10]) {
+  const float* K = T + kTCtrl;
+  const float yaw = x[2];
+  const float yaw_des = (flags & kCmdBodyFrame) ? cmd_yaw : K[kXc2];
+  const float dy_raw = yaw_des - yaw;
+  const float dyaw = atan2f(sinf(dy_raw), cosf(dy_raw));
+  const float q_yaw_des = clipf(dyaw - K[kHipyawLead] * (x[8] - K[kXc8]), -K[kHipyawClip],
+                                 K[kHipyawClip]);
+  const float flight = (1.f - c0[0]) * (1.f - c0[1]);
+  const float tau_fly = flight * clipf(K[kFlightYawKd] * (x[8] - K[kXc8]), -K[kTauYawClip],
+                                        K[kTauYawClip]);
+
+  // swing clock (walking: one clock for both legs)
+  const float t_p = K[kTp];
+  const float u = t_ll - t_p * floorf(t_ll / t_p);
+  const float frac = u / t_p;
+  const float s_ph = sinf(kPi * u / t_p);
+  float fz, dfz;
+  if (flags & kSin2) {
+    fz = K[kH] * s_ph * s_ph;
+    dfz = K[kHRate] * sinf(K[kTwoRate] * u);
+  } else {
+    fz = K[kH] * s_ph;
+    dfz = K[kHRate] * cosf(K[kRate] * u);
+  }
+  const float r = clipf((frac - 0.6f) / 0.4f, 0.f, 1.f);
+  const float ramp = r * r;
+
+  // Raibert target (control/reference.py::_raibert_xy)
+  const float cyw = cosf(yaw), syw = sinf(yaw);
+  float vcx, vcy, kv_x = 0.f, kv_y = 0.f;
+  if (flags & kCmdBodyFrame) {
+    vcx = cyw * K[kXc9] - syw * K[kXc10];
+    vcy = syw * K[kXc9] + cyw * K[kXc10];
+  } else {
+    vcx = K[kXc9];
+    vcy = K[kXc10];
+    kv_x = K[kKv] * (x[3] - K[kXc3]);
+    kv_y = K[kKv] * (x[4] - K[kXc4]);
+  }
+  const float ex = x[9] - vcx, ey = x[10] - vcy;
+  const float gain = fminf(K[kCaptureGain] + K[kCaptureSched] * sqrtf(ex * ex + ey * ey), 1.f);
+  const float kc = gain * K[kKcBase];
+  const float vx_m = x[9] + K[kAmY] * x[7];
+  const float vy_m = x[10] - K[kAmX] * x[6];
+  const float pp = K[kPitchPlace] * (x[1] - K[kPitchNom]);
+  const float fx = (x[3] + vx_m * K[kFf] + kc * (vx_m - vcx) + kv_x + pp) - K[kVint] * v_int[0];
+  const float fy = (x[4] + vy_m * K[kFf] + kc * (vy_m - vcy) + kv_y) - K[kVint] * v_int[1];
+
+  const float yaw_td = yaw + K[kYawLead];
+  const float sin_td = sinf(yaw_td), cos_td = cosf(yaw_td);
+  const float retract = K[kRetract] * ramp, damp = K[kTdDamp] * ramp;
+  const float over = K[kKpOver] * ramp;
+  const float v_des[3] = {K[kTff] * x[9], K[kTff] * x[10], K[kTff] * dfz};
+  const float vec_z_dir[3] = {R0[2][0], R0[2][1], R0[2][2]};
+
+#pragma unroll
+  for (int leg = 0; leg < 2; ++leg) {
+    const float side = leg == 0 ? 1.f : -1.f;
+    const float* q5 = q + 5 * leg;
+    const float* qd5 = qd + 5 * leg;
+    float jf[5][3], ax[5][3];
+    leg_jacobian(K, q5, side, jf, ax);
+    float jfqd[3], vf_w[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < 5; ++j) acc += jf[j][i] * qd5[j];
+      jfqd[i] = acc;
+    }
+    if (flags & kCompatFrame) mtv3(R0, jfqd, vf_w); else mv3(R0, jfqd, vf_w);
+
+    float tx, ty;
+    if (flags & kCompatYaw) {
+      tx = fx;
+      ty = fy + 0.04f * side;  // reference Y_OFFSET (control/swing.py)
+    } else {
+      tx = fx - sin_td * K[kYOffset] * side;
+      ty = fy + cos_td * K[kYOffset] * side;
+    }
+    const float foot_des[3] = {tx - retract * cyw, ty - retract * syw, fz};
+    float f_sw[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      f_sw[i] = K[kKp] * (foot_des[i] - soles[leg][i]) + K[kKd] * (v_des[i] - vf_w[i]);
+    f_sw[0] -= damp * vf_w[0];
+    f_sw[1] -= damp * vf_w[1];
+    f_sw[2] -= over;
+    if (!(flags & kCompatFrame)) {
+      const float w[3] = {f_sw[0], f_sw[1], f_sw[2]};
+      mtv3(R0, w, f_sw);
+    }
+
+    const float f3[3] = {u0[3 * leg], u0[3 * leg + 1], u0[3 * leg + 2]};
+    const float m3[3] = {u0[6 + 3 * leg], u0[7 + 3 * leg], u0[8 + 3 * leg]};
+    float u_f[3], u_m[3];
+    mtv3(R0, f3, u_f);
+    mtv3(R0, m3, u_m);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) { u_f[i] = -u_f[i]; u_m[i] = -u_m[i]; }
+    const float tau_pivot = -K[kKpPivot] * clipf(dyaw, -0.3f, 0.3f)
+                            - K[kKdPivot] * (qd5[0] + K[kXc8]);
+    const float m_yaw = K[kKpHipyaw] * (q_yaw_des - q5[0]) - K[kKdHipyaw] * qd5[0];
+    const float vec_z[3] = {vec_z_dir[0] * m_yaw, vec_z_dir[1] * m_yaw, vec_z_dir[2] * m_yaw};
+    const float c = c0[leg];
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+      float t_st = dot3(jf[j], u_f) + dot3(ax[j], u_m);
+      float t_sw = dot3(jf[j], f_sw);
+      if (j == 0) {
+        t_st += tau_pivot;
+        t_sw += tau_fly;
+      }
+      const float t_yaw = clipf(dot3(ax[j], vec_z), -K[kTauYawClip], K[kTauYawClip]);
+      tau[5 * leg + j] = t_st * c + (t_sw + t_yaw) * (1.f - c);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+tick_kernel(const float* __restrict__ consts, const float* __restrict__ tconsts,
+            const float* __restrict__ pos_in, const float* __restrict__ quat_in,
+            const float* __restrict__ vb_in, const float* __restrict__ q_in,
+            const float* __restrict__ qd_in, const float* __restrict__ u0_in,
+            const float* __restrict__ c0_in, const float* __restrict__ t0_in,
+            const float* __restrict__ cmd_yaw_in, const float* __restrict__ v_int_in,
+            const float* __restrict__ minv_in, float* __restrict__ pos_out,
+            float* __restrict__ quat_out, float* __restrict__ vb_out,
+            float* __restrict__ q_out, float* __restrict__ qd_out,
+            float* __restrict__ energy_out, int n_env, double ll_dt, float sub_dt,
+            int n_lowlevel, int n_substeps, int flags) {
+  __shared__ float C[kNConst];
+  __shared__ float T[kNTick];
+  for (int i = threadIdx.x; i < kNConst; i += kThreads) C[i] = consts[i];
+  for (int i = threadIdx.x; i < kNTick; i += kThreads) T[i] = tconsts[i];
+  __syncthreads();
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= n_env) return;
+
+  float pos[3], quat[4], vb[6], q[10], qd[10], u0[12];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) pos[i] = pos_in[3 * e + i];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) quat[i] = quat_in[4 * e + i];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) vb[i] = vb_in[6 * e + i];
+#pragma unroll
+  for (int j = 0; j < 10; ++j) {
+    q[j] = q_in[10 * e + j];
+    qd[j] = qd_in[10 * e + j];
+  }
+#pragma unroll
+  for (int i = 0; i < 12; ++i) u0[i] = u0_in[12 * e + i];
+  const float c0[2] = {c0_in[2 * e], c0_in[2 * e + 1]};
+  const float v_int[2] = {v_int_in[2 * e], v_int_in[2 * e + 1]};
+  const float t0 = t0_in[e], cmd_yaw = cmd_yaw_in[e];
+  const float4* minv = reinterpret_cast<const float4*>(minv_in) + 64 * static_cast<size_t>(e);
+  const float ll_dt_f = static_cast<float>(ll_dt);
+
+  float energy = 0.f;
+#pragma unroll 1
+  for (int p = 0; p < n_lowlevel; ++p) {
+    // p ll_dt rounded once to f32, as the plain version adds a Python float
+    const float t_ll = t0 + static_cast<float>(p * ll_dt);
+    float R0[3][3], x[12], soles[2][3], tau[10];
+    feedback(C, T, pos, quat, vb, q, qd, R0, x, soles);
+    control_tau(T, flags, R0, x, soles, q, qd, u0, c0, t_ll, cmd_yaw, v_int, tau);
+    float work = 0.f;
+#pragma unroll
+    for (int j = 0; j < 10; ++j) work += fmaxf(tau[j] * qd[j], 0.f);
+    energy += work * ll_dt_f;
+#pragma unroll 1
+    for (int s = 0; s < n_substeps; ++s) substep(C, pos, quat, vb, q, qd, tau, minv, sub_dt);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 3; ++i) pos_out[3 * e + i] = pos[i];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) quat_out[4 * e + i] = quat[i];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) vb_out[6 * e + i] = vb[i];
+#pragma unroll
+  for (int j = 0; j < 10; ++j) {
+    q_out[10 * e + j] = q[j];
+    qd_out[10 * e + j] = qd[j];
+  }
+  energy_out[e] = energy;
+}
+
+}  // namespace
+
+// The length of the tick constant buffer this build expects (the wrapper
+// checks it against its own layout).
+extern "C" int tick_n_consts() { return kNTick; }
+
+// Launch on `stream` (a cudaStream_t) of device `device`; `minv` must be
+// 16-byte aligned. Returns the cudaError_t of the launch (0 = success); the
+// kernel allocates nothing and does not synchronize.
+extern "C" int tick_launch(const float* consts, const float* tconsts, const float* pos,
+                           const float* quat, const float* v_base, const float* q,
+                           const float* qd, const float* u0, const float* c0, const float* t0,
+                           const float* cmd_yaw, const float* v_int, const float* minv,
+                           float* pos_out, float* quat_out, float* v_base_out, float* q_out,
+                           float* qd_out, float* energy_out, int n_env, double ll_dt,
+                           float sub_dt, int n_lowlevel, int n_substeps, int flags, int device,
+                           void* stream) {
+  if (n_env < 0 || n_lowlevel < 1 || n_substeps < 1 ||
+      (reinterpret_cast<size_t>(minv) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_env == 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (n_env + kThreads - 1) / kThreads;
+  tick_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      consts, tconsts, pos, quat, v_base, q, qd, u0, c0, t0, cmd_yaw, v_int, minv, pos_out,
+      quat_out, v_base_out, q_out, qd_out, energy_out, n_env, ll_dt, sub_dt, n_lowlevel,
+      n_substeps, flags);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* tick_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -2,8 +2,9 @@
 
 Each kernel is one ``csrc/*.cu`` file with a plain C interface. :func:`build`
 compiles sources with ``nvcc`` for sm_90a into shared libraries under
-``build/torch_kernels/``, each named by the hash of its source and the
-flags, so an edited source is rebuilt and an unchanged one is reused. Several
+``build/torch_kernels/``, each named by the hash of its source, the shared
+headers in ``csrc/`` and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused. Several
 sources compile in parallel, one ``nvcc`` process each. :func:`load` opens a
 built library with ctypes and declares its functions.
 
@@ -38,11 +39,14 @@ def _nvcc() -> str:
 
 
 def _library_path(source: Path) -> Path:
-    """Where the shared library of ``source`` goes (named by content)."""
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    """Where the shared library of ``source`` goes, named by the content of
+    the source, of every header beside it (``*.cuh``, which a source may
+    include) and of the flags."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
 
 
 def build(*sources: Path, verbose: bool = False) -> list[Path]:

@@ -1,0 +1,259 @@
+"""The fused articulated tick: CUDA kernel wrapper and plain version.
+
+Counterpart of ``biped_mpc_py_tpu/ops/pallas/tick_kernel.py::
+make_fused_tick``. :func:`fused_tick` runs everything below the MPC layer
+of one tick for a batch of envs: ``n_lowlevel`` periods of the whole-body
+feedback, the walking low-level control (swing clock, Raibert target,
+swing PD, stance Jᵀ map, pivot, hip-yaw and flight-yaw channels), the
+positive joint work, and ``n_substeps`` physics substeps with the torques
+and a held mass-matrix inverse. The clock of period p is ``t0 + p ll_dt``;
+``t`` advances by ``mpc.dt`` once, on the host side, as in the JAX wrapper.
+
+Tensors on the card go to the CUDA kernel in ``csrc/tick.cu`` (one thread
+per env), built with ``nvcc`` at first use (``ops/cuda/build.py``). Tensors
+on the CPU go to :func:`fused_tick_reference`, the same tick composed of
+``sim/engine.py::feedback_and_soles``, ``control/lowlevel.py::
+low_level_control`` and ``fused_substeps_reference``. Nothing else chooses
+between the two.
+
+The kernel reads the model, the gains and the leg geometry from constant
+buffers (:func:`~biped_mpc_py_torch.ops.cuda.substep_kernel.model_constants`
+and :func:`tick_constants`), so they are runtime inputs, one set for the
+whole batch as in JAX. Scope, as the Pallas kernel's: walking gaits
+(``flight_steps == 0``), flat ground, ``Minv`` held all tick.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+
+import torch
+
+from biped_mpc_py_torch.config import GaitConfig, MpcConfig
+from biped_mpc_py_torch.control.gait import phase_time
+from biped_mpc_py_torch.control.lowlevel import low_level_control
+from biped_mpc_py_torch.models.biped import BipedParams
+from biped_mpc_py_torch.ops.cuda import build
+from biped_mpc_py_torch.ops.cuda.substep_kernel import (
+    fused_substeps_reference,
+    model_constants,
+)
+from biped_mpc_py_torch.sim.engine import ArtState, feedback_and_soles
+from biped_mpc_py_torch.sim.model import ArticulatedModel
+
+SOURCE = build.CSRC / "tick.cu"
+# The tick constant buffer: body masses (11), CoMs (11x3), the sole depth,
+# the total mass, then the control constants in the order of CONTROL_NAMES
+# (mirrored by the Ctrl enum of csrc/tick.cu).
+CONTROL_NAMES = (
+    "t_p", "rate", "two_rate", "xc2", "xc3", "xc4", "xc8", "xc9", "xc10", "kv",
+    "kp", "kd", "H", "H_rate", "tff", "td_damp", "kp_over", "retract",
+    "y_offset", "capture_gain", "capture_sched", "kc_base", "am_y", "am_x",
+    "pitch_place", "pitch_nom", "ff", "vint", "yaw_lead", "kp_hipyaw",
+    "kd_hipyaw", "hipyaw_clip", "hipyaw_lead", "tau_yaw_clip",
+    "flight_yaw_kd", "kp_pivot", "kd_pivot", "l_thigh", "l_shank", "l_foot",
+    "abd_y", "abd_y_const", "hip_x", "hip_y", "hip_z",
+)
+N_TICK_CONSTS = 11 + 33 + 2 + len(CONTROL_NAMES)  # 91 floats
+# the bits of the kernel's `flags` argument
+FLAG_SIN2, FLAG_CMD_BODY_FRAME, FLAG_COMPAT_FRAME, FLAG_COMPAT_YAW = 1, 2, 4, 8
+_GEOMETRY = ("l_thigh", "l_shank", "l_foot", "abd_y", "abd_y_const", "hip_x", "hip_y", "hip_z")
+
+_lib = None
+_consts_cache: tuple | None = None  # (objects, device, buffers) of the last call
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib = build.load(SOURCE, {
+            "tick_launch": (
+                [ptr] * 19 + [i32, ctypes.c_double, ctypes.c_float, i32, i32, i32, i32, ptr],
+                i32,
+            ),
+            "tick_n_consts": ([], i32),
+            "tick_error_string": ([i32], ctypes.c_char_p),
+        })
+        if lib.tick_n_consts() != N_TICK_CONSTS:
+            raise RuntimeError(
+                f"csrc/tick.cu expects {lib.tick_n_consts()} tick constants, "
+                f"the wrapper packs {N_TICK_CONSTS}"
+            )
+        _lib = lib
+    return _lib
+
+
+def tick_constants(model: ArticulatedModel, biped: BipedParams, mpc: MpcConfig,
+                   gait: GaitConfig, device) -> torch.Tensor:
+    """The tick's flat f32 buffer (N_TICK_CONSTS,): the model's body masses
+    and CoMs, the sole point's z in the foot frame, the total mass, then the
+    control constants of CONTROL_NAMES: the gait cadence, the ``x_cmd``
+    entries and gains of ``mpc``, the products that the plain version forms
+    from Python floats (computed the same way here), and ``biped``'s
+    Jacobian leg geometry."""
+    t_p = phase_time(mpc, gait)
+    rate = math.pi / t_p
+    xc = mpc.x_cmd
+    geom = biped.jac_geometry
+    control = {
+        "t_p": t_p, "rate": rate, "two_rate": 2.0 * rate,
+        "xc2": xc[2], "xc3": xc[3], "xc4": xc[4], "xc8": xc[8], "xc9": xc[9],
+        "xc10": xc[10], "kv": mpc.kv, "kp": mpc.kp_swing, "kd": mpc.kd_swing,
+        "H": mpc.swing_height, "H_rate": mpc.swing_height * rate,
+        "tff": mpc.swing_track_ff, "td_damp": mpc.swing_td_damp,
+        "kp_over": mpc.kp_swing * mpc.swing_td_overdrive,
+        "retract": mpc.swing_retract, "y_offset": mpc.swing_y_offset,
+        "capture_gain": mpc.raibert_capture_gain,
+        "capture_sched": mpc.capture_sched,
+        "kc_base": math.sqrt(max(xc[5], 0.0) / 9.81),
+        "am_y": mpc.raibert_am_y, "am_x": mpc.raibert_am_x,
+        "pitch_place": mpc.raibert_pitch_place,
+        "pitch_nom": mpc.raibert_pitch_nom,
+        "ff": 0.5 * t_p * mpc.raibert_ff_scale, "vint": mpc.raibert_vint,
+        "yaw_lead": xc[8] * 0.5 * t_p, "kp_hipyaw": mpc.kp_hipyaw,
+        "kd_hipyaw": mpc.kd_hipyaw, "hipyaw_clip": mpc.hipyaw_target_clip,
+        "hipyaw_lead": mpc.hipyaw_rate_lead, "tau_yaw_clip": mpc.tau_yaw_clip,
+        "flight_yaw_kd": mpc.flight_yaw_kd, "kp_pivot": mpc.kp_pivot,
+        "kd_pivot": mpc.kd_pivot,
+        **{k: float(getattr(geom, k)[0]) for k in _GEOMETRY},
+    }
+    f32 = torch.float32
+    mass = model.mass.to(f32).cpu()
+    buf = torch.cat([
+        mass, model.com.to(f32).reshape(-1).cpu(),
+        model.contact_points[0, 2:3].to(f32).cpu(), torch.sum(mass).reshape(1),
+        torch.tensor([control[k] for k in CONTROL_NAMES], dtype=f32),
+    ])
+    assert buf.numel() == N_TICK_CONSTS
+    return buf.to(device)
+
+
+def _flags(mpc: MpcConfig) -> int:
+    return (FLAG_SIN2 * mpc.swing_z_sin2 + FLAG_CMD_BODY_FRAME * mpc.cmd_body_frame
+            + FLAG_COMPAT_FRAME * mpc.compat_swing_frame_bug
+            + FLAG_COMPAT_YAW * mpc.compat_swing_yaw_bug)
+
+
+def _constants(model, biped, mpc, gait, device):
+    """(model buffer, tick buffer) on ``device``, reused while the same
+    objects come back (the rollout passes the same ones every tick)."""
+    global _consts_cache
+    objs = (model, biped, mpc, gait)
+    if (_consts_cache is None or _consts_cache[1] != device
+            or any(a is not b for a, b in zip(_consts_cache[0], objs))):
+        _consts_cache = (objs, device, (model_constants(model, device),
+                                        tick_constants(model, biped, mpc, gait, device)))
+    return _consts_cache[2]
+
+
+def _check(biped, gait, state, u0, c0, t0, cmd_yaw, v_int, Minv, n_lowlevel,
+           n_substeps, terrain):
+    if gait.flight_steps > 0:
+        raise ValueError("the tick kernel runs walking gaits only (flight_steps == 0)")
+    if terrain is not None:
+        raise ValueError("the tick kernel runs on flat ground only (terrain is None)")
+    if n_lowlevel < 1 or n_substeps < 1:
+        raise ValueError("n_lowlevel and n_substeps must be >= 1")
+    if biped.jac_geometry.l_thigh.shape[0] != 1:
+        raise ValueError("biped must hold one robot (leading axis 1): the "
+                         "kernel's leg geometry is one per batch")
+    n = state.q.shape[0]
+    want = {
+        "pos": (state.pos, (n, 3)), "quat": (state.quat, (n, 4)),
+        "v_base": (state.v_base, (n, 6)), "q": (state.q, (n, 10)),
+        "qd": (state.qd, (n, 10)), "t": (state.t, (n,)), "u0": (u0, (n, 12)),
+        "c0": (c0, (n, 2)), "t0": (t0, (n,)), "cmd_yaw": (cmd_yaw, (n,)),
+        "v_int": (v_int, (n, 2)), "Minv": (Minv, (n, 16, 16)),
+    }
+    for name, (t, shape) in want.items():
+        if t.device != state.q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {state.q.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
+    return n
+
+
+def fused_tick(model: ArticulatedModel, biped: BipedParams, mpc: MpcConfig,
+               gait: GaitConfig, state: ArtState, u0: torch.Tensor, c0: torch.Tensor,
+               t0: torch.Tensor, cmd_yaw: torch.Tensor, v_int: torch.Tensor,
+               Minv: torch.Tensor, n_lowlevel: int = 8, n_substeps: int = 5,
+               terrain=None) -> tuple[ArtState, torch.Tensor]:
+    """One tick below the MPC layer -> (ArtState, energy (N,)).
+
+    Args:
+      model: one ArticulatedModel for the whole batch.
+      biped: one robot (leading axis 1): its Jacobian leg geometry serves
+        every env's low-level control (the MPC stage takes the per-env
+        batch).
+      state: ArtState with a leading env axis N (any N).
+      u0: (N,12) first MPC control, held all tick; c0: (N,2) first-row
+        contact flags; t0: (N,) gait time at the tick's start; cmd_yaw: (N,)
+        the command anchor's yaw; v_int: (N,2); Minv: (N,16,16) held.
+      terrain: must be None (flat ground).
+
+    CUDA tensors launch the kernel (and count the launch in
+    ``fused_tick.launches``); CPU tensors run :func:`fused_tick_reference`.
+    Raises ValueError on a running gait or a terrain.
+    """
+    n = _check(biped, gait, state, u0, c0, t0, cmd_yaw, v_int, Minv, n_lowlevel,
+               n_substeps, terrain)
+    device = state.q.device
+    if device.type == "cpu":
+        return fused_tick_reference(model, biped, mpc, gait, state, u0, c0, t0, cmd_yaw,
+                                    v_int, Minv, n_lowlevel, n_substeps)
+    if device.type != "cuda":
+        raise ValueError(f"fused_tick runs on cuda or cpu, not {device}")
+    ins = [t.contiguous() for t in (state.pos, state.quat, state.v_base, state.q, state.qd,
+                                    u0, c0, t0, cmd_yaw, v_int, Minv)]
+    outs = [torch.empty_like(t) for t in ins[:5]] + [torch.empty_like(ins[7])]
+    if n > 0:
+        lib = _load()
+        model_buf, tick_buf = _constants(model, biped, mpc, gait, device)
+        ll_dt = mpc.dt / n_lowlevel
+        rc = lib.tick_launch(
+            model_buf.data_ptr(), tick_buf.data_ptr(), *[t.data_ptr() for t in ins + outs],
+            n, ll_dt, float(ll_dt / n_substeps), int(n_lowlevel), int(n_substeps),
+            _flags(mpc),
+            device.index if device.index is not None else torch.cuda.current_device(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+        if rc != 0:
+            msg = lib.tick_error_string(rc).decode()
+            raise RuntimeError(f"tick kernel launch failed: {msg} ({rc})")
+        fused_tick.launches += 1
+    new = ArtState(pos=outs[0], quat=outs[1], v_base=outs[2], q=outs[3], qd=outs[4],
+                   t=state.t + mpc.dt)
+    return new, outs[5]
+
+
+fused_tick.launches = 0
+
+
+def fused_tick_reference(model: ArticulatedModel, biped: BipedParams, mpc: MpcConfig,
+                         gait: GaitConfig, state: ArtState, u0: torch.Tensor,
+                         c0: torch.Tensor, t0: torch.Tensor, cmd_yaw: torch.Tensor,
+                         v_int: torch.Tensor, Minv: torch.Tensor, n_lowlevel: int = 8,
+                         n_substeps: int = 5) -> tuple[ArtState, torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_tick`: per period,
+    ``feedback_and_soles``, ``low_level_control`` at ``t0 + p ll_dt`` (contact
+    row 0 = ``c0``, command yaw = ``cmd_yaw``), the positive work, and
+    ``fused_substeps_reference``; then ``t + mpc.dt``."""
+    n = state.q.shape[0]
+    bipeds = biped.expand(n)
+    contact = c0[:, None, :]
+    cmd_ref = torch.stack([torch.zeros_like(cmd_yaw), torch.zeros_like(cmd_yaw), cmd_yaw], -1)
+    ll_dt = mpc.dt / n_lowlevel
+    energy = torch.zeros_like(t0)
+    sim = state
+    for p in range(n_lowlevel):
+        x, pf = feedback_and_soles(model, sim)
+        tau = low_level_control(x, t0 + p * ll_dt, pf, sim.q, sim.qd, mpc, bipeds, contact,
+                                u0, gait=gait, cmd_ref=cmd_ref, v_int=v_int)
+        energy = energy + torch.sum(torch.clamp(tau * sim.qd, min=0.0), 1) * ll_dt
+        sim = fused_substeps_reference(model, sim, tau, Minv, ll_dt, n_substeps)
+    return dataclasses.replace(sim, t=state.t + mpc.dt), energy

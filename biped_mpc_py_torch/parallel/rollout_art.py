@@ -13,10 +13,13 @@ One 40 ms tick for every env:
 then fall reset, controller-state advance and metrics. The mass-matrix
 inverse is refreshed once per group of ``minv_ll_hold`` low-level periods.
 
-Two entry points differ only in how a low-level period's substeps run:
-:func:`batched_art_rollout_kernel` launches the fused substep kernel once
-per period (the counterpart of ``batched_art_rollout_kernel_fn`` and of
-``bench.py BENCH_MODE=art BENCH_ART_BACKEND=kernel``);
+Three entry points differ in how the work below the MPC layer runs:
+:func:`batched_art_rollout_tick_kernel` runs the whole low-level + physics
+hierarchy of a tick in one fused tick-kernel launch (the counterpart of
+``batched_art_rollout_tick_kernel_fn`` and of ``bench.py BENCH_MODE=art
+BENCH_ART_BACKEND=tick``); :func:`batched_art_rollout_kernel` launches the
+fused substep kernel once per low-level period (the counterpart of
+``batched_art_rollout_kernel_fn``, ``BENCH_ART_BACKEND=kernel``);
 :func:`batched_art_rollout` runs the plain ``art_step`` chain (the
 counterpart of ``batched_art_rollout_fn``). Flat ground only.
 """
@@ -44,6 +47,7 @@ from biped_mpc_py_torch.control.lowlevel import low_level_control
 from biped_mpc_py_torch.control.mpc import solve_mpc
 from biped_mpc_py_torch.models.biped import BipedParams
 from biped_mpc_py_torch.ops.cuda.substep_kernel import fused_substeps
+from biped_mpc_py_torch.ops.cuda.tick_kernel import fused_tick
 from biped_mpc_py_torch.sim.contact import no_terrain
 from biped_mpc_py_torch.sim.engine import (
     ArtState,
@@ -298,4 +302,42 @@ def batched_art_rollout_kernel(worlds: ArtWorld, bipeds: BipedParams,
     w = worlds
     for _ in range(n_steps):
         w = _art_tick(w, bipeds, mpc, gait, model, n_lowlevel, minv_ll_hold, physics)
+    return w
+
+
+@f32_precision
+@torch.no_grad()
+def batched_art_rollout_tick_kernel(worlds: ArtWorld, bipeds: BipedParams,
+                                    n_steps: int, mpc: MpcConfig, gait: GaitConfig,
+                                    model: ArticulatedModel | None = None,
+                                    biped: BipedParams | None = None,
+                                    n_lowlevel: int = 8,
+                                    n_substeps: int = 5) -> ArtWorld:
+    """``n_steps`` articulated ticks with everything below the MPC layer in
+    one :func:`~biped_mpc_py_torch.ops.cuda.tick_kernel.fused_tick` call per
+    tick (one kernel launch on the card): the counterpart of
+    ``batched_art_rollout_tick_kernel_fn``.
+
+    Each tick: the MPC stage, one mass-matrix inverse held all tick, the
+    fused tick (``n_lowlevel`` periods of feedback, low-level control and
+    ``n_substeps`` substeps), then fall reset, controller state and
+    metrics. The MPC stage takes the per-env ``bipeds``; the low-level
+    control takes the leg geometry of the one robot ``biped`` (default
+    ``BipedParams()``), as in JAX. Walking gaits on flat ground; any number
+    of envs.
+    """
+    device = worlds.sim.q.device
+    model = model or hector_model(device=device)
+    biped = biped if biped is not None else BipedParams().to(device)
+    w = worlds
+    for _ in range(n_steps):
+        x_fb, t_g, hold, contact, sol = _art_control_stage(w, bipeds, mpc, gait, model)
+        sim = w.sim
+        t0 = t_g if gait.contact_clock else sim.t
+        Minv = mass_matrix_inv(model, sim.q)
+        sim_new, energy = fused_tick(
+            model, biped, mpc, gait, sim, sol.controls[:, 0], contact[:, 0, 0:2], t0,
+            w.ctrl.cmd_ref[:, 2], w.ctrl.v_int, Minv, n_lowlevel, n_substeps,
+        )
+        w = _art_post_stage(w, sim_new, energy, x_fb, sol, t_g, hold, mpc)
     return w

@@ -6,8 +6,9 @@
 Phases, each printed on its own lines:
 
 1. device: the card's name and ``nvidia-smi`` name and power limit;
-2. build: ``nvcc`` compiles ``biped_mpc_py_torch/csrc/qp_admm.cu`` and
-   ``csrc/substep.cu`` for sm_90a from the checkout's sources, in parallel;
+2. build: ``nvcc`` compiles ``biped_mpc_py_torch/csrc/qp_admm.cu``,
+   ``csrc/substep.cu``, ``csrc/tick.cu`` and ``csrc/probe_ops.cu`` for
+   sm_90a from the checkout's sources, in parallel;
 3. QP kernel vs plain: the fused ADMM QP-solve kernel and its plain PyTorch
    version on the same 1024 real MPC QPs (perturbed standing states at
    every gait phase, domain-randomized robots, cold and warm starts), at
@@ -18,15 +19,26 @@ Phases, each printed on its own lines:
    the walking statistics of the two runs;
 5. substep kernel vs plain: the fused articulated-substep kernel and its
    plain version on 1024 perturbed in-contact states, 5 substeps of 1 ms;
-6. articulated slice: 1024 envs x 250 ticks (10 s) walking at 0.3 m/s
-   through ``batched_art_rollout_kernel`` at the bench budget (8 low-level
-   periods of 5 substeps per tick, the mass-matrix inverse held all tick);
-   launch counts, finiteness, falls and the walking bounds; then 3 ticks of
-   the plain substep chain (``batched_art_rollout``) from the same worlds
-   against the kernel path's first 3;
-7. times: the QP solve and the substep call (CUDA events), both rollouts'
-   env-steps/s with kernel and plain version, and a per-stage split of one
-   SRB tick and of one articulated tick.
+6. articulated slice, substep-kernel path: 1024 envs x 250 ticks (10 s)
+   walking at 0.3 m/s through ``batched_art_rollout_kernel`` at the bench
+   budget (8 low-level periods of 5 substeps per tick, the mass-matrix
+   inverse held all tick); launch counts, finiteness, falls and the walking
+   bounds; then 3 ticks of the plain substep chain (``batched_art_rollout``)
+   from the same worlds against the kernel path's first 3;
+7. probe: the four toy CUDA kernels of ``tools/probe_cuda_ops.py`` (asin,
+   remainder, nested loop, atan2) against numpy;
+8. tick kernel vs plain: the fused tick kernel (low-level control and
+   physics of one tick, 8 periods of 5 substeps) and its plain version on
+   1024 and 1000 perturbed in-contact envs with random clocks, flags and
+   controls; the plain version on the CPU against itself on the card as
+   the noise floor;
+9. articulated slice, tick-kernel path: the same 1024 envs x 250 ticks
+   through ``batched_art_rollout_tick_kernel`` (one tick launch per tick);
+   launch counts (250 tick, 250 QP, 0 substep), the walking bounds, and
+   the walking statistics after 25 ticks against the substep-kernel path's;
+10. times: the QP solve, the substep call and the tick call (CUDA events),
+   the rollouts' env-steps/s with kernel and plain version, and a per-stage
+   split of one SRB tick and of one articulated tick on each path.
 
 The line before the last is a JSON object describing the kernels; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -50,6 +62,12 @@ BOUND_BENCH = 0.05
 BOUND_DEFAULT = 0.1
 # Substep kernel vs plain, per field: tests/test_substep_kernel.py:73-76.
 SUBSTEP_BOUNDS = {"pos": 5e-7, "quat": 1e-6, "v_base": 5e-6, "q": 1e-6, "qd": 1e-4}
+# Tick kernel vs plain, per field (energy: rtol 2e-3, atol 1e-3):
+# tests/test_tick_kernel.py:257-261.
+TICK_BOUNDS = {"q": 5e-4, "pos": 5e-4, "quat": 5e-4, "qd": 2e-2}
+# Ticks after which the tick-kernel and substep-kernel paths are compared
+# (tests/test_tick_kernel.py::test_tick_kernel_closed_loop).
+N_COMPARE_TICKS = 25
 
 
 def log(msg: str) -> None:
@@ -71,10 +89,12 @@ def phase_device(torch):
 
 
 def phase_build():
-    from biped_mpc_py_torch.ops.cuda import build, qp_kernel, substep_kernel
+    from biped_mpc_py_torch.ops.cuda import build, qp_kernel, substep_kernel, tick_kernel
+    from biped_mpc_py_torch.tools import probe_cuda_ops
 
     t0 = time.time()
-    paths = build.build(qp_kernel.SOURCE, substep_kernel.SOURCE, verbose=True)
+    paths = build.build(qp_kernel.SOURCE, substep_kernel.SOURCE, tick_kernel.SOURCE,
+                        probe_cuda_ops.SOURCE, verbose=True)
     log(f"[build] {', '.join(p.name for p in paths)} in {time.time() - t0:.1f} s")
 
 
@@ -473,7 +493,9 @@ def phase_art_slice(torch, device):
     qp_kernel.fused_qp_solve.launches = 0
     t0 = time.perf_counter()
     w3 = batched_art_rollout_kernel(w0, bipeds, 3, mpc, gait, model=model)
-    w = batched_art_rollout_kernel(w3, bipeds, N_ART_TICKS - 3, mpc, gait, model=model)
+    w25 = batched_art_rollout_kernel(w3, bipeds, N_COMPARE_TICKS - 3, mpc, gait, model=model)
+    w = batched_art_rollout_kernel(w25, bipeds, N_ART_TICKS - N_COMPARE_TICKS, mpc, gait,
+                                   model=model)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     launches = {"fused_substeps": substep_kernel.fused_substeps.launches,
@@ -483,7 +505,7 @@ def phase_art_slice(torch, device):
     falls = float(m.falls.sum())
     att = (m.attitude_err_sq / m.n_steps).sqrt()
     x_min, att_max, res_max = float(s.pos[:, 0].min()), float(att.max()), float(m.res_prim_max.max())
-    log(f"[art] kernel path: {N_ENVS} envs x {N_ART_TICKS} ticks in {sec:.3f} s, launches "
+    log(f"[art] substep-kernel path: {N_ENVS} envs x {N_ART_TICKS} ticks in {sec:.3f} s, launches "
         f"{json.dumps(launches)}, falls {falls}, finite {finite}, x min {x_min:.4f} mean "
         f"{float(s.pos[:, 0].mean()):.4f} m, att RMS max {att_max:.5f} mean "
         f"{float(att.mean()):.5f}, res_prim max {res_max:.3e}, height "
@@ -505,7 +527,28 @@ def phase_art_slice(torch, device):
     # the bounds of tests/test_substep_kernel.py::test_kernel_rollout_matches_xla
     if not (d_pos < 2e-2 and d_qd < 2.0 and d_tg < 1e-5 and falls3 == (0.0, 0.0)):
         raise AssertionError("the plain chain and the kernel path differ")
-    return launches, sec
+    return launches, sec, w25
+
+
+def _stage_split(torch, names, w, tick):
+    """Mean ms per stage of ``tick(w, mark) -> w`` over 10 ticks after 2
+    (host clock, synchronized at each ``mark(name)``, which closes a stage;
+    a stage marked several times in a tick sums)."""
+    acc = dict.fromkeys(names, 0.0)
+    for i in range(12):
+        torch.cuda.synchronize()
+        t_prev = time.perf_counter()
+
+        def mark(name):
+            nonlocal t_prev
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            if i >= 2:
+                acc[name] += (now - t_prev) * 1e3 / 10
+            t_prev = now
+
+        w = tick(w, mark)
+    return acc
 
 
 def time_art(torch, device):
@@ -541,21 +584,9 @@ def time_art(torch, device):
         f"({sec_chain * 1e3:.3f} ms/tick)")
 
     names = ("control stage (MPC)", "Minv", "low-level x 8", "substeps x 8 (kernel)", "post")
-    acc = dict.fromkeys(names, 0.0)
     ll_dt = mpc.dt / 8
-    w, bipeds = art_worlds(torch, device)
-    for tick in range(12):
-        torch.cuda.synchronize()
-        t_prev = time.perf_counter()
 
-        def mark(name):
-            nonlocal t_prev
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            if tick >= 2:
-                acc[name] += (now - t_prev) * 1e3 / 10
-            t_prev = now
-
+    def substep_tick(w, mark):
         x_fb, t_g, hold, contact, sol = ra._art_control_stage(w, bipeds, mpc, gait, model)
         u0 = sol.controls[:, 0]
         mark(names[0])
@@ -571,10 +602,199 @@ def time_art(torch, device):
             mark(names[3])
         w = ra._art_post_stage(w, sim, energy, x_fb, sol, t_g, hold, mpc)
         mark(names[4])
+        return w
+
+    w, bipeds = art_worlds(torch, device)
+    acc = _stage_split(torch, names, w, substep_tick)
     total = sum(acc.values())
-    log("[times] art tick stages (ms, mean of 10): " + ", ".join(
+    log("[times] art tick stages, substep-kernel path (ms, mean of 10): " + ", ".join(
         f"{k} {v:.3f}" for k, v in acc.items()) + f", total {total:.3f}")
     return ms_k, ms_p, sec_chain
+
+
+def phase_probe(torch, device):
+    """The probe's four toy kernels against numpy (fails on any error past
+    its tolerance) -> (launches, max error, kernel ms for the four, numpy
+    ms for the four)."""
+    from biped_mpc_py_torch.tools import probe_cuda_ops as probe
+
+    probe.probe_op.launches = 0
+    errs = probe.main(device)
+    launches = probe.probe_op.launches
+    a, b = probe.inputs()
+    ta, tb = torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
+    ms = _timed(torch, lambda: [probe.probe_op(op, ta, tb) for op in probe.OPS], 20)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        for op in probe.OPS:
+            probe.oracle(op, a, b)
+    plain_ms = (time.perf_counter() - t0) * 1e3 / 20
+    log(f"[probe] {launches} launches, max|err| {json.dumps(errs)}; the four ops: "
+        f"kernels {ms:.4f} ms, numpy {plain_ms:.4f} ms")
+    return launches, max(errs.values()), ms, plain_ms
+
+
+def tick_inputs(torch, n, seed):
+    """n perturbed in-contact states whose clocks are the tick's start
+    times, and the tick's controls (u0, c0 flags, t0, cmd_yaw, v_int), from
+    a numpy seed (as tests/test_torch_tick_kernel.py makes them)."""
+    import dataclasses
+
+    import numpy as np
+
+    state, _ = perturbed_art_states(torch, n, seed)
+    rng = np.random.default_rng(seed + 1)
+
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float32))
+
+    args = [f32(30.0 * rng.normal(size=(n, 12))), f32(rng.random((n, 2)) < 0.5),
+            f32(0.4 * rng.random(n)), f32(0.3 * rng.normal(size=n)),
+            f32(0.1 * rng.normal(size=(n, 2)))]
+    return dataclasses.replace(state, t=args[2].clone()), args
+
+
+def phase_tick_kernel(torch, device):
+    """The tick kernel vs its plain version on the card, at the main path's
+    config, 1024 and 1000 perturbed envs, held to TICK_BOUNDS; the plain
+    version on the CPU against itself on the card is printed as the noise
+    floor. Returns the largest field error."""
+    from biped_mpc_py_torch import BipedParams
+    from biped_mpc_py_torch.ops.cuda.tick_kernel import fused_tick, fused_tick_reference
+    from biped_mpc_py_torch.sim.engine import mass_matrix_inv
+    from biped_mpc_py_torch.sim.model import hector_model
+
+    mpc, gait = _art_config()
+    model, biped = hector_model(device=device), BipedParams().to(device)
+    worst = 0.0
+    for n in (N_ENVS, 1000):
+        state, args = tick_inputs(torch, n, SEED)
+        sc, ac = state.to(device), [a.to(device) for a in args]
+        Minv = mass_matrix_inv(model, sc.q)
+        out_k, e_k = fused_tick(model, biped, mpc, gait, sc, *ac, Minv)
+        torch.cuda.synchronize()
+        out_p, e_p = fused_tick_reference(model, biped, mpc, gait, sc, *ac, Minv)
+        errs = {k: float((getattr(out_k, k) - getattr(out_p, k)).abs().max()) for k in TICK_BOUNDS}
+        errs["energy"] = float((e_k - e_p).abs().max())
+        energy_ok = bool(torch.allclose(e_k, e_p, rtol=2e-3, atol=1e-3))
+        finite = all(bool(torch.isfinite(getattr(out_k, k)).all()) for k in TICK_BOUNDS)
+        line = f"[tick] {n} envs: kernel vs plain max|err| {json.dumps(errs)}"
+        if n == N_ENVS:
+            out_c, e_c = fused_tick_reference(hector_model(), BipedParams(), mpc, gait, state,
+                                              *args, Minv.cpu())
+            noise = {k: float((getattr(out_c, k).to(device) - getattr(out_p, k)).abs().max())
+                     for k in TICK_BOUNDS}
+            noise["energy"] = float((e_c.to(device) - e_p).abs().max())
+            line += f"; plain CPU vs plain card {json.dumps(noise)}"
+        log(line + f"; bounds {json.dumps(TICK_BOUNDS)}, energy rtol 2e-3; finite {finite}")
+        bad = [k for k in TICK_BOUNDS if not errs[k] < TICK_BOUNDS[k]]
+        if bad or not energy_ok or not finite or not torch.equal(out_k.t, out_p.t):
+            raise AssertionError(f"tick kernel vs plain past the bounds at {n} envs: {bad}")
+        worst = max(worst, *(errs[k] for k in TICK_BOUNDS))
+    return worst
+
+
+def phase_tick_path(torch, device, w25_substep):
+    """This slice's main path: 1024 envs x 250 ticks through
+    ``batched_art_rollout_tick_kernel`` from the substep path's worlds;
+    launch counts, the walking bounds, and the population statistics after
+    25 ticks against the substep-kernel path's (the bounds of
+    tests/test_tick_kernel.py::test_tick_kernel_closed_loop)."""
+    from biped_mpc_py_torch.ops.cuda import qp_kernel, substep_kernel, tick_kernel
+    from biped_mpc_py_torch.parallel.rollout_art import batched_art_rollout_tick_kernel
+    from biped_mpc_py_torch.sim.model import hector_model
+
+    mpc, gait = _art_config()
+    model = hector_model(device=device)
+    w0, bipeds = art_worlds(torch, device)
+    batched_art_rollout_tick_kernel(w0, bipeds, 2, mpc, gait, model=model)  # warm-up
+    torch.cuda.synchronize()
+    tick_kernel.fused_tick.launches = 0
+    qp_kernel.fused_qp_solve.launches = 0
+    substep_kernel.fused_substeps.launches = 0
+    t0 = time.perf_counter()
+    w25 = batched_art_rollout_tick_kernel(w0, bipeds, N_COMPARE_TICKS, mpc, gait, model=model)
+    w = batched_art_rollout_tick_kernel(w25, bipeds, N_ART_TICKS - N_COMPARE_TICKS, mpc, gait,
+                                        model=model)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {"fused_tick": tick_kernel.fused_tick.launches,
+                "fused_qp_solve": qp_kernel.fused_qp_solve.launches,
+                "fused_substeps": substep_kernel.fused_substeps.launches}
+    s, m = w.sim, w.metrics
+    finite = all(bool(torch.isfinite(t).all()) for t in (s.pos, s.quat, s.v_base, s.q, s.qd))
+    falls = float(m.falls.sum())
+    att = (m.attitude_err_sq / m.n_steps).sqrt()
+    x_min, att_max, res_max = float(s.pos[:, 0].min()), float(att.max()), float(m.res_prim_max.max())
+    log(f"[art] tick-kernel path: {N_ENVS} envs x {N_ART_TICKS} ticks in {sec:.3f} s, launches "
+        f"{json.dumps(launches)}, falls {falls}, finite {finite}, x min {x_min:.4f} mean "
+        f"{float(s.pos[:, 0].mean()):.4f} m, att RMS max {att_max:.5f} mean "
+        f"{float(att.mean()):.5f}, res_prim max {res_max:.3e}, height "
+        f"[{float(s.pos[:, 2].min()):.4f}, {float(s.pos[:, 2].max()):.4f}]")
+    if launches != {"fused_tick": N_ART_TICKS, "fused_qp_solve": N_ART_TICKS, "fused_substeps": 0}:
+        raise AssertionError(f"launch counts {launches} in {N_ART_TICKS} ticks")
+    # the walking bounds of tests/test_rollout_art.py::test_articulated_bench_budget_accuracy
+    if not (finite and falls == 0 and x_min > 1.5 and att_max < 0.08 and res_max < 1.0):
+        raise AssertionError("tick-kernel path failed its walking checks")
+
+    ref, new = w25_substep, w25
+    stats = {
+        "falls": (float(ref.metrics.falls.sum()), float(new.metrics.falls.sum())),
+        "z_mean": (float(ref.sim.pos[:, 2].mean()), float(new.sim.pos[:, 2].mean())),
+        "x_mean": (float(ref.sim.pos[:, 0].mean()), float(new.sim.pos[:, 0].mean())),
+        "att_err_sq_mean": (float(ref.metrics.attitude_err_sq.mean()),
+                            float(new.metrics.attitude_err_sq.mean())),
+    }
+    log(f"[art] {N_COMPARE_TICKS} ticks, substep-kernel path vs tick-kernel path: "
+        + json.dumps(stats))
+    (zr, zn), (xr, xn), (ar, an) = stats["z_mean"], stats["x_mean"], stats["att_err_sq_mean"]
+    if not (stats["falls"] == (0.0, 0.0) and abs(zr - zn) < 0.01 and abs(xr - xn) < 0.03
+            and abs(ar - an) < 0.3 * max(ar, 1e-3)):
+        raise AssertionError("the tick-kernel and substep-kernel paths walk differently")
+    return launches, sec
+
+
+def time_tick(torch, device):
+    """The tick call (CUDA events), kernel and plain version at 1024 envs,
+    and one tick of the tick-kernel path split into its stages (host clock,
+    synchronized after each stage, mean of 10 ticks after 2)."""
+    from biped_mpc_py_torch import BipedParams
+    from biped_mpc_py_torch.ops.cuda.tick_kernel import fused_tick, fused_tick_reference
+    from biped_mpc_py_torch.parallel import rollout_art as ra
+    from biped_mpc_py_torch.sim.engine import mass_matrix_inv
+    from biped_mpc_py_torch.sim.model import hector_model
+
+    mpc, gait = _art_config()
+    model, biped = hector_model(device=device), BipedParams().to(device)
+    state, args = tick_inputs(torch, N_ENVS, SEED)
+    sc, ac = state.to(device), [a.to(device) for a in args]
+    Minv = mass_matrix_inv(model, sc.q)
+    ms_k = _timed(torch, lambda: fused_tick(model, biped, mpc, gait, sc, *ac, Minv), 20)
+    ms_p = _timed(torch, lambda: fused_tick_reference(model, biped, mpc, gait, sc, *ac, Minv), 3)
+    log(f"[times] fused_tick ({N_ENVS} envs, 8 periods x 5 substeps): kernel {ms_k:.4f} ms, "
+        f"plain {ms_p:.3f} ms")
+
+    names = ("control stage (MPC)", "Minv", "tick kernel", "post")
+
+    def tick_path_tick(w, mark):
+        x_fb, t_g, hold, contact, sol = ra._art_control_stage(w, bipeds, mpc, gait, model)
+        mark(names[0])
+        Minv = mass_matrix_inv(model, w.sim.q)
+        mark(names[1])
+        sim, energy = fused_tick(model, biped, mpc, gait, w.sim, sol.controls[:, 0],
+                                 contact[:, 0, 0:2], w.sim.t, w.ctrl.cmd_ref[:, 2],
+                                 w.ctrl.v_int, Minv)
+        mark(names[2])
+        w = ra._art_post_stage(w, sim, energy, x_fb, sol, t_g, hold, mpc)
+        mark(names[3])
+        return w
+
+    w, bipeds = art_worlds(torch, device)
+    acc = _stage_split(torch, names, w, tick_path_tick)
+    total = sum(acc.values())
+    log("[times] art tick stages, tick-kernel path (ms, mean of 10): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in acc.items()) + f", total {total:.3f}")
+    return ms_k, ms_p
 
 
 def main() -> int:
@@ -589,26 +809,32 @@ def main() -> int:
         qp_err = phase_kernel(torch, device)
         srb_launches, sec_k, sec_p = phase_slice(torch, device)
         substep_err = phase_substep_kernel(torch, device)
-        art_launches, sec_art = phase_art_slice(torch, device)
+        art_launches, sec_art, w25_substep = phase_art_slice(torch, device)
+        probe = phase_probe(torch, device)
+        tick_err = phase_tick_kernel(torch, device)
+        tick_launches, sec_tick = phase_tick_path(torch, device, w25_substep)
         solve_ms = time_solves(torch, device)
         time_default_rollouts(torch, device)
         time_stages(torch, device)
         substep_ms, substep_plain_ms, sec_chain = time_art(torch, device)
+        tick_ms, tick_plain_ms = time_tick(torch, device)
     rate_k = N_ENVS * N_TICKS / sec_k
     rate_p = N_ENVS * N_TICKS / sec_p
     log(f"[times] rollout {N_ENVS} envs x {N_TICKS} ticks: kernel {rate_k:.1f} env-steps/s "
         f"({sec_k * 1e3 / N_TICKS:.3f} ms/tick), plain core {rate_p:.1f} env-steps/s "
         f"({sec_p * 1e3 / N_TICKS:.3f} ms/tick) (SRB launches {srb_launches})")
-    log(f"[times] art rollout {N_ENVS} envs x {N_ART_TICKS} ticks, kernel path: "
-        f"{N_ENVS * N_ART_TICKS / sec_art:.1f} env-steps/s ({sec_art * 1e3 / N_ART_TICKS:.3f} "
-        f"ms/tick); plain chain {N_ENVS / sec_chain:.1f} env-steps/s")
+    log(f"[times] art rollout {N_ENVS} envs x {N_ART_TICKS} ticks: tick-kernel path "
+        f"{N_ENVS * N_ART_TICKS / sec_tick:.1f} env-steps/s ({sec_tick * 1e3 / N_ART_TICKS:.3f} "
+        f"ms/tick); substep-kernel path {N_ENVS * N_ART_TICKS / sec_art:.1f} env-steps/s "
+        f"({sec_art * 1e3 / N_ART_TICKS:.3f} ms/tick); plain chain "
+        f"{N_ENVS / sec_chain:.1f} env-steps/s")
     print(json.dumps({"kernels": [
         {
             "name": "fused_qp_solve",
             "route": "cuda",
             "source": "biped_mpc_py_torch/csrc/qp_admm.cu",
             "replaces": "biped_mpc_py_tpu/ops/pallas/qp_kernel.py:255",
-            "launches": art_launches["fused_qp_solve"],
+            "launches": tick_launches["fused_qp_solve"],
             "max_abs_err": qp_err,
             "ms": solve_ms["bench"][0],
             "plain_ms": solve_ms["bench"][1],
@@ -622,6 +848,26 @@ def main() -> int:
             "max_abs_err": substep_err,
             "ms": substep_ms,
             "plain_ms": substep_plain_ms,
+        },
+        {
+            "name": "fused_tick",
+            "route": "cuda",
+            "source": "biped_mpc_py_torch/csrc/tick.cu",
+            "replaces": "biped_mpc_py_tpu/ops/pallas/tick_kernel.py:531",
+            "launches": tick_launches["fused_tick"],
+            "max_abs_err": tick_err,
+            "ms": tick_ms,
+            "plain_ms": tick_plain_ms,
+        },
+        {
+            "name": "probe_ops",
+            "route": "cuda",
+            "source": "biped_mpc_py_torch/csrc/probe_ops.cu",
+            "replaces": "tools/probe_mosaic_ops.py:49",
+            "launches": probe[0],
+            "max_abs_err": probe[1],
+            "ms": probe[2],
+            "plain_ms": probe[3],
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

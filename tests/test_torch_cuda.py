@@ -1,6 +1,6 @@
-"""The torch port's CUDA kernels on the card: the fused ADMM QP solve and
-the fused articulated substeps, each held against its plain PyTorch
-version, and the rollouts' launch counts.
+"""The torch port's CUDA kernels on the card: the fused ADMM QP solve, the
+fused articulated substeps and the fused tick, each held against its plain
+PyTorch version, and the rollouts' launch counts.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one. The
 file imports no JAX, so it also runs where JAX is not installed:
@@ -21,6 +21,13 @@ The substep kernel: the bounds of ``tests/test_substep_kernel.py:73-76``
 (pos 5e-7, quat 1e-6, v_base 5e-6, q 1e-6, qd 1e-4) on 1024 perturbed
 in-contact envs, 5 substeps of 1 ms; the kernel path of the articulated
 loop launches it once per low-level period (8 per tick).
+
+The tick kernel: the bounds of ``tests/test_tick_kernel.py:257-261`` (q,
+pos, quat 5e-4, qd 2e-2, energy rtol 2e-3 / atol 1e-3) on perturbed
+in-contact envs with random clocks, flags and controls, one tick of 8
+periods x 5 substeps, for the bench config and for configs that set the
+kernel's four switches; the tick-kernel path launches it once per tick and
+the substep kernel never.
 """
 
 import dataclasses
@@ -34,6 +41,7 @@ from biped_mpc_py_torch.control.mpc import build_mpc_qp
 from biped_mpc_py_torch.ops import qp as tqp
 from biped_mpc_py_torch.ops.cuda import qp_kernel as tk
 from biped_mpc_py_torch.ops.cuda import substep_kernel as sk
+from biped_mpc_py_torch.ops.cuda import tick_kernel as tick
 from biped_mpc_py_torch.parallel import rollout_art as ra
 from biped_mpc_py_torch.parallel.rollout import (
     batch_worlds,
@@ -154,5 +162,69 @@ def test_art_rollout_launches_substep_kernel(cuda):
     torch.cuda.synchronize()
     assert sk.fused_substeps.launches == before_s + 8 * ticks
     assert tk.fused_qp_solve.launches == before_q + ticks
+    assert torch.isfinite(out.sim.pos).all() and torch.isfinite(out.sim.qd).all()
+    assert float(out.metrics.falls.sum()) == 0
+
+
+def _tick_config(preset):
+    """The tick tests' configs: the bench walk, one that sets sin² swing and
+    body-frame commands with every gain of the low-level control nonzero,
+    and one with both compat swing flags."""
+    x_cmd = (0, 0, 0, 0, 0, 0.55, 0, 0, 0, 0.3, 0, 0)
+    if preset == "walk":
+        return ra.art_mpc_config(x_cmd=x_cmd)
+    if preset == "loaded":
+        return ra.art_mpc_config(
+            x_cmd=x_cmd, swing_z_sin2=True, swing_track_ff=1.0, swing_retract=0.02,
+            raibert_am_y=0.05, raibert_pitch_place=0.2, raibert_pitch_nom=0.15,
+            capture_sched=0.5, raibert_vint=0.05, kp_pivot=1.5, kd_pivot=0.2,
+            hipyaw_rate_lead=0.1, flight_yaw_kd=2.0, swing_td_overdrive=0.01,
+            cmd_body_frame=True,
+        )
+    return ra.art_mpc_config(x_cmd=x_cmd, compat_swing_frame_bug=True,
+                             compat_swing_yaw_bug=True)
+
+
+def _tick_controls(n, device, seed=1):
+    gen = torch.Generator().manual_seed(seed)
+    out = (30.0 * torch.randn(n, 12, generator=gen),
+           (torch.rand(n, 2, generator=gen) < 0.5).float(),
+           0.4 * torch.rand(n, generator=gen), 0.3 * torch.randn(n, generator=gen),
+           0.1 * torch.randn(n, 2, generator=gen))
+    return [t.to(device) for t in out]
+
+
+@pytest.mark.parametrize("n,preset", [(1024, "walk"), (1000, "loaded"), (256, "compat")])
+def test_tick_kernel_matches_plain(cuda, n, preset):
+    model = hector_model(device=cuda)
+    mpc, gait = _tick_config(preset), GaitConfig(steps_per_phase=5)
+    biped = BipedParams().to(cuda)
+    state, _ = _perturbed_states(n, cuda)
+    args = _tick_controls(n, cuda)
+    state = dataclasses.replace(state, t=args[2].clone())
+    Minv = mass_matrix_inv(model, state.q)
+    before = tick.fused_tick.launches
+    out_k, e_k = tick.fused_tick(model, biped, mpc, gait, state, *args, Minv)
+    torch.cuda.synchronize()
+    assert tick.fused_tick.launches == before + 1
+    out_p, e_p = tick.fused_tick_reference(model, biped, mpc, gait, state, *args, Minv)
+    for name, tol in {"q": 5e-4, "pos": 5e-4, "quat": 5e-4, "qd": 2e-2}.items():
+        err = float((getattr(out_k, name) - getattr(out_p, name)).abs().max())
+        assert err < tol, (name, err)
+    assert torch.allclose(e_k, e_p, rtol=2e-3, atol=1e-3)
+    assert torch.equal(out_k.t, out_p.t)
+
+
+def test_art_rollout_launches_tick_kernel(cuda):
+    mpc, gait = ra.art_config_for_speed(0.3, n_admm_iters=40, admm_rho_phases=1,
+                                        admm_polish=False, kinv_ns_iters=10)
+    n, ticks = 64, 3
+    worlds = ra.init_art_world(mpc, n, device=cuda)
+    bipeds = BipedParams().expand(n).to(cuda)
+    before = (tick.fused_tick.launches, tk.fused_qp_solve.launches, sk.fused_substeps.launches)
+    out = ra.batched_art_rollout_tick_kernel(worlds, bipeds, ticks, mpc, gait)
+    torch.cuda.synchronize()
+    after = (tick.fused_tick.launches, tk.fused_qp_solve.launches, sk.fused_substeps.launches)
+    assert [a - b for a, b in zip(after, before)] == [ticks, ticks, 0]
     assert torch.isfinite(out.sim.pos).all() and torch.isfinite(out.sim.qd).all()
     assert float(out.metrics.falls.sum()) == 0
