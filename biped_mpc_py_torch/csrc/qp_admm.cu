@@ -13,34 +13,72 @@
 //
 // The algorithm is that of the plain version fused_qp_solve_reference in
 // ops/cuda/qp_kernel.py (the scaled core of ops/qp.py::solve_qp in the JAX
-// package); the two differ only in f32 summation order.
+// package); the two differ in f32 summation order, and the Newton-Schulz
+// products here run on the tensor cores in split TF32 (below) where the
+// plain version's are f32.
 //
 // What bounds it on this card: the Newton-Schulz products. Each NS step is
-// two dense 120x120x120 products, 2 * 2 * 120^3 = 6.9 MFLOP. At the bench
-// budget (1 phase, NS 10, no polish) that is ~70 MFLOP per env per tick; at
-// the default budget (3 phases + polish, NS 14: 4 inverses) ~390 MFLOP. The
-// ADMM iterations add ~0.05 MFLOP each (one 120x120 matvec plus the
-// per-step A products). TF32 is off, so this is SIMT f32 FMA work, and the
-// products read their operands from shared memory.
+// two dense 120x120x120 products, 2 * 2 * 120^3 = 6.9 MFLOP, after a first
+// step that is elementwise (X0 is diagonal). At the bench budget (1 phase,
+// NS 10, no polish) that is 62 MFLOP per env per tick; at the default
+// budget (3 phases + polish, NS 14: 4 inverses) 359 MFLOP. The ADMM
+// iterations add ~0.04 MFLOP each: short, latency-bound passes.
 //
-// What the design does about it (a simple, correct first version):
-//  - One CTA of 256 threads per env. K, X and one scratch matrix live in
-//    dynamic shared memory with an odd row stride (121 floats), 3 x 58 KB,
-//    plus the per-step A blocks (h x m x 12) and the vectors: ~202 KB, under
-//    the 227 KB a block may use (needs cudaFuncSetAttribute).
-//  - A product gives each of 225 threads an 8x8 register tile whose rows and
-//    columns are strided by 15, so a warp's shared-memory reads hit distinct
-//    banks (or broadcast) on both operands. 4 FMAs per shared load.
-//  - The second NS product is written back in place: every thread finishes
-//    its tile in registers, the CTA synchronizes, then the tiles are stored.
+// What the design does about it:
+//  - One CTA of 256 threads (8 warps) per env. K, X and one scratch matrix
+//    live in dynamic shared memory with row stride 120, 3 x 57.6 KB, plus
+//    the per-step A blocks (h x m x 12) and the vectors: ~203 KB, under the
+//    227 KB a block may use (needs cudaFuncSetAttribute).
+//  - The NS products run on the tensor cores, mma.sync m16n8k8 with TF32
+//    operands, at f32 accuracy by the 3xTF32 split: each operand v is
+//    rounded to TF32 (to nearest, ties away, by integer arithmetic on its
+//    bits, as cvt.rna does; the conversion instruction issues at a quarter
+//    of the integer rate) as hi, the remainder v - hi (exact) rounded again
+//    as lo. Each tile sums hi*hi in one f32 accumulator and the small terms
+//    lo*hi + hi*lo in another, added once at the end:
+//      * two accumulators, because the tensor cores' accumulation truncates
+//        at the accumulator's scale, so small terms fed into the hi*hi sum
+//        lose their low bits at every step;
+//      * in the last two NS steps also lo*lo (2^-22 relative, 4x an f32
+//        rounding). NS corrects the errors of earlier steps, so the last
+//        steps' products set K^-1's accuracy. With three products in every
+//        step the default-budget solve on the H100 put 34 of 1024 envs past
+//        0.1 N of the f32 plain version, one more than the noise floor's
+//        rule allows (chip_smoke.py::phase_kernel).
+//    Both choices are emulated in tests/test_torch_qp_tf32.py. No product
+//    runs in 1xTF32, bf16 or fp16. mma.sync with TF32 operands runs far
+//    below the tensor cores' TF32 peak (chip_smoke.py prints the rate it
+//    reaches over the time the NS products add; PERF.md keeps it), so these
+//    products set the kernel's time; wgmma would need the B operand's hi
+//    and lo planes in shared memory, which does not hold them beside K, X
+//    and T.
+//  - The 8 warps tile the 128-row padded product 2 x 4: warp (r, c) owns
+//    rows 64r..64r+63 (4 m-tiles of 16; rows 120..127 are zero fragments,
+//    not storage) and n-tiles 4c..4c+3 of the 15 (2 x 64 accumulators a
+//    thread); k runs in 15 steps of 8. Per k-step a warp splits 16 A and 8
+//    B fragment words for 48 (64) mma.sync, against 34 for 45 in a 16-row
+//    stripe. Stride 120 makes the B loads bank-conflict-free; the A loads
+//    are 2-way (no stride makes both free: A needs stride = 4 * odd mod 32,
+//    B needs 8 or 24).
+//  - X <- X T in place: every warp finishes its tiles in registers, the
+//    CTA synchronizes, then the tiles are stored.
+//  - After each inverse, K^-1 (with the Jacobi scaling folded in) moves
+//    into registers: thread t < 240 holds half of row t mod 120, 60 floats,
+//    and reads rhs by broadcast from shared memory as float4. An ADMM step
+//    is two passes with one barrier each: the half-row partial products,
+//    then half a warp per horizon step that sums the halves, updates x, z,
+//    y for the step's variables and rows, and forms the step's rhs for the
+//    next iteration from them (no shuffle reductions, only __syncwarp). The
+//    polish's augmented-Lagrangian steps use the same two passes.
 //  - A is kept as its h per-step blocks, never as the dense block-diagonal
 //    (the TPU layout); P is read from global memory (through L2) only to
-//    build K and for the rho re-pick and merit products.
+//    build K and for the rho re-pick and merit products, as float4 loads
+//    issued in batches (one CTA per SM leaves little else to hide their
+//    latency).
 //  - All reductions (residual maxima, merit sums) stay inside the CTA.
-// Not done yet: wgmma / 3xTF32 splits for the NS products, several envs per
-// CTA, clusters.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -49,20 +87,25 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kNu = 12;                  // controls per horizon step
 constexpr int kHMax = 10;                // horizon steps held
 constexpr int kNMax = kHMax * kNu;       // 120 variables
-constexpr int kLd = kNMax + 1;           // shared row stride (odd: no bank conflicts)
+constexpr int kLd = kNMax;               // shared row stride (see the note above)
 constexpr int kMat = kNMax * kLd;
 constexpr int kMsMax = 28;               // constraint rows per step held
 constexpr int kMMax = kHMax * kMsMax;    // 280 rows
-constexpr int kTile = 15;                // 15 x 15 threads ...
-constexpr int kReg = 8;                  // ... each with an 8 x 8 output tile
-static_assert(kTile * kReg == kNMax, "tiling must cover the matrix");
-static_assert(kTile * kTile <= kThreads, "one tile per thread");
+constexpr int kTiles = kNMax / 8;        // 15 n- and k-tiles of the mma
+constexpr int kMT = 4;                   // m-tiles of 16 rows a warp holds
+constexpr int kNT = 4;                   // n-tiles of 8 columns a warp holds
+constexpr int kHalf = kNMax / 2;         // K^-1 floats a thread holds
+static_assert(kNMax % 8 == 0 && kWarps == 8, "2 x 4 warps tile the product");
+static_assert(2 * 16 * kMT >= kNMax && 4 * kNT >= kTiles, "the warps cover K");
+static_assert(2 * kNMax <= kThreads && kHalf % 4 == 0, "two threads per row of K^-1");
+static_assert(kMsMax <= 32 && kNu <= 16 && 2 * kWarps >= kHMax, "half a warp per horizon step");
 
-constexpr int kVecN = 6;                 // q, x, v, rhs, s, xp
-constexpr int kVecM = 10;                // l, u, z, y, rhov, wgt, wact, bact, lam, av
+constexpr int kVecN = 8;                 // q, x, v, rhs, s, xp, part (2 halves)
+constexpr int kVecM = 11;                // l, u, z, y, rhov, wgt, wact, bact, lam, av, w
 constexpr int kSmemFloats =
     3 * kMat + kHMax * kMsMax * kNu + kVecN * kNMax + kVecM * kMMax + 64;
 
+constexpr int kFourLast = 2;             // NS steps, at the end, with lo*lo
 constexpr float kEqBoost = 1e3f;
 constexpr float kRhoPolish = 1e4f;
 constexpr float kEps = 1e-8f;
@@ -102,75 +145,136 @@ __device__ float block_sum(float v, float* red) {
   return r;
 }
 
+// v rounded to TF32 (to nearest, ties away from zero), as the mma operand
+// bits: half of the 13 dropped bits added to the magnitude, then cleared (a
+// carry moves into the exponent). The same bits as cvt.rna.tf32.f32.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = hi + lo: hi = tf32(v), lo = tf32(v - hi) (v - hi is exact).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// d += a b for one 16x8x8 tile (a: 16x8 row-major, b: 8x8 column-major).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // C = A B (kTwoMinus: C = 2I - A B) for n x n matrices in shared memory with
-// row stride kLd; entries beyond n are zero on input. C may alias A: every
-// tile is finished in registers before any is stored.
-template <bool kTwoMinus>
+// row stride kLd, on the tensor cores in split TF32 (kFour: with the lo*lo
+// product); entries beyond n are zero on input. C may alias A or B: every
+// tile is finished in registers before any is stored. Ends with a CTA
+// barrier.
+template <bool kTwoMinus, bool kFour>
 __device__ void matmul(const float* A, const float* B, float* C, int n) {
-  const int t = threadIdx.x;
-  const bool on = t < kTile * kTile;
-  const int ti = t / kTile, tj = t % kTile;
-  float acc[kReg][kReg];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;     // mma fragment row group / column
+  const int r0 = (warp >> 2) * 16 * kMT;      // this warp's first row
+  const int j0 = (warp & 3) * kNT;            // this warp's first n-tile
+  const int nt = (n + 7) >> 3;                // k- and n-tiles that hold K
+  float acc[kMT][kNT][4], cor[kMT][kNT][4];   // hi*hi; (lo*lo +) lo*hi + hi*lo
 #pragma unroll
-  for (int r = 0; r < kReg; ++r)
+  for (int m = 0; m < kMT; ++m)
 #pragma unroll
-    for (int c = 0; c < kReg; ++c) acc[r][c] = 0.f;
-  if (on) {
-    const float* a_ptr = A + ti * kLd;
-    const float* b_ptr = B + tj;
-    for (int k = 0; k < n; ++k) {
-      float a[kReg], b[kReg];
+    for (int j = 0; j < kNT; ++j)
 #pragma unroll
-      for (int r = 0; r < kReg; ++r) a[r] = a_ptr[r * kTile * kLd + k];
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = cor[m][j][e] = 0.f;
+  if (r0 < n && j0 < nt) {
+    for (int kt = 0; kt < nt; ++kt) {
+      const int k = kt * 8 + t4;
+      uint32_t ah[kMT][4], al[kMT][4];
 #pragma unroll
-      for (int c = 0; c < kReg; ++c) b[c] = b_ptr[k * kLd + c * kTile];
-#pragma unroll
-      for (int r = 0; r < kReg; ++r)
-#pragma unroll
-        for (int c = 0; c < kReg; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-    }
-  }
-  __syncthreads();
-  if (on) {
-#pragma unroll
-    for (int r = 0; r < kReg; ++r)
-#pragma unroll
-      for (int c = 0; c < kReg; ++c) {
-        const int i = ti + r * kTile, j = tj + c * kTile;
-        float v = acc[r][c];
-        if (kTwoMinus) v = (i == j ? 2.f : 0.f) - v;
-        C[i * kLd + j] = v;
+      for (int m = 0; m < kMT; ++m) {
+        const int ra = r0 + 16 * m + g, rb = ra + 8;  // rb passes the matrix at 120
+        const bool on = r0 + 16 * m < n;
+        const float* a_top = A + ra * kLd + k;
+        const float* a_bot = A + rb * kLd + k;
+        split_tf32(on ? a_top[0] : 0.f, ah[m][0], al[m][0]);
+        split_tf32(on && rb < kNMax ? a_bot[0] : 0.f, ah[m][1], al[m][1]);
+        split_tf32(on ? a_top[4] : 0.f, ah[m][2], al[m][2]);
+        split_tf32(on && rb < kNMax ? a_bot[4] : 0.f, ah[m][3], al[m][3]);
       }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        if (j0 + j < nt) {
+          const float* b_top = B + k * kLd + 8 * (j0 + j) + g;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(b_top[0], bh0, bl0);
+          split_tf32(b_top[4 * kLd], bh1, bl1);
+#pragma unroll
+          for (int m = 0; m < kMT; ++m) {
+            if (r0 + 16 * m < n) {
+              if (kFour) mma_tf32(cor[m][j], al[m], bl0, bl1);  // smallest first
+              mma_tf32(cor[m][j], al[m], bh0, bh1);
+              mma_tf32(cor[m][j], ah[m], bl0, bl1);
+              mma_tf32(acc[m][j], ah[m], bh0, bh1);
+            }
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (r0 < n && j0 < nt) {
+#pragma unroll
+    for (int m = 0; m < kMT; ++m) {
+      const int ra = r0 + 16 * m + g, rb = ra + 8;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        if (r0 + 16 * m < n && j0 + j < nt) {
+          const int c = 8 * (j0 + j) + 2 * t4;
+          float2 top = make_float2(acc[m][j][0] + cor[m][j][0], acc[m][j][1] + cor[m][j][1]);
+          float2 bot = make_float2(acc[m][j][2] + cor[m][j][2], acc[m][j][3] + cor[m][j][3]);
+          if (kTwoMinus) {
+            top = make_float2((ra == c ? 2.f : 0.f) - top.x, (ra == c + 1 ? 2.f : 0.f) - top.y);
+            bot = make_float2((rb == c ? 2.f : 0.f) - bot.x, (rb == c + 1 ? 2.f : 0.f) - bot.y);
+          }
+          *reinterpret_cast<float2*>(C + ra * kLd + c) = top;
+          if (rb < kNMax) *reinterpret_cast<float2*>(C + rb * kLd + c) = bot;
+        }
+      }
+    }
   }
   __syncthreads();
 }
 
-// out[i] = sum_j M[i][j] v[j] for an n x n shared matrix; one warp per row.
-// If x is given, also x[i] = alpha out[i] + (1 - alpha) x[i].
-__device__ void matvec_smem(const float* M, const float* v, float* out, int n,
-                            float* x, float alpha) {
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = w; i < n; i += kWarps) {
-    float acc = 0.f;
-    for (int j = lane; j < n; j += 32) acc = fmaf(M[i * kLd + j], v[j], acc);
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      out[i] = acc;
-      if (x != nullptr) x[i] = alpha * acc + (1.f - alpha) * x[i];
-    }
-  }
-}
-
-// out[i] = sum_j P[i][j] v[j] for P in global memory (row-major n x n).
+// out[i] = sum_j P[i][j] v[j] for P in global memory (row-major n x n, 16-byte
+// aligned, n a multiple of 4): thread t < 2n takes half of row t / 2 as
+// float4 loads, all issued before the sums; the halves meet by one shuffle.
+// No barrier.
 __device__ void matvec_global(const float* __restrict__ P, const float* v,
                               float* out, int n) {
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = w; i < n; i += kWarps) {
-    float acc = 0.f;
-    for (int j = lane; j < n; j += 32) acc = fmaf(__ldg(P + i * n + j), v[j], acc);
-    acc = warp_sum(acc);
-    if (lane == 0) out[i] = acc;
+  constexpr int kMax4 = (kNMax / 4 + 1) / 2;  // float4 a thread loads at most
+  const int t = threadIdx.x, row = t >> 1, half = t & 1;
+  const int n4 = n / 4, h4 = (n4 + 1) / 2;
+  const int c_begin = half * h4, c_end = min(n4, c_begin + h4);
+  float acc = 0.f;
+  if (row < n) {
+    const float4* p4 = reinterpret_cast<const float4*>(P + row * n);
+    float4 pv[kMax4];
+#pragma unroll
+    for (int c = 0; c < kMax4; ++c)
+      pv[c] = c_begin + c < c_end ? __ldg(p4 + c_begin + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int c = 0; c < kMax4; ++c) {
+      if (c_begin + c < c_end) {
+        const float* vv = v + 4 * (c_begin + c);
+        acc = fmaf(pv[c].x, vv[0], acc);
+        acc = fmaf(pv[c].y, vv[1], acc);
+        acc = fmaf(pv[c].z, vv[2], acc);
+        acc = fmaf(pv[c].w, vv[3], acc);
+      }
+    }
   }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  if (row < n && half == 0) out[row] = acc;
 }
 
 // (A v)_j for every constraint row j = k*ms + r (A held per step).
@@ -197,63 +301,224 @@ __device__ __forceinline__ float col_dot(const float* sA, const float* w, int i,
   return acc;
 }
 
-// K = P + sigma I + blkdiag(A_k' diag(wgt_k) A_k), into shared K (n x n).
+// K = P + sigma I + blkdiag(A_k' diag(wgt_k) A_k), into shared K (n x n):
+// P copied in as float4 loads issued 8 at a time, then the h diagonal
+// blocks added.
 __device__ void build_kkt(const float* __restrict__ P, const float* sA,
                           const float* wgt, float* K, int n, int ms, float sigma) {
-  for (int idx = threadIdx.x; idx < n * n; idx += kThreads) {
-    const int i = idx / n, j = idx % n;
-    float val = __ldg(P + idx);
-    if (i == j) val += sigma;
-    const int k = i / kNu;
-    if (k == j / kNu) {
-      const int ci = i % kNu, cj = j % kNu;
-      float acc = 0.f;
-      for (int r = 0; r < ms; ++r) {
-        const int jr = k * ms + r;
-        acc = fmaf(sA[jr * kNu + ci] * wgt[jr], sA[jr * kNu + cj], acc);
-      }
-      val += acc;
+  constexpr int kBatch = 8;
+  const int n4 = n / 4, total = n * n4;
+  const float4* P4 = reinterpret_cast<const float4*>(P);
+  for (int base = threadIdx.x; base < total; base += kThreads * kBatch) {
+    float4 pv[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int idx = base + b * kThreads;
+      if (idx < total) pv[b] = __ldg(P4 + idx);
     }
-    K[i * kLd + j] = val;
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int idx = base + b * kThreads;
+      if (idx < total) {
+        const int i = idx / n4, j = 4 * (idx % n4);
+        *reinterpret_cast<float4*>(K + i * kLd + j) = pv[b];
+      }
+    }
+  }
+  __syncthreads();
+  const int h = n / kNu;
+  for (int e = threadIdx.x; e < h * kNu * kNu; e += kThreads) {
+    const int k = e / (kNu * kNu), ci = (e / kNu) % kNu, cj = e % kNu;
+    const float* a = sA + k * ms * kNu;
+    const float* w = wgt + k * ms;
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;  // four chains, loads ahead
+    int r = 0;
+    for (; r + 4 <= ms; r += 4) {
+      a0 = fmaf(a[r * kNu + ci] * w[r], a[r * kNu + cj], a0);
+      a1 = fmaf(a[(r + 1) * kNu + ci] * w[r + 1], a[(r + 1) * kNu + cj], a1);
+      a2 = fmaf(a[(r + 2) * kNu + ci] * w[r + 2], a[(r + 2) * kNu + cj], a2);
+      a3 = fmaf(a[(r + 3) * kNu + ci] * w[r + 3], a[(r + 3) * kNu + cj], a3);
+    }
+    for (; r < ms; ++r) a0 = fmaf(a[r * kNu + ci] * w[r], a[r * kNu + cj], a0);
+    const int i = k * kNu + ci, j = k * kNu + cj;
+    const float pij = K[i * kLd + j];
+    K[i * kLd + j] = (i == j ? pij + sigma : pij) + ((a0 + a1) + (a2 + a3));
   }
   __syncthreads();
 }
 
-// X = K^-1 by Jacobi-preconditioned Newton-Schulz: Khat = S K S with
+// Xhat = Khat^-1 by Jacobi-preconditioned Newton-Schulz: Khat = S K S with
 // S = diag(1/sqrt(diag K)) (diag clamped at 1e-30), X0 = I/||Khat||_inf,
-// X <- X (2I - Khat X). K is overwritten by Khat; T is scratch.
+// X <- X (2I - Khat X), the first step elementwise, the others on the
+// tensor cores. K is overwritten by Khat, X by Xhat, T is scratch; s keeps
+// S's diagonal (K^-1 = S Xhat S, formed by load_kinv).
 __device__ void ns_inverse(float* K, float* X, float* T, float* s, float* red,
                            int n, int iters) {
   const int tid = threadIdx.x;
   for (int i = tid; i < n; i += kThreads) s[i] = rsqrtf(fmaxf(K[i * kLd + i], 1e-30f));
   __syncthreads();
-  for (int idx = tid; idx < n * n; idx += kThreads) {
-    const int i = idx / n, j = idx % n;
-    K[i * kLd + j] = K[i * kLd + j] * s[i] * s[j];
-  }
-  __syncthreads();
   const int w = tid >> 5, lane = tid & 31;
   float row_max = 0.f;
-  for (int i = w; i < n; i += kWarps) {
+  for (int i = w; i < n; i += kWarps) {  // Khat, and its rows' |.| sums
     float acc = 0.f;
-    for (int j = lane; j < n; j += 32) acc += fabsf(K[i * kLd + j]);
+    for (int j = lane; j < n; j += 32) {
+      const float kij = K[i * kLd + j] * s[i] * s[j];
+      K[i * kLd + j] = kij;
+      acc += fabsf(kij);
+    }
     row_max = fmaxf(row_max, warp_sum(acc));
   }
   const float inv_nrm = 1.f / block_max(row_max, red);
-  for (int idx = tid; idx < kNMax * kNMax; idx += kThreads) {
-    const int i = idx / kNMax, j = idx % kNMax;
-    X[i * kLd + j] = (i == j && i < n) ? inv_nrm : 0.f;
+  // X0 = inv_nrm I, so the first step is elementwise: Khat X0 = inv_nrm Khat
+  // and X1 = inv_nrm T1, each entry one f32 product, rounded as a product
+  // with the diagonal X0 rounds (the plain version's arithmetic, exactly;
+  // __fmul_rn keeps the compiler from fusing it into the subtraction).
+  for (int i = w; i < kNMax; i += kWarps) {
+    for (int j = lane; j < kLd; j += 32) {
+      const int idx = i * kLd + j;
+      if (i >= n || j >= n) X[idx] = 0.f;
+      else if (iters == 0) X[idx] = i == j ? inv_nrm : 0.f;
+      else X[idx] = inv_nrm * ((i == j ? 2.f : 0.f) - __fmul_rn(K[idx], inv_nrm));
+    }
   }
+  __syncthreads();
+  for (int it = 1; it < iters; ++it) {
+    if (it < iters - kFourLast) {
+      matmul<true, false>(K, X, T, n);   // T = 2I - Khat X
+      matmul<false, false>(X, T, X, n);  // X = X T, in place
+    } else {
+      matmul<true, true>(K, X, T, n);
+      matmul<false, true>(X, T, X, n);
+    }
+  }
+}
+
+// This thread's half row of K^-1 = S Xhat S into registers: thread t < 240
+// holds row t mod 120, columns 60 (t / 120) .. +59; zero beyond n.
+__device__ __forceinline__ void load_kinv(const float* X, const float* s,
+                                          float (&kinv)[kHalf], int n) {
+  const int t = threadIdx.x;
+  const int r = t % kNMax, c0 = (t / kNMax) * kHalf;
+  const bool on = t < 2 * kNMax && r < n;
+#pragma unroll
+  for (int c = 0; c < kHalf; ++c)
+    kinv[c] = (on && c0 + c < n) ? X[r * kLd + c0 + c] * s[r] * s[c0 + c] : 0.f;
+}
+
+// part[half][r] = sum over this thread's half row of K^-1 times rhs; the
+// two halves sum to (K^-1 rhs)_r. rhs beyond n is zero.
+__device__ __forceinline__ void kinv_matvec(const float (&kinv)[kHalf], const float* rhs,
+                                            float* part, int n) {
+  const int t = threadIdx.x;
+  const int r = t % kNMax, half = t / kNMax;
+  if (t < 2 * kNMax && r < n) {
+    const float4* v4 = reinterpret_cast<const float4*>(rhs + half * kHalf);
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll
+    for (int c = 0; c < kHalf / 4; ++c) {
+      const float4 b = v4[c];
+      a0 = fmaf(kinv[4 * c], b.x, a0);
+      a1 = fmaf(kinv[4 * c + 1], b.y, a1);
+      a2 = fmaf(kinv[4 * c + 2], b.z, a2);
+      a3 = fmaf(kinv[4 * c + 3], b.w, a3);
+    }
+    part[half * kNMax + r] = (a0 + a1) + (a2 + a3);
+  }
+}
+
+// The vectors of one env in shared memory.
+struct Vecs {
+  float *q, *x, *v, *rhs, *s, *xp, *part;
+  float *l, *u, *z, *y, *rhov, *wgt, *wact, *bact, *lam, *av, *w;
+};
+
+enum Pass { kAdmmRhs, kAdmmStep, kPolishRhs, kPolishStep };
+
+// Half a warp per horizon step k = 2 warp + lane / 16 (warps 0..4 for
+// h = 10): lane l = lane % 16 owns the step's constraint rows j = k ms + l
+// and k ms + l + 16 (those < ms), and for l < 12 its variable i = 12k + l.
+// A *Step pass first takes v = K^-1 rhs from the two half-row sums in part
+// (into v) and updates the step's iterates (ADMM: x, z, y; polish: xp,
+// lam); every pass then forms the step's rhs for the next K^-1 product:
+//   ADMM:   rhs = sigma x - q + A'(rho z - y)
+//   polish: rhs = -q + A'(wact (rho_pol bact - lam))
+template <Pass kPass>
+__device__ __forceinline__ void step_pass(const Vecs& V, const float* sA, int h, int ms,
+                                          float sigma, float alpha) {
+  constexpr bool kStep = kPass == kAdmmStep || kPass == kPolishStep;
+  constexpr bool kPolish = kPass == kPolishRhs || kPass == kPolishStep;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (2 * warp >= h) return;  // whole warps only: the __syncwarp below stay convergent
+  const int l = lane & 15, k = 2 * warp + (lane >> 4);
+  const bool on = k < h;
+  const int i = k * kNu + l;
+  if (kStep) {
+    if (on && l < kNu) {
+      const float v = V.part[i] + V.part[kNMax + i];
+      V.v[i] = v;
+      if (kPolish) V.xp[i] = v;
+      else V.x[i] = alpha * v + (1.f - alpha) * V.x[i];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = l + 16 * rr, j = k * ms + r;
+      if (on && r < ms) {
+        const float* a = sA + j * kNu;
+        const float* vk = V.v + k * kNu;
+        float av = 0.f;
+#pragma unroll
+        for (int c = 0; c < kNu; ++c) av = fmaf(a[c], vk[c], av);
+        if (kPolish) {
+          V.lam[j] = V.lam[j] + kRhoPolish * ((av - V.bact[j]) * V.wact[j]);
+        } else {
+          const float zt = alpha * av + (1.f - alpha) * V.z[j];
+          const float zn = fminf(fmaxf(zt + V.y[j] / V.rhov[j], V.l[j]), V.u[j]);
+          V.y[j] = V.y[j] + V.rhov[j] * (zt - zn);
+          V.z[j] = zn;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = l + 16 * rr, j = k * ms + r;
+    if (on && r < ms)
+      V.w[j] = kPolish ? V.wact[j] * (kRhoPolish * V.bact[j] - V.lam[j])
+                       : V.rhov[j] * V.z[j] - V.y[j];
+  }
+  __syncwarp();
+  if (on && l < kNu) {
+    // (A'w)_i over the step's rows, four partial sums (a short chain)
+    const float* a = sA + k * ms * kNu + l;
+    const float* w = V.w + k * ms;
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+    int r = 0;
+    for (; r + 4 <= ms; r += 4) {
+      a0 = fmaf(a[r * kNu], w[r], a0);
+      a1 = fmaf(a[(r + 1) * kNu], w[r + 1], a1);
+      a2 = fmaf(a[(r + 2) * kNu], w[r + 2], a2);
+      a3 = fmaf(a[(r + 3) * kNu], w[r + 3], a3);
+    }
+    for (; r < ms; ++r) a0 = fmaf(a[r * kNu], w[r], a0);
+    V.rhs[i] = (kPolish ? -V.q[i] : sigma * V.x[i] - V.q[i]) + ((a0 + a1) + (a2 + a3));
+  }
+}
+
+// iters steps of x_{k+1} = step(K^-1 rhs_k) from the rhs of the current
+// iterates, with K^-1 in registers: two barriers per step.
+template <Pass kRhs, Pass kStep>
+__device__ __forceinline__ void kinv_iterations(const float (&kinv)[kHalf], const Vecs& V,
+                                const float* sA, int h, int ms, int n, int iters,
+                                float sigma, float alpha) {
+  step_pass<kRhs>(V, sA, h, ms, sigma, alpha);
   __syncthreads();
   for (int it = 0; it < iters; ++it) {
-    matmul<true>(K, X, T, n);   // T = 2I - Khat X
-    matmul<false>(X, T, X, n);  // X = X T, in place
+    kinv_matvec(kinv, V.rhs, V.part, n);
+    __syncthreads();
+    step_pass<kStep>(V, sA, h, ms, sigma, alpha);
+    __syncthreads();
   }
-  for (int idx = tid; idx < n * n; idx += kThreads) {
-    const int i = idx / n, j = idx % n;
-    X[i * kLd + j] = X[i * kLd + j] * s[i] * s[j];
-  }
-  __syncthreads();
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -262,32 +527,38 @@ qp_admm_kernel(const float* __restrict__ P_all, const float* __restrict__ Ah_all
                const float* __restrict__ u_all, const float* __restrict__ x0_all,
                const float* __restrict__ z0_all, const float* __restrict__ y0_all,
                float* __restrict__ x_out, float* __restrict__ z_out,
-               float* __restrict__ y_out, int h, int ms, float rho0, float sigma,
+               float* __restrict__ y_out, int h, int ms, float rho, float sigma,
                float alpha, int n_iters, int n_phases, int ns_iters, int polish) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   float* Km = smem;
   float* Xm = Km + kMat;
   float* Tm = Xm + kMat;
   float* sA = Tm + kMat;
   float* vn = sA + kHMax * kMsMax * kNu;
-  float* q = vn;
-  float* x = q + kNMax;
-  float* v = x + kNMax;
-  float* rhs = v + kNMax;
-  float* s = rhs + kNMax;
-  float* xp = s + kNMax;
   float* vm = vn + kVecN * kNMax;
-  float* l = vm;
-  float* u = l + kMMax;
-  float* z = u + kMMax;
-  float* y = z + kMMax;
-  float* rhov = y + kMMax;
-  float* wgt = rhov + kMMax;
-  float* wact = wgt + kMMax;
-  float* bact = wact + kMMax;
-  float* lam = bact + kMMax;
-  float* av = lam + kMMax;
+  Vecs V;
+  V.q = vn;
+  V.x = V.q + kNMax;
+  V.v = V.x + kNMax;
+  V.rhs = V.v + kNMax;
+  V.s = V.rhs + kNMax;
+  V.xp = V.s + kNMax;
+  V.part = V.xp + kNMax;  // two halves
+  V.l = vm;
+  V.u = V.l + kMMax;
+  V.z = V.u + kMMax;
+  V.y = V.z + kMMax;
+  V.rhov = V.y + kMMax;
+  V.wgt = V.rhov + kMMax;
+  V.wact = V.wgt + kMMax;
+  V.bact = V.wact + kMMax;
+  V.lam = V.bact + kMMax;
+  V.av = V.lam + kMMax;
+  V.w = V.av + kMMax;
   float* red = vm + kVecM * kMMax;
+  float *q = V.q, *x = V.x, *v = V.v, *rhs = V.rhs, *xp = V.xp;
+  float *l = V.l, *u = V.u, *z = V.z, *y = V.y, *rhov = V.rhov, *av = V.av;
 
   const int tid = threadIdx.x;
   const int n = h * kNu;
@@ -295,7 +566,10 @@ qp_admm_kernel(const float* __restrict__ P_all, const float* __restrict__ Ah_all
   const long env = blockIdx.x;
   const float* P = P_all + env * n * n;
 
-  for (int i = tid; i < 3 * kMat; i += kThreads) smem[i] = 0.f;
+  static_assert(kSmemFloats % 4 == 0, "shared memory zeroed as float4");
+  for (int i = tid; i < kSmemFloats / 4; i += kThreads) smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+#pragma unroll 4
   for (int i = tid; i < M * kNu; i += kThreads) sA[i] = Ah_all[env * M * kNu + i];
   for (int i = tid; i < n; i += kThreads) {
     q[i] = q_all[env * n + i];
@@ -309,40 +583,17 @@ qp_admm_kernel(const float* __restrict__ P_all, const float* __restrict__ Ah_all
   }
   __syncthreads();
 
-  float rho = rho0;
+  float kinv[kHalf];
   const int iters_per_phase = n_iters / n_phases > 1 ? n_iters / n_phases : 1;
   for (int p = 0; p < n_phases; ++p) {
     for (int j = tid; j < M; j += kThreads)
       rhov[j] = (u[j] - l[j]) < 1e-6f ? rho * kEqBoost : rho;
     __syncthreads();
     build_kkt(P, sA, rhov, Km, n, ms, sigma);
-    ns_inverse(Km, Xm, Tm, s, red, n, ns_iters);
-
-    for (int it = 0; it < iters_per_phase; ++it) {
-      // rhs = sigma x - q + A'(rho z - y)
-      for (int i = tid; i < n; i += kThreads) {
-        const int k = i / kNu, c = i % kNu;
-        float acc = 0.f;
-        for (int r = 0; r < ms; ++r) {
-          const int j = k * ms + r;
-          acc = fmaf(sA[j * kNu + c], rhov[j] * z[j] - y[j], acc);
-        }
-        rhs[i] = sigma * x[i] - q[i] + acc;
-      }
-      __syncthreads();
-      // v = K^-1 rhs; x = alpha v + (1 - alpha) x
-      matvec_smem(Xm, rhs, v, n, x, alpha);
-      __syncthreads();
-      // z_t = alpha A v + (1 - alpha) z; z = clip(z_t + y/rho, l, u);
-      // y += rho (z_t - z)
-      for (int j = tid; j < M; j += kThreads) {
-        const float zt = alpha * row_dot(sA, v, j, ms) + (1.f - alpha) * z[j];
-        const float zn = fminf(fmaxf(zt + y[j] / rhov[j], l[j]), u[j]);
-        y[j] = y[j] + rhov[j] * (zt - zn);
-        z[j] = zn;
-      }
-      __syncthreads();
-    }
+    ns_inverse(Km, Xm, Tm, V.s, red, n, ns_iters);
+    load_kinv(Xm, V.s, kinv, n);
+    kinv_iterations<kAdmmRhs, kAdmmStep>(kinv, V, sA, h, ms, n, iters_per_phase, sigma,
+                                         alpha);
 
     if (p < n_phases - 1) {
       // OSQP rho re-pick from the scaled primal / dual residual ratio
@@ -381,31 +632,16 @@ qp_admm_kernel(const float* __restrict__ P_all, const float* __restrict__ Ah_all
     const float tol = 1e-5f;
     for (int j = tid; j < M; j += kThreads) {
       const float act = (z[j] <= l[j] + tol || z[j] >= u[j] - tol) ? 1.f : 0.f;
-      wact[j] = act;
-      bact[j] = fminf(fmaxf(z[j], l[j]), u[j]);
-      wgt[j] = kRhoPolish * act;
-      lam[j] = 0.f;
+      V.wact[j] = act;
+      V.bact[j] = fminf(fmaxf(z[j], l[j]), u[j]);
+      V.wgt[j] = kRhoPolish * act;
+      V.lam[j] = 0.f;
     }
     __syncthreads();
-    build_kkt(P, sA, wgt, Km, n, ms, sigma);
-    ns_inverse(Km, Xm, Tm, s, red, n, ns_iters);
-    for (int it = 0; it < 3; ++it) {
-      for (int i = tid; i < n; i += kThreads) {
-        const int k = i / kNu, c = i % kNu;
-        float acc = 0.f;
-        for (int r = 0; r < ms; ++r) {
-          const int j = k * ms + r;
-          acc = fmaf(sA[j * kNu + c], wact[j] * (kRhoPolish * bact[j] - lam[j]), acc);
-        }
-        rhs[i] = -q[i] + acc;
-      }
-      __syncthreads();
-      matvec_smem(Xm, rhs, xp, n, nullptr, 0.f);
-      __syncthreads();
-      for (int j = tid; j < M; j += kThreads)
-        lam[j] = lam[j] + kRhoPolish * ((row_dot(sA, xp, j, ms) - bact[j]) * wact[j]);
-      __syncthreads();
-    }
+    build_kkt(P, sA, V.wgt, Km, n, ms, sigma);
+    ns_inverse(Km, Xm, Tm, V.s, red, n, ns_iters);
+    load_kinv(Xm, V.s, kinv, n);
+    kinv_iterations<kPolishRhs, kPolishStep>(kinv, V, sA, h, ms, n, 3, sigma, alpha);
     // exact-penalty merit 0.5 v'Pv + q'v + 1e4 sum|Av - clip(Av)| of x and xp
     matvec_global(P, x, v, n);
     matvec_global(P, xp, rhs, n);

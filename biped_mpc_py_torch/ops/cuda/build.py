@@ -4,7 +4,8 @@ Each kernel is one ``csrc/*.cu`` file with a plain C interface. :func:`build`
 compiles sources with ``nvcc`` for sm_90a into shared libraries under
 ``build/torch_kernels/``, each named by the hash of its source, the shared
 headers in ``csrc/`` and the flags, so an edited source or header is rebuilt
-and an unchanged one is reused. Several
+and an unchanged one is reused; each compile's ``-Xptxas -v`` log is kept
+beside its library (:func:`ptxas_report`). Several
 sources compile in parallel, one ``nvcc`` process each. :func:`load` opens a
 built library with ctypes and declares its functions.
 
@@ -76,6 +77,7 @@ def build(*sources: Path, verbose: bool = False) -> list[Path]:
                 continue
             if verbose:
                 print(f"nvcc {src.name} {time.time() - t0:.1f}s\n{log}", end="")
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
         if failed:
             raise RuntimeError("\n".join(failed))
@@ -87,6 +89,14 @@ def build(*sources: Path, verbose: bool = False) -> list[Path]:
             if os.path.exists(tmp):
                 os.unlink(tmp)
     return outs
+
+
+def ptxas_report(source: Path) -> list[str]:
+    """The register, spill and shared-memory lines of ``-Xptxas -v`` from
+    the build of ``source`` (kept beside its library)."""
+    log = _library_path(source).with_suffix(".log")
+    keys = ("registers", "spill", "stack frame", "smem")
+    return [ln.strip() for ln in log.read_text().splitlines() if any(k in ln for k in keys)]
 
 
 def load(source: Path, functions: dict) -> ctypes.CDLL:

@@ -102,6 +102,8 @@ def fused_qp_solve(P, Ah, q, l, u, x0, z0, y0, *, rho, n_iters, n_phases,
             f"the CUDA kernel holds h*12 <= {_N_MAX} variables and <= "
             f"{_MS_MAX} rows per step; got h={h}, m={m}, nu={nu}"
         )
+    if P.data_ptr() % 16:
+        raise ValueError("P must be 16-byte aligned (the kernel reads it as float4)")
     x = torch.empty_like(q)
     z = torch.empty_like(l)
     y = torch.empty_like(l)

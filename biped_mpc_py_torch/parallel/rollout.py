@@ -24,6 +24,7 @@ from biped_mpc_py_torch.control.mpc import build_mpc_qp
 from biped_mpc_py_torch.models.biped import BipedParams
 from biped_mpc_py_torch.ops.qp import QpSolution, solve_qp
 from biped_mpc_py_torch.sim.srb_sim import SrbState, srb_step
+from biped_mpc_py_torch.utils.device import DEFAULT_DEVICE, entry_device
 from biped_mpc_py_torch.utils.metrics import RolloutMetrics
 from biped_mpc_py_torch.utils.precision import f32_precision
 from biped_mpc_py_torch.utils.struct import TensorStruct
@@ -42,8 +43,11 @@ class World(TensorStruct):
     metrics: RolloutMetrics
 
 
-def init_world(mpc: MpcConfig, n: int = 1, device=None, z0: float = 0.53) -> World:
-    """``n`` standing envs at rest."""
+def init_world(mpc: MpcConfig, n: int = 1, device=DEFAULT_DEVICE,
+               z0: float = 0.53) -> World:
+    """``n`` standing envs at rest, on the card unless ``device`` names
+    another (raises without a card)."""
+    device = entry_device(device)
     return World(
         sim=SrbState.standing(n, z0=z0, device=device),
         ctrl=ControllerState.init(mpc, n, device=device),
@@ -51,8 +55,9 @@ def init_world(mpc: MpcConfig, n: int = 1, device=None, z0: float = 0.53) -> Wor
     )
 
 
-def batch_worlds(mpc: MpcConfig, n: int, device=None) -> World:
-    """A batch of ``n`` identical standing worlds."""
+def batch_worlds(mpc: MpcConfig, n: int, device=DEFAULT_DEVICE) -> World:
+    """A batch of ``n`` identical standing worlds, on the card unless
+    ``device`` names another."""
     return init_world(mpc, n, device=device)
 
 
@@ -119,10 +124,13 @@ def batched_rollout(
 
 
 def randomize_params(generator: torch.Generator, n: int,
-                     base: BipedParams | None = None, device=None) -> BipedParams:
+                     base: BipedParams | None = None,
+                     device=DEFAULT_DEVICE) -> BipedParams:
     """Domain-randomized population of ``n`` robots (``rollout.py:216``):
     mass and inertia diagonal scaled by U(0.8, 1.2), friction mu ~
-    U(0.4, 0.7). Draws on ``generator``'s device, returns on ``device``."""
+    U(0.4, 0.7). Draws on ``generator``'s device, returns on ``device``
+    (the card unless named otherwise)."""
+    device = entry_device(device)
     base = (base or BipedParams()).expand(n)
     gdev = generator.device
 

@@ -56,6 +56,7 @@ from biped_mpc_py_torch.sim.engine import (
     mass_matrix_inv,
 )
 from biped_mpc_py_torch.sim.model import ArticulatedModel, hector_model
+from biped_mpc_py_torch.utils.device import DEFAULT_DEVICE, entry_device
 from biped_mpc_py_torch.utils.metrics import RolloutMetrics
 from biped_mpc_py_torch.utils.precision import f32_precision
 from biped_mpc_py_torch.utils.struct import TensorStruct
@@ -144,9 +145,11 @@ class ArtWorld(TensorStruct):
     metrics: RolloutMetrics
 
 
-def init_art_world(mpc: MpcConfig, n: int = 1, device=None,
+def init_art_world(mpc: MpcConfig, n: int = 1, device=DEFAULT_DEVICE,
                    z0: float = 0.533) -> ArtWorld:
-    """``n`` standing envs at rest with cold controllers."""
+    """``n`` standing envs at rest with cold controllers, on the card
+    unless ``device`` names another (raises without a card)."""
+    device = entry_device(device)
     return ArtWorld(
         sim=ArtState.standing(n, z0=z0, device=device),
         ctrl=ControllerState.init(mpc, n, device=device),

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from biped_mpc_py_torch.models.biped import BipedParams
+from biped_mpc_py_torch.utils.device import DEFAULT_DEVICE, entry_device
 from biped_mpc_py_torch.utils.struct import TensorStruct
 
 N_BODIES = 11  # torso + 5 per leg
@@ -86,9 +87,12 @@ def _value(t: torch.Tensor, i: int | None = None) -> float:
     return float(str(np.float32(v[0 if i is None else i].item())))
 
 
-def hector_model(biped: BipedParams | None = None, device=None) -> ArticulatedModel:
+def hector_model(biped: BipedParams | None = None,
+                 device=DEFAULT_DEVICE) -> ArticulatedModel:
     """The HECTOR articulated model from env 0 of ``biped``'s leg geometry,
-    mass, foot levers and friction (``sim/model.py:105``)."""
+    mass, foot levers and friction (``sim/model.py:105``), on the card
+    unless ``device`` names another (raises without a card)."""
+    device = entry_device(device)
     biped = biped or BipedParams()
     g = {f.name: _value(getattr(biped.leg, f.name))
          for f in dataclasses.fields(biped.leg)}

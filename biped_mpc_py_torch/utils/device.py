@@ -1,0 +1,25 @@
+"""The device the port's entry points build on.
+
+The constructors a user calls first (``init_world``, ``batch_worlds``,
+``randomize_params``, ``init_art_world``, ``hector_model``) build on the
+card unless the caller names another device, for example ``device="cpu"``.
+Without a card they raise at once: nothing falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+DEFAULT_DEVICE = "cuda"
+
+
+def entry_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raise if it is a CUDA device and
+    there is no card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested but torch.cuda.is_available() is false; "
+            "pass device='cpu' to build on the CPU"
+        )
+    return dev

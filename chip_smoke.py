@@ -8,7 +8,8 @@ Phases, each printed on its own lines:
 1. device: the card's name and ``nvidia-smi`` name and power limit;
 2. build: ``nvcc`` compiles ``biped_mpc_py_torch/csrc/qp_admm.cu``,
    ``csrc/substep.cu``, ``csrc/tick.cu`` and ``csrc/probe_ops.cu`` for
-   sm_90a from the checkout's sources, in parallel;
+   sm_90a from the checkout's sources, in parallel, and prints the QP
+   kernel's ``-Xptxas -v`` registers, spills and stack;
 3. QP kernel vs plain: the fused ADMM QP-solve kernel and its plain PyTorch
    version on the same 1024 real MPC QPs (perturbed standing states at
    every gait phase, domain-randomized robots, cold and warm starts), at
@@ -36,9 +37,20 @@ Phases, each printed on its own lines:
    through ``batched_art_rollout_tick_kernel`` (one tick launch per tick);
    launch counts (250 tick, 250 QP, 0 substep), the walking bounds, and
    the walking statistics after 25 ticks against the substep-kernel path's;
-10. times: the QP solve, the substep call and the tick call (CUDA events),
-   the rollouts' env-steps/s with kernel and plain version, and a per-stage
-   split of one SRB tick and of one articulated tick on each path.
+10. times: the QP solve (also with ``ns_iters=0`` and ``n_iters=0``, for
+   the split between the inverse and the ADMM loop, with its achieved
+   TFLOP/s, its share of the bound and its TF32 mma.sync rate), the
+   substep call and the tick call (CUDA events), the rollouts' env-steps/s
+   with kernel and plain version, and a per-stage split of one SRB tick and
+   of one articulated tick on each path;
+11. profile: one ``torch.profiler`` window of 5 steady tick-path ticks:
+   device kernels and device busy per tick, the QP kernel's share of it,
+   and the card's idle share of the unprofiled tick of phase 9;
+12. bounds: each kernel's least time on the card for the same work
+   (``utils/roofline.py``), from the shapes of this run's inputs: the QP
+   solve's from its budget (its Newton-Schulz products at the 3xTF32
+   tensor-core rate), the physics kernels' from the tree's per-substep and
+   per-period operation counts.
 
 The line before the last is a JSON object describing the kernels; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -96,6 +108,8 @@ def phase_build():
     paths = build.build(qp_kernel.SOURCE, substep_kernel.SOURCE, tick_kernel.SOURCE,
                         probe_cuda_ops.SOURCE, verbose=True)
     log(f"[build] {', '.join(p.name for p in paths)} in {time.time() - t0:.1f} s")
+    for line in build.ptxas_report(qp_kernel.SOURCE):
+        log(f"[build] qp_admm.cu -Xptxas -v: {line}")
 
 
 def mpc_qps(torch, mpc, n, device, seed):
@@ -219,19 +233,30 @@ def run_rollout(torch, device, n_ticks, mpc=None):
     return out, time.perf_counter() - t0
 
 
-class plain_core:
-    """Route the rollout's solve through the plain version on the card
-    (for the comparison run only)."""
+class solve_via:
+    """Route the rollouts' QP solve (the ``fused_qp_solve`` that
+    ``ops/qp.py`` calls) through ``fn`` inside the block."""
+
+    def __init__(self, fn):
+        self.fn = fn
 
     def __enter__(self):
         from biped_mpc_py_torch.ops import qp as tqp
-        from biped_mpc_py_torch.ops.cuda import qp_kernel
 
-        self.mod, self.saved = tqp, tqp.fused_qp_solve
-        tqp.fused_qp_solve = qp_kernel.fused_qp_solve_reference
+        self.saved, tqp.fused_qp_solve = tqp.fused_qp_solve, self.fn
 
     def __exit__(self, *exc):
-        self.mod.fused_qp_solve = self.saved
+        from biped_mpc_py_torch.ops import qp as tqp
+
+        tqp.fused_qp_solve = self.saved
+
+
+def plain_core():
+    """The rollouts' solve through the plain version on the card (for the
+    comparison runs only)."""
+    from biped_mpc_py_torch.ops.cuda import qp_kernel
+
+    return solve_via(qp_kernel.fused_qp_solve_reference)
 
 
 def walk_stats(w):
@@ -317,14 +342,33 @@ def _timed(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def qp_mma_flops(n_env, h, ns_iters, inverses):
+    """TF32 operations the QP kernel issues on the tensor cores: each NS step
+    after the first is two products of 3 mma.sync m16n8k8 passes (4 in the
+    last 2 steps) over 16-row tiles padded to 128 rows
+    (csrc/qp_admm.cu::matmul)."""
+    n = 12 * h
+    tiles = -(-n // 16) * -(-n // 8) * -(-n // 8)
+    steps = max(ns_iters - 1, 0)
+    passes = 2 * (3 * steps + min(steps, 2))
+    return n_env * inverses * passes * tiles * 2 * 16 * 8 * 8
+
+
 def time_solves(torch, device):
     """Per-tick solve time at the main path's shapes: 1024 envs, bench and
-    default budgets, CUDA events over repeated launches."""
+    default budgets, CUDA events over repeated launches; the kernel also
+    with no Newton-Schulz steps (``ns_iters=0``) and with one ADMM step per
+    phase (``n_iters=0``), for the split between the inverse and the ADMM
+    loop. Prints each full-budget solve's achieved TFLOP/s, its share of its
+    bound (the 3xTF32 floor, ``utils/roofline.py``) and of the f32 bound
+    outside the tensor cores, and the rate of the kernel's TF32 mma.sync
+    over the time the NS products add (full - ``ns_iters=0``)."""
     from biped_mpc_py_torch import MpcConfig
     from biped_mpc_py_torch.ops import qp as tqp
     from biped_mpc_py_torch.ops.cuda.qp_kernel import (
         fused_qp_solve, fused_qp_solve_reference,
     )
+    from biped_mpc_py_torch.utils import roofline
 
     def timed(fn, args, kw, reps):
         return _timed(torch, lambda: fn(*args, **kw), reps)
@@ -336,10 +380,66 @@ def time_solves(torch, device):
         args = (Ph, Ah, qh, lh, uh, *tqp.scaled_warm_start(None, D, E, c, Ph.shape[-1]))
         kw = tqp.solver_args(mpc)
         ms_k = timed(fused_qp_solve, args, kw, 20)
+        ms_ns0 = timed(fused_qp_solve, args, {**kw, "ns_iters": 0}, 20)
+        ms_it0 = timed(fused_qp_solve, args, {**kw, "n_iters": 0}, 20)
         ms_p = timed(fused_qp_solve_reference, args, kw, 5)
-        out[budget] = (ms_k, ms_p)
-        log(f"[times] solve {budget:7s} ({N_ENVS} envs): kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms")
+        h, ms = Ah.shape[1:3]
+        work = roofline.qp_solve_work(N_ENVS, h, ms, **kw)
+        bound, by = roofline.qp_solve_bound_ms(work)
+        f32_bound, _ = roofline.bound_ms(work["flops"], work["bytes"])
+        mma = qp_mma_flops(N_ENVS, h, kw["ns_iters"], kw["n_phases"] + int(bool(kw["polish"])))
+        out[budget] = (ms_k, ms_p, bound, by)
+        log(f"[times] solve {budget:7s} ({N_ENVS} envs): kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms; "
+            f"kernel with ns_iters=0 {ms_ns0:.3f} ms, with n_iters=0 {ms_it0:.3f} ms; "
+            f"{work['flops'] / ms_k / 1e9:.2f} TFLOP/s; bound (3xTF32 floor) {bound:.4f} ms "
+            f"({by}, share {bound / ms_k:.3f}), f32 bound {f32_bound:.4f} ms (share "
+            f"{f32_bound / ms_k:.3f}); TF32 mma.sync {mma / 1e9:.1f} GFLOP in "
+            f"{ms_k - ms_ns0:.3f} ms: {mma / (ms_k - ms_ns0) / 1e9:.1f} TFLOP/s")
     return out
+
+
+def bound_substep(torch, device):
+    """(bound ms, what sets it) of one 5-substep call at 1024 envs: the
+    operations derived from the tree's shapes (``utils/roofline.py``); bytes
+    of the state, torques, Minv and model read and the state written."""
+    from biped_mpc_py_torch.sim.engine import mass_matrix_inv
+    from biped_mpc_py_torch.sim.model import hector_model
+    from biped_mpc_py_torch.utils import roofline
+
+    state, tau = perturbed_art_states(torch, N_ENVS, SEED)
+    model = hector_model(device=device)
+    sc, tc = state.to(device), tau.to(device)
+    Minv = mass_matrix_inv(model, sc.q)
+    return roofline.bound_ms(roofline.substep_ops(N_ENVS, 5),
+                             roofline.tensor_bytes(sc, tc, Minv, model, sc))
+
+
+def bound_tick(torch, device):
+    """(bound ms, what sets it) of one tick call at 1024 envs (8 periods of
+    5 substeps), counted as for the substep call on the tick kernel's inputs
+    and outputs (the state and the energy)."""
+    from biped_mpc_py_torch.sim.engine import mass_matrix_inv
+    from biped_mpc_py_torch.sim.model import hector_model
+    from biped_mpc_py_torch.utils import roofline
+
+    model = hector_model(device=device)
+    state, args = tick_inputs(torch, N_ENVS, SEED)
+    sc, ac = state.to(device), [a.to(device) for a in args]
+    Minv = mass_matrix_inv(model, sc.q)
+    return roofline.bound_ms(roofline.tick_ops(N_ENVS, 8, 5),
+                             roofline.tensor_bytes(sc, ac, Minv, model, sc, sc.t))  # energy: (N,) as t
+
+
+def bound_probe(torch, device):
+    """(bound ms, what sets it) of the probe's four launches: per element,
+    asin 4 operations (scale, clip, asin), remainder 1, the nested loop 8 x
+    (5 x 3 + 1), atan2 1; bytes of the inputs each op reads and the output
+    it writes."""
+    from biped_mpc_py_torch.tools import probe_cuda_ops as probe
+    from biped_mpc_py_torch.utils import roofline
+
+    n = probe.inputs()[0].size
+    return roofline.bound_ms(n * (4 + 1 + 8 * (5 * 3 + 1) + 1), 4 * n * (2 + 2 + 2 + 3))
 
 
 def time_stages(torch, device):
@@ -438,7 +538,8 @@ def phase_substep_kernel(torch, device):
     out_k = fused_substeps(model, sc, tc, Minv, 0.005, 5)
     torch.cuda.synchronize()
     out_p = fused_substeps_reference(model, sc, tc, Minv, 0.005, 5)
-    out_c = fused_substeps_reference(hector_model(), state, tau, Minv.cpu(), 0.005, 5)
+    out_c = fused_substeps_reference(hector_model(device="cpu"), state, tau, Minv.cpu(),
+                                     0.005, 5)
     errs, noise = {}, {}
     for name in SUBSTEP_BOUNDS:
         k, p = getattr(out_k, name), getattr(out_p, name)
@@ -680,8 +781,8 @@ def phase_tick_kernel(torch, device):
         finite = all(bool(torch.isfinite(getattr(out_k, k)).all()) for k in TICK_BOUNDS)
         line = f"[tick] {n} envs: kernel vs plain max|err| {json.dumps(errs)}"
         if n == N_ENVS:
-            out_c, e_c = fused_tick_reference(hector_model(), BipedParams(), mpc, gait, state,
-                                              *args, Minv.cpu())
+            out_c, e_c = fused_tick_reference(hector_model(device="cpu"), BipedParams(), mpc,
+                                              gait, state, *args, Minv.cpu())
             noise = {k: float((getattr(out_c, k).to(device) - getattr(out_p, k)).abs().max())
                      for k in TICK_BOUNDS}
             noise["energy"] = float((e_c.to(device) - e_p).abs().max())
@@ -797,6 +898,42 @@ def time_tick(torch, device):
     return ms_k, ms_p
 
 
+def _union_ms(spans):
+    """Length of the union of (start, end) intervals in us, in ms."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def profile_tick_path(torch, device, n_ticks=5):
+    """One ``torch.profiler`` window of ``n_ticks`` steady tick-path ticks
+    -> (device kernels per tick, device busy ms per tick: the union of the
+    device's activity intervals, QP kernel ms per tick)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from biped_mpc_py_torch.parallel.rollout_art import batched_art_rollout_tick_kernel
+    from biped_mpc_py_torch.sim.model import hector_model
+
+    mpc, gait = _art_config()
+    model = hector_model(device=device)
+    w, bipeds = art_worlds(torch, device)
+    w = batched_art_rollout_tick_kernel(w, bipeds, 12, mpc, gait, model=model)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        batched_art_rollout_tick_kernel(w, bipeds, n_ticks, mpc, gait, model=model)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise AssertionError("the profiler saw no device activity on the tick path")
+    busy = _union_ms([(e.time_range.start, e.time_range.end) for e in dev])
+    qp = sum(e.time_range.end - e.time_range.start for e in dev if "qp_admm" in e.name) / 1e3
+    return len(dev) / n_ticks, busy / n_ticks, qp / n_ticks
+
+
 def main() -> int:
     import torch
 
@@ -818,6 +955,12 @@ def main() -> int:
         time_stages(torch, device)
         substep_ms, substep_plain_ms, sec_chain = time_art(torch, device)
         tick_ms, tick_plain_ms = time_tick(torch, device)
+        events, busy_ms, qp_tick_ms = profile_tick_path(torch, device)
+        bounds = {"fused_qp_solve": solve_ms["bench"][2:4],
+                  "fused_substeps": bound_substep(torch, device),
+                  "fused_tick": bound_tick(torch, device),
+                  "probe_ops": bound_probe(torch, device)}
+    log("[bounds] " + json.dumps(bounds))
     rate_k = N_ENVS * N_TICKS / sec_k
     rate_p = N_ENVS * N_TICKS / sec_p
     log(f"[times] rollout {N_ENVS} envs x {N_TICKS} ticks: kernel {rate_k:.1f} env-steps/s "
@@ -828,7 +971,12 @@ def main() -> int:
         f"ms/tick); substep-kernel path {N_ENVS * N_ART_TICKS / sec_art:.1f} env-steps/s "
         f"({sec_art * 1e3 / N_ART_TICKS:.3f} ms/tick); plain chain "
         f"{N_ENVS / sec_chain:.1f} env-steps/s")
-    print(json.dumps({"kernels": [
+    tick_path_ms = sec_tick * 1e3 / N_ART_TICKS
+    log(f"[profile] tick-kernel path, 5 steady ticks: {events:.1f} device kernels per tick, "
+        f"device busy {busy_ms:.3f} ms per tick (QP kernel {qp_tick_ms:.3f} ms, "
+        f"{qp_tick_ms / busy_ms:.3f} of it); against the unprofiled {tick_path_ms:.3f} ms "
+        f"tick above, the card idles {1 - busy_ms / tick_path_ms:.3f} of the tick")
+    kernels = [
         {
             "name": "fused_qp_solve",
             "route": "cuda",
@@ -869,7 +1017,12 @@ def main() -> int:
             "ms": probe[2],
             "plain_ms": probe[3],
         },
-    ]}))
+    ]
+    for k in kernels:
+        # No single PyTorch call computes any of these functions.
+        k["bound_ms"], k["bound_by"] = bounds[k["name"]]
+        k["library_ms"] = None
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -216,7 +216,7 @@ def test_defaults_match_jax_by_name(name):
         "BipedParams": (tbiped.BipedParams(), jbiped.BipedParams()),
         "HECTOR_LEG_FK": (tbiped.HECTOR_LEG_FK, jbiped.HECTOR_LEG_FK),
         "HECTOR_LEG_JAC": (tbiped.HECTOR_LEG_JAC, jbiped.HECTOR_LEG_JAC),
-        "ArticulatedModel": (tmodel.hector_model(), jmodel.hector_model()),
+        "ArticulatedModel": (tmodel.hector_model(device="cpu"), jmodel.hector_model()),
     }
     port_obj, jax_obj = pairs[name]
     _assert_defaults_equal(port_obj, jax_obj, name)

@@ -8,7 +8,10 @@ file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 Tolerance: unscaled controls within 0.05 N at the bench budget (1 phase, no
-polish); both sides compute in f32 and differ only in summation order. At
+polish), with and without the torsional cone and at short horizons (the
+mma tiles' ragged edge); both sides compute at f32 accuracy (the kernel's
+Newton-Schulz products in split TF32 on the tensor cores, see
+tests/test_torch_qp_tf32.py) and differ in summation order. At
 the default budget (3 phases + polish) the solve is discontinuous in
 roundoff (the polish's active set and merit accept flip on last-bit
 differences: about one env in a hundred lands tens of N away for any two
@@ -75,9 +78,21 @@ def _mpc_qps(n, device, mpc, seed=0):
     return build_mpc_qp(x, t, foot, mpc, biped, contact, GaitConfig())
 
 
-@pytest.mark.parametrize("budget", ["bench", "default"])
+# The kernel's cases: both budgets, the torsional cone (28 rows per step)
+# and short horizons (n = 60 and 84 variables: the mma tiles' ragged edge).
+QP_CASES = {
+    "bench": fast_mpc_config(),
+    "default": MpcConfig(),
+    "bench-cone": fast_mpc_config(mu_z=0.03),
+    "default-cone": MpcConfig(mu_z=0.03),
+    "bench-h5": fast_mpc_config(h=5),
+    "bench-h7-cone": fast_mpc_config(h=7, mu_z=0.03),
+}
+
+
+@pytest.mark.parametrize("budget", list(QP_CASES))
 def test_kernel_matches_plain(cuda, budget):
-    mpc = fast_mpc_config() if budget == "bench" else MpcConfig()
+    mpc = QP_CASES[budget]
     qp = _mpc_qps(256, cuda, mpc)
     Ph, qh, Ah, lh, uh, D, E, c = tqp.ruiz_equilibrate(qp, mpc.ruiz_iters)
     x0, z0, y0 = tqp.scaled_warm_start(None, D, E, c, Ph.shape[-1])
@@ -91,7 +106,7 @@ def test_kernel_matches_plain(cuda, budget):
     sol_p = tqp.recover_solution(qp, *out_p, D, E, c)
     assert torch.isfinite(sol_k.controls).all()
     du = (sol_k.controls - sol_p.controls).abs().flatten(1).amax(1)
-    if budget == "bench":
+    if budget.startswith("bench"):
         assert float(du.max()) < 0.05
         assert float((sol_k.res_prim - sol_p.res_prim).abs().max()) < 5e-3
         return
@@ -102,6 +117,36 @@ def test_kernel_matches_plain(cuda, budget):
     noise = (sol_c.controls - sol_p.controls).abs().flatten(1).amax(1)
     assert float(du.median()) < 0.01
     assert int((du > 0.1).sum()) <= 2 * int((noise > 0.1).sum()) + 5
+
+
+def test_kernel_launch_count_per_solve(cuda):
+    mpc = fast_mpc_config()
+    qp = _mpc_qps(32, cuda, mpc)
+    Ph, qh, Ah, lh, uh, D, E, c = tqp.ruiz_equilibrate(qp, mpc.ruiz_iters)
+    args = (Ph, Ah, qh, lh, uh, *tqp.scaled_warm_start(None, D, E, c, Ph.shape[-1]))
+    before = tk.fused_qp_solve.launches
+    for i in range(3):
+        tk.fused_qp_solve(*args, **tqp.solver_args(mpc))
+        assert tk.fused_qp_solve.launches == before + i + 1
+    tk.fused_qp_solve_reference(*args, **tqp.solver_args(mpc))
+    tk.fused_qp_solve(*[a.cpu() for a in args], **tqp.solver_args(mpc))
+    torch.cuda.synchronize()
+    assert tk.fused_qp_solve.launches == before + 3
+
+
+def test_kernel_rejects_misaligned_P(cuda):
+    """The kernel reads P as float4: a contiguous P off a 16-byte boundary
+    raises before any launch."""
+    mpc = fast_mpc_config()
+    qp = _mpc_qps(4, cuda, mpc)
+    Ph, qh, Ah, lh, uh, D, E, c = tqp.ruiz_equilibrate(qp, mpc.ruiz_iters)
+    shifted = torch.empty(Ph.numel() + 1, device=cuda)[1:].view_as(Ph)
+    shifted.copy_(Ph)
+    args = (shifted, Ah, qh, lh, uh, *tqp.scaled_warm_start(None, D, E, c, Ph.shape[-1]))
+    before = tk.fused_qp_solve.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tk.fused_qp_solve(*args, **tqp.solver_args(mpc))
+    assert tk.fused_qp_solve.launches == before
 
 
 def test_rollout_launches_kernel_once_per_tick(cuda):

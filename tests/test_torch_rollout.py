@@ -132,7 +132,7 @@ def test_bench_budget_walking_statistics():
     )
     mpc = tcfg.fast_mpc_config(x_cmd=X_CMD)
     w_fast = troll.batched_rollout(
-        troll.init_world(mpc), BipedParams(), 250, mpc, tcfg.GaitConfig()
+        troll.init_world(mpc, device="cpu"), BipedParams(), 250, mpc, tcfg.GaitConfig()
     )
     assert float(w_fast.metrics.falls[0]) == 0
     xf_full, xf_fast = np.array(w_full.sim.x_fb), w_fast.sim.x_fb[0].numpy()
@@ -152,8 +152,8 @@ def test_randomize_params():
     """Per-env robots from a torch.Generator: reproducible, in range, and
     different across envs; the rest of the robot is the base's."""
     n = 64
-    a = troll.randomize_params(torch.Generator().manual_seed(3), n)
-    b = troll.randomize_params(torch.Generator().manual_seed(3), n)
+    a = troll.randomize_params(torch.Generator().manual_seed(3), n, device="cpu")
+    b = troll.randomize_params(torch.Generator().manual_seed(3), n, device="cpu")
     for f in dataclasses.fields(a):
         if f.name != "leg":
             va, vb = getattr(a, f.name), getattr(b, f.name)

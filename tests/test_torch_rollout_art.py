@@ -129,7 +129,7 @@ def test_standing_50_ticks():
     """The port alone: 50 ticks (2 s) standing on the default physics, the
     bounds of tests/test_rollout_art.py::test_articulated_standing."""
     mpc = tra.art_mpc_config()
-    w = tra.batched_art_rollout(tra.init_art_world(mpc), BipedParams(), 50, mpc,
+    w = tra.batched_art_rollout(tra.init_art_world(mpc, device="cpu"), BipedParams(), 50, mpc,
                                 tcfg.GaitConfig(gait_mode=0))
     x = w.sim.torso_state()[0]
     assert float(w.metrics.falls[0]) == 0

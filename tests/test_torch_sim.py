@@ -38,7 +38,7 @@ from biped_mpc_py_torch.sim import spatial as tspatial
 from biped_mpc_py_torch.utils.convert import from_numpy
 
 SUBSTEP_BOUNDS = {"pos": 5e-7, "quat": 1e-6, "v_base": 5e-6, "q": 1e-6, "qd": 1e-4}
-JM, TM = jmodel.hector_model(), tmodel.hector_model()
+JM, TM = jmodel.hector_model(), tmodel.hector_model(device="cpu")
 
 
 def _fields(tree):
@@ -82,7 +82,7 @@ def test_model_constants_exact(leg):
     jgeom = jbiped.HECTOR_LEG_FK if leg == "fk" else jbiped.HECTOR_LEG_JAC
     tgeom = tbiped.HECTOR_LEG_FK if leg == "fk" else tbiped.HECTOR_LEG_JAC
     jm = jmodel.hector_model(jbiped.BipedParams(leg=jgeom))
-    tm = tmodel.hector_model(tbiped.BipedParams(leg=tgeom))
+    tm = tmodel.hector_model(tbiped.BipedParams(leg=tgeom), device="cpu")
     for f in dataclasses.fields(jm):
         j, t = getattr(jm, f.name), getattr(tm, f.name)
         if isinstance(t, torch.Tensor):
