@@ -19,37 +19,50 @@
 // The semantics are those of the plain version fused_substeps_reference in
 // ops/cuda/substep_kernel.py, a loop of sim/engine.py::art_substep; the two
 // differ only in f32 rounding (order of sums, fused multiply-adds, the
-// cos/sin entries of the joint rotations taken directly).
+// cos/sin entries of the joint rotations taken directly, the spatial
+// inertias applied in their packed form).
 //
-// What bounds it on this card: one long dependent chain of scalar f32 math
-// per env. A substep is ~5 kFLOP (two 5-level leg recursions with 6x6
-// inertia products, 22 of them, the contact, a 16x16 mat-vec), so a
-// 5-substep launch is ~25k dependent instructions per thread. Memory is
-// small: 33 + 10 state and torque floats and the 1 KB Minv per env,
-// re-read from L1/L2 every substep.
+// What bounds it on this card: latency, not throughput. The work is one
+// dependent chain of scalar f32 math per env (bytes and operations are
+// 1/100 of the time, utils/roofline.py), and at 1024 envs every warp has an
+// SM to itself, so nothing hides a stall. Two things set the time: the
+// length of the chain, and the number of instructions a warp runs through,
+// since a substep is straight-line code that a single warp streams through
+// the instruction caches.
 //
-// What the design does about it (a simple, correct first version):
-//  - One thread per env; the state, the per-leg level data (cos/sin and
-//    the 6-vector body forces) and the bias stay in registers. Any N works.
-//  - Blocks of 32 threads, so 1024 envs spread over 32 SMs; a block stages
-//    the model's 466 constants (offsets, contact points, 11 spatial
-//    inertias, contact and limit parameters) into shared memory, where
-//    every thread reads the same address (a broadcast).
-//  - The joint axes are the tree's fixed coordinate axes (sim/model.py
-//    JOINT_AXES: hip yaw z, hip roll x, three pitch y), so each joint
-//    rotation is a closed cos/sin form.
-//  - Minv is read as float4 rows each substep, straight from global memory.
-//  - No --use_fast_math: sinf, cosf, sqrtf and the divisions are the
-//    accurate ones; the quaternion is normalized by dividing by sqrtf of
-//    its squared norm, as the plain version divides by the norm.
-// Not done yet: splitting legs or joints across a warp, Minv in shared
-// memory or registers.
+// What the design does about it (substep_device.cuh holds the code):
+//  - An env on two lanes, a leg per lane: the per-leg three quarters of a
+//    substep (forward pass, contact, backward pass) run side by side and
+//    exist once in the code instead of twice. 16 envs per warp, one warp
+//    per block: 1024 envs are 64 blocks on 64 SMs, 4096 are 256 blocks (2
+//    per SM), 16,384 are 1024 (8 per SM, the most the registers allow).
+//    The lanes exchange 14 values per substep by shuffle and keep
+//    bit-equal copies of the base state; the header says why they cannot
+//    drift. Ragged N: a clamped env index and guarded stores, no early
+//    return.
+//  - Minv once per launch, by cp.async, into shared memory at a stride of
+//    260 floats (no bank conflicts between a quarter warp's envs), started
+//    before the state loads and waited for before the first substep. A
+//    lane reads 3 base rows and its own 5 joint rows as 128-bit loads; the
+//    lanes exchange the base accelerations.
+//  - The model is staged packed: a body's inertia as its rotational block,
+//    m c and m (13 floats for 36, I6 v in 24 multiply-adds for 36), with
+//    the joint's offset in the same four 128-bit loads. The lane's leg only
+//    changes the address, so both lanes' loads are two broadcasts. The
+//    packing is a gather, done by 4-byte cp.async in the same group as
+//    Minv: the launch's fixed cost is one round trip to global memory.
+//  - sincosf shares the range reduction of each angle's cos and sin. No
+//    --use_fast_math: sincosf, sqrtf and the divisions are the accurate
+//    ones; the quaternion is normalized by four divisions by sqrtf of its
+//    squared norm, as the plain version divides by the norm (a reciprocal
+//    would spend the 1e-6 bound on quat).
+// Not done: a finer split (toe and heel), constants as instruction operands
+// (a __constant__ copy per launch costs more than the shared loads it saves
+// here), Minv's symmetry.
 
 #include "substep_device.cuh"
 
 namespace {
-
-constexpr int kThreads = 32;
 
 __global__ void __launch_bounds__(kThreads)
 substep_kernel(const float* __restrict__ consts, const float* __restrict__ pos_in,
@@ -59,38 +72,52 @@ substep_kernel(const float* __restrict__ consts, const float* __restrict__ pos_i
                float* __restrict__ pos_out, float* __restrict__ quat_out,
                float* __restrict__ vb_out, float* __restrict__ q_out,
                float* __restrict__ qd_out, int n_env, float dt, int n_steps) {
-  __shared__ float C[kNConst];
-  for (int i = threadIdx.x; i < kNConst; i += kThreads) C[i] = consts[i];
-  __syncthreads();
-  const int e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= n_env) return;
+  __shared__ __align__(16) float S[kNStaged];
+  __shared__ __align__(16) float M[kEnvsPerBlock * kMinvStride];
+  const int e0 = blockIdx.x * kEnvsPerBlock;
+  stage_model_async(S, consts);
+  stage_minv_async(M, minv_in, e0, n_env);
+  async_commit();
 
-  float pos[3], quat[4], vb[6], q[10], qd[10], tau[10];
+  const int leg = threadIdx.x & 1, slot = threadIdx.x >> 1;
+  const int e_own = e0 + slot;
+  const int e = min(e_own, n_env - 1);  // a lane past the end repeats the last env
+  float pos[3], quat[4], vb[6], q5[5], qd5[5], tau5[5], cs[5], sn[5];
 #pragma unroll
   for (int i = 0; i < 3; ++i) pos[i] = pos_in[3 * e + i];
 #pragma unroll
   for (int i = 0; i < 4; ++i) quat[i] = quat_in[4 * e + i];
 #pragma unroll
   for (int i = 0; i < 6; ++i) vb[i] = vb_in[6 * e + i];
+  const int j0 = 10 * e + 5 * leg;
 #pragma unroll
-  for (int j = 0; j < 10; ++j) {
-    q[j] = q_in[10 * e + j];
-    qd[j] = qd_in[10 * e + j];
-    tau[j] = tau_in[10 * e + j];
+  for (int l = 0; l < 5; ++l) {
+    q5[l] = q_in[j0 + l];
+    qd5[l] = qd_in[j0 + l];
+    tau5[l] = tau_in[j0 + l];
   }
-  const float4* minv = reinterpret_cast<const float4*>(minv_in) + 64 * static_cast<size_t>(e);
-  for (int s = 0; s < n_steps; ++s) substep(C, pos, quat, vb, q, qd, tau, minv, dt);
+  joint_sincos(q5, cs, sn);
+  async_wait<0>();
 
+  const float* minv = M + kMinvStride * slot;
+#pragma unroll 1
+  for (int s = 0; s < n_steps; ++s)
+    substep(S, leg, minv, pos, quat, vb, q5, qd5, cs, sn, tau5, dt, s + 1 < n_steps);
+
+  if (e_own < n_env) {
+    if (leg == 0) {  // the pair's copies are bit-equal: lane 0 writes the base
 #pragma unroll
-  for (int i = 0; i < 3; ++i) pos_out[3 * e + i] = pos[i];
+      for (int i = 0; i < 3; ++i) pos_out[3 * e + i] = pos[i];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) quat_out[4 * e + i] = quat[i];
+      for (int i = 0; i < 4; ++i) quat_out[4 * e + i] = quat[i];
 #pragma unroll
-  for (int i = 0; i < 6; ++i) vb_out[6 * e + i] = vb[i];
+      for (int i = 0; i < 6; ++i) vb_out[6 * e + i] = vb[i];
+    }
 #pragma unroll
-  for (int j = 0; j < 10; ++j) {
-    q_out[10 * e + j] = q[j];
-    qd_out[10 * e + j] = qd[j];
+    for (int l = 0; l < 5; ++l) {
+      q_out[j0 + l] = q5[l];
+      qd_out[j0 + l] = qd5[l];
+    }
   }
 }
 
@@ -110,7 +137,7 @@ extern "C" int substep_launch(const float* consts, const float* pos, const float
   if (n_env == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n_env + kThreads - 1) / kThreads;
+  const int blocks = (n_env + kEnvsPerBlock - 1) / kEnvsPerBlock;
   substep_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       consts, pos, quat, v_base, q, qd, tau, minv, pos_out, quat_out, v_base_out, q_out,
       qd_out, n_env, dt, n_steps);

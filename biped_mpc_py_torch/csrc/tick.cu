@@ -9,7 +9,7 @@
 //     whole-body CoM position and velocity, the torso z, the Euler angles of
 //     the torso rotation R0, and the sole points         (feedback_and_soles)
 //   control: the walking swing clock t_ll - t_p floor(t_ll / t_p), the
-//     Raibert target, the swing PD, the stance wrench mapped by Jᵀ, and the
+//     Raibert target, the swing PD, the stance wrench mapped by J', and the
 //     pivot, hip-yaw and flight-yaw channels             (low_level_control)
 //   energy += sum_j max(tau_j qd_j, 0) ll_dt, with qd at the period's start
 //   n_substeps calls of substep() (substep_device.cuh), tau and Minv held
@@ -24,32 +24,47 @@
 // clock within an ulp of a phase boundary can read the other end of the
 // phase.
 //
-// What bounds it on this card: one long dependent chain of scalar f32 math
-// per env. A period is 5 substeps (~25k dependent instructions, see
-// substep.cu) plus the feedback (two 5-level chains with the CoM sums) and
-// the control (two closed-form leg Jacobians, a few dozen transcendentals),
-// so a tick is ~200k dependent instructions per thread. Memory is small: 33
-// state, 18 control and 256 Minv floats per env, read once (Minv re-read
-// from L1/L2 every substep).
+// What bounds it on this card: latency, as substep.cu says. A tick is 8
+// periods of feedback, control and 5 substeps, all straight-line scalar
+// code on one dependent chain per env; a warp has an SM to itself at 1024
+// envs. With one thread per env the feedback and control of a period took
+// as long as three and a half substeps though they count half the
+// operations of one: their code, two unrolled legs of transcendentals and
+// Jacobian columns, is run once per period between 5 passes of the substep
+// and is fetched anew each time.
 //
-// What the design does about it (a simple, correct first version):
-//  - One thread per env, as in substep.cu: the state, the torques and the
-//    energy stay in registers across all periods. Any N works.
-//  - Blocks of 32 threads; a block stages the model's 466 constants and the
-//    tick's constants (body masses and CoMs, the sole depth, the gains, the
-//    command, the gait cadence and the Jacobian geometry) in shared memory,
-//    read by every thread at the same address (a broadcast). The gains are
-//    data, so one build serves every config; the four config switches are
-//    the bits of `flags`.
+// What the design does about it:
+//  - An env on two lanes, a leg per lane, as in substep.cu and with its
+//    geometry (16 envs per warp, one warp per block). In the feedback a
+//    lane walks its own chain and the lanes exchange their bodies' CoM sums
+//    (3 + 3 values); the sole point, the leg's Jacobian, swing force,
+//    stance wrench and five torques are the lane's own; the lanes exchange
+//    the leg's positive work (1 value). The part of the control that both
+//    legs share (yaw error, swing clock, Raibert target) reads only the
+//    base copy and the exchanged sums, so both lanes repeat it with the
+//    same instructions and get the same bits; `side` and the leg's u0 and
+//    c0 entries are what differs. The energy is formed on both lanes and
+//    written by lane 0.
+//  - The constants and Minv by cp.async into shared memory, two groups
+//    started before the state loads; the wait for the constants comes after
+//    those loads, the wait for Minv after the first period's feedback and
+//    control, which hide it.
+//  - cos and sin of the joint angles are carried: substep() leaves those of
+//    the state it ends on, the feedback and the Jacobian read them
+//    (bit-equal to recomputing). sincosf wherever an angle needs both.
+//  - The model and the tick's constants (body masses and CoMs packed four
+//    floats a body, the sole depth, the gains, the command, the gait
+//    cadence and the Jacobian geometry) are staged in shared memory. The
+//    gains are data, so one build serves every config; the four config
+//    switches are the bits of `flags`.
 //  - The native atan2f and asinf (the Pallas kernel's polynomials exist only
 //    because the TPU compiler lacks them). No --use_fast_math.
-// Not done yet: splitting the two legs across threads, fewer live values.
+// Not done: see substep.cu.
 
 #include "substep_device.cuh"
 
 namespace {
 
-constexpr int kThreads = 32;
 constexpr float kPi = 3.14159265358979323846f;
 
 // tick constant buffer layout (ops/cuda/tick_kernel.py::tick_constants)
@@ -66,8 +81,21 @@ enum Ctrl {
   kAbdY, kAbdYConst, kHipX, kHipY, kHipZ, kNCtrl
 };
 constexpr int kNTick = kTCtrl + kNCtrl;
+// As staged in shared memory: a body's CoM and mass in one 128-bit group
+// (11 x 4 floats in the place of the 11 + 33), the rest where it was.
+constexpr int kTSBody = 0;
 // flag bits
 constexpr int kSin2 = 1, kCmdBodyFrame = 2, kCompatFrame = 4, kCompatYaw = 8;
+
+// Start staging the tick's constants into T (kNTick floats), a gather as
+// stage_model_async's.
+__device__ __forceinline__ void stage_tick_async(float* __restrict__ T,
+                                                 const float* __restrict__ tconsts) {
+  for (int i = threadIdx.x; i < kNTick; i += kThreads) {
+    const int b = i >> 2, k = i & 3;
+    async_copy4(T + i, tconsts + (i >= kTTipZ ? i : (k < 3 ? kTCom + 3 * b + k : kTMass + b)));
+  }
+}
 
 __device__ __forceinline__ float clipf(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
@@ -87,74 +115,73 @@ __device__ __forceinline__ void mtv3(const float R[3][3], const float v[3], floa
   for (int i = 0; i < 3; ++i) o[i] = R[0][i] * v[0] + R[1][i] * v[1] + R[2][i] * v[2];
 }
 
+// m (p + R c) and m R (v_lin + w x c) of a body with staged CoM and mass cm
+__device__ __forceinline__ void com_terms(const float4 cm, const float R[3][3],
+                                          const float p[3], const float v[6], float dp[3],
+                                          float dv[3]) {
+  const float c[3] = {cm.x, cm.y, cm.z};
+  float wc[3], rc[3], rv[3];
+  cross3(&v[0], c, wc);
+  const float vc[3] = {v[3] + wc[0], v[4] + wc[1], v[5] + wc[2]};
+  mv3(R, c, rc);
+  mv3(R, vc, rv);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    dp[i] = cm.w * (p[i] + rc[i]);
+    dv[i] = cm.w * rv[i];
+  }
+}
+
 // The controller's feedback x (12): [roll, pitch, yaw, CoM x, CoM y, torso z,
-// R0 omega, CoM vx, CoM vy, torso vz], the sole points (2 x 3) and R0.
-__device__ __forceinline__ void feedback(const float* __restrict__ C, const float* __restrict__ T,
-                                         const float pos[3], const float quat[4],
-                                         const float vb[6], const float q[10],
-                                         const float qd[10], float R0[3][3], float x[12],
-                                         float soles[2][3]) {
+// R0 omega, CoM vx, CoM vy, torso vz] and R0, the same on both lanes, and
+// the lane's own sole point. The lane walks its own leg; the legs' CoM sums
+// are exchanged and added as own + other, then to the torso's term.
+__device__ __forceinline__ void feedback(const float* __restrict__ S, const float* __restrict__ T,
+                                         int leg, const float pos[3], const float quat[4],
+                                         const float vb[6], const float qd5[5],
+                                         const float cs[5], const float sn[5], float R0[3][3],
+                                         float x[12], float sole[3]) {
   quat_to_rotm(quat, R0);
-  const float* mass = T + kTMass;
-  const float* com = T + kTCom;
-  float p_acc[3], v_acc[3];
-  {
-    const float c0[3] = {com[0], com[1], com[2]};
-    float wc[3], rc[3], rv[3];
-    cross3(&vb[0], c0, wc);
-    const float v0[3] = {vb[3] + wc[0], vb[4] + wc[1], vb[5] + wc[2]};
-    mv3(R0, c0, rc);
-    mv3(R0, v0, rv);
+  float Rw[3][3], pw[3], v[6], p_leg[3], v_leg[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    pw[i] = pos[i];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) Rw[i][k] = R0[i][k];
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) v[i] = vb[i];
+  const float* bodies = S + kSBody + 16 * (1 + 5 * leg);
+  const float* coms = T + kTSBody + 4 * (1 + 5 * leg);
+#pragma unroll
+  for (int l = 0; l < 5; ++l) {
+    const int ax = axis_of(l);
+    const float4 b3 = ld4(bodies + 16 * l + 12);
+    const float off[3] = {b3.y, b3.z, b3.w};
+    float ro[3];
+    mv3(Rw, off, ro);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) pw[i] += ro[i];
+    rotate_frame(ax, cs[l], sn[l], Rw);
+    motion_to_child(ax, cs[l], sn[l], off, v);
+    v[ax] += qd5[l];
+    float dp[3], dv[3];
+    com_terms(ld4(coms + 4 * l), Rw, pw, v, dp, dv);
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      p_acc[i] = mass[0] * (pos[i] + rc[i]);
-      v_acc[i] = mass[0] * rv[i];
+      p_leg[i] = l == 0 ? dp[i] : p_leg[i] + dp[i];
+      v_leg[i] = l == 0 ? dv[i] : v_leg[i] + dv[i];
     }
   }
 #pragma unroll
-  for (int leg = 0; leg < 2; ++leg) {
-    float Rw[3][3], pw[3], v[6];
+  for (int i = 0; i < 3; ++i) sole[i] = pw[i] + Rw[i][2] * T[kTTipZ];
+
+  float p_acc[3], v_acc[3];
+  com_terms(ld4(T + kTSBody), R0, pos, vb, p_acc, v_acc);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      pw[i] = pos[i];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) Rw[i][k] = R0[i][k];
-    }
-#pragma unroll
-    for (int i = 0; i < 6; ++i) v[i] = vb[i];
-#pragma unroll
-    for (int l = 0; l < 5; ++l) {
-      const int j = 5 * leg + l, ax = axis_of(l);
-      const float c = cosf(q[j]), s = sinf(q[j]);
-      const float off[3] = {C[kOffJoint + 3 * j], C[kOffJoint + 3 * j + 1],
-                            C[kOffJoint + 3 * j + 2]};
-      float ro[3];
-      mv3(Rw, off, ro);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) pw[i] += ro[i];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {  // Rw <- Rw R_pc, row by row
-        float row[3];
-        rot_cp(ax, c, s, Rw[i], row);
-        Rw[i][0] = row[0]; Rw[i][1] = row[1]; Rw[i][2] = row[2];
-      }
-      motion_to_child(ax, c, s, off, v);
-      v[ax] += qd[j];
-      const float m = mass[1 + j];
-      const float ci[3] = {com[3 * (1 + j)], com[3 * (1 + j) + 1], com[3 * (1 + j) + 2]};
-      float wc[3], rc[3], rv[3];
-      cross3(&v[0], ci, wc);
-      const float vci[3] = {v[3] + wc[0], v[4] + wc[1], v[5] + wc[2]};
-      mv3(Rw, ci, rc);
-      mv3(Rw, vci, rv);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        p_acc[i] += m * (pw[i] + rc[i]);
-        v_acc[i] += m * rv[i];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 3; ++i) soles[leg][i] = pw[i] + Rw[i][2] * T[kTTipZ];
+  for (int i = 0; i < 3; ++i) {
+    p_acc[i] += pair_sum(p_leg[i]);
+    v_acc[i] += pair_sum(v_leg[i]);
   }
   const float total = T[kTTotalMass];
   float w_w[3], v_t[3];
@@ -173,17 +200,22 @@ __device__ __forceinline__ void feedback(const float* __restrict__ C, const floa
 }
 
 // Columns of the controller chain's foot-position Jacobian (jf) and joint
-// axes (ax) of one leg, in the body frame (models/kinematics.py::
-// leg_jacobians): p(q) = Rz(q0) (hip + Rx(q1) (abd + pitch chain)).
+// axes (ax) of the lane's leg, in the body frame (models/kinematics.py::
+// leg_jacobians): p(q) = Rz(q0) (hip + Rx(q1) (abd + pitch chain)). cs, sn:
+// cos and sin of q5.
 __device__ __forceinline__ void leg_jacobian(const float* __restrict__ K, const float q5[5],
-                                             float side, float jf[5][3], float ax[5][3]) {
-  const float c0 = cosf(q5[0]), s0 = sinf(q5[0]);
-  const float c1 = cosf(q5[1]), s1 = sinf(q5[1]);
-  const float th[3] = {q5[2], q5[2] + q5[3], q5[2] + q5[3] + q5[4]};
-  const float L[3] = {K[kLThigh], K[kLShank], K[kLFoot]};
+                                             const float cs[5], const float sn[5], float side,
+                                             float jf[5][3], float ax[5][3]) {
+  const float c0 = cs[0], s0 = sn[0], c1 = cs[1], s1 = sn[1];
   float lc[3], ls[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) { lc[i] = L[i] * cosf(th[i]); ls[i] = L[i] * sinf(th[i]); }
+  lc[0] = K[kLThigh] * cs[2]; ls[0] = K[kLThigh] * sn[2];
+  {
+    float s, c;
+    sincosf(q5[2] + q5[3], &s, &c);
+    lc[1] = K[kLShank] * c; ls[1] = K[kLShank] * s;
+    sincosf(q5[2] + q5[3] + q5[4], &s, &c);
+    lc[2] = K[kLFoot] * c; ls[2] = K[kLFoot] * s;
+  }
   const float u0 = -(ls[0] + ls[1] + ls[2]), u2 = -(lc[0] + lc[1] + lc[2]);
   const float u1 = K[kAbdY] * side + K[kAbdYConst];
   const float w0 = K[kHipX] + u0;
@@ -205,21 +237,26 @@ __device__ __forceinline__ void leg_jacobian(const float* __restrict__ K, const 
   for (int k = 2; k < 5; ++k) { ax[k][0] = -s0 * c1; ax[k][1] = c0 * c1; ax[k][2] = s1; }
 }
 
-// Joint torques (10) of one low-level period.
-__device__ __forceinline__ void control_tau(const float* __restrict__ T, int flags,
+// Joint torques (5) of the lane's leg for one low-level period. f3, m3: the
+// leg's force and moment of u0; c_own: the leg's contact flag; flight: (1 -
+// c0[0]) (1 - c0[1]). Everything up to the leg's Jacobian reads values that
+// both lanes hold alike.
+__device__ __forceinline__ void control_tau(const float* __restrict__ T, int flags, int leg,
                                             const float R0[3][3], const float x[12],
-                                            const float soles[2][3], const float q[10],
-                                            const float qd[10], const float u0[12],
-                                            const float c0[2], float t_ll, float cmd_yaw,
-                                            const float v_int[2], float tau[10]) {
+                                            const float sole[3], const float q5[5],
+                                            const float qd5[5], const float cs[5],
+                                            const float sn[5], const float f3[3],
+                                            const float m3[3], float c_own, float flight,
+                                            float t_ll, float cmd_yaw, const float v_int[2],
+                                            float tau5[5]) {
   const float* K = T + kTCtrl;
   const float yaw = x[2];
   const float yaw_des = (flags & kCmdBodyFrame) ? cmd_yaw : K[kXc2];
-  const float dy_raw = yaw_des - yaw;
-  const float dyaw = atan2f(sinf(dy_raw), cosf(dy_raw));
+  float sdy, cdy;
+  sincosf(yaw_des - yaw, &sdy, &cdy);
+  const float dyaw = atan2f(sdy, cdy);
   const float q_yaw_des = clipf(dyaw - K[kHipyawLead] * (x[8] - K[kXc8]), -K[kHipyawClip],
                                  K[kHipyawClip]);
-  const float flight = (1.f - c0[0]) * (1.f - c0[1]);
   const float tau_fly = flight * clipf(K[kFlightYawKd] * (x[8] - K[kXc8]), -K[kTauYawClip],
                                         K[kTauYawClip]);
 
@@ -240,7 +277,8 @@ __device__ __forceinline__ void control_tau(const float* __restrict__ T, int fla
   const float ramp = r * r;
 
   // Raibert target (control/reference.py::_raibert_xy)
-  const float cyw = cosf(yaw), syw = sinf(yaw);
+  float syw, cyw;
+  sincosf(yaw, &syw, &cyw);
   float vcx, vcy, kv_x = 0.f, kv_y = 0.f;
   if (flags & kCmdBodyFrame) {
     vcx = cyw * K[kXc9] - syw * K[kXc10];
@@ -260,74 +298,66 @@ __device__ __forceinline__ void control_tau(const float* __restrict__ T, int fla
   const float fx = (x[3] + vx_m * K[kFf] + kc * (vx_m - vcx) + kv_x + pp) - K[kVint] * v_int[0];
   const float fy = (x[4] + vy_m * K[kFf] + kc * (vy_m - vcy) + kv_y) - K[kVint] * v_int[1];
 
-  const float yaw_td = yaw + K[kYawLead];
-  const float sin_td = sinf(yaw_td), cos_td = cosf(yaw_td);
+  float sin_td, cos_td;
+  sincosf(yaw + K[kYawLead], &sin_td, &cos_td);
   const float retract = K[kRetract] * ramp, damp = K[kTdDamp] * ramp;
   const float over = K[kKpOver] * ramp;
   const float v_des[3] = {K[kTff] * x[9], K[kTff] * x[10], K[kTff] * dfz};
-  const float vec_z_dir[3] = {R0[2][0], R0[2][1], R0[2][2]};
 
+  // the lane's own leg
+  const float side = leg == 0 ? 1.f : -1.f;
+  float jf[5][3], ax[5][3];
+  leg_jacobian(K, q5, cs, sn, side, jf, ax);
+  float jfqd[3], vf_w[3];
 #pragma unroll
-  for (int leg = 0; leg < 2; ++leg) {
-    const float side = leg == 0 ? 1.f : -1.f;
-    const float* q5 = q + 5 * leg;
-    const float* qd5 = qd + 5 * leg;
-    float jf[5][3], ax[5][3];
-    leg_jacobian(K, q5, side, jf, ax);
-    float jfqd[3], vf_w[3];
+  for (int i = 0; i < 3; ++i) {
+    float acc = 0.f;
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      float acc = 0.f;
-#pragma unroll
-      for (int j = 0; j < 5; ++j) acc += jf[j][i] * qd5[j];
-      jfqd[i] = acc;
-    }
-    if (flags & kCompatFrame) mtv3(R0, jfqd, vf_w); else mv3(R0, jfqd, vf_w);
+    for (int j = 0; j < 5; ++j) acc += jf[j][i] * qd5[j];
+    jfqd[i] = acc;
+  }
+  if (flags & kCompatFrame) mtv3(R0, jfqd, vf_w); else mv3(R0, jfqd, vf_w);
 
-    float tx, ty;
-    if (flags & kCompatYaw) {
-      tx = fx;
-      ty = fy + 0.04f * side;  // reference Y_OFFSET (control/swing.py)
-    } else {
-      tx = fx - sin_td * K[kYOffset] * side;
-      ty = fy + cos_td * K[kYOffset] * side;
-    }
-    const float foot_des[3] = {tx - retract * cyw, ty - retract * syw, fz};
-    float f_sw[3];
+  float tx, ty;
+  if (flags & kCompatYaw) {
+    tx = fx;
+    ty = fy + 0.04f * side;  // reference Y_OFFSET (control/swing.py)
+  } else {
+    tx = fx - sin_td * K[kYOffset] * side;
+    ty = fy + cos_td * K[kYOffset] * side;
+  }
+  const float foot_des[3] = {tx - retract * cyw, ty - retract * syw, fz};
+  float f_sw[3];
 #pragma unroll
-    for (int i = 0; i < 3; ++i)
-      f_sw[i] = K[kKp] * (foot_des[i] - soles[leg][i]) + K[kKd] * (v_des[i] - vf_w[i]);
-    f_sw[0] -= damp * vf_w[0];
-    f_sw[1] -= damp * vf_w[1];
-    f_sw[2] -= over;
-    if (!(flags & kCompatFrame)) {
-      const float w[3] = {f_sw[0], f_sw[1], f_sw[2]};
-      mtv3(R0, w, f_sw);
-    }
+  for (int i = 0; i < 3; ++i)
+    f_sw[i] = K[kKp] * (foot_des[i] - sole[i]) + K[kKd] * (v_des[i] - vf_w[i]);
+  f_sw[0] -= damp * vf_w[0];
+  f_sw[1] -= damp * vf_w[1];
+  f_sw[2] -= over;
+  if (!(flags & kCompatFrame)) {
+    const float w[3] = {f_sw[0], f_sw[1], f_sw[2]};
+    mtv3(R0, w, f_sw);
+  }
 
-    const float f3[3] = {u0[3 * leg], u0[3 * leg + 1], u0[3 * leg + 2]};
-    const float m3[3] = {u0[6 + 3 * leg], u0[7 + 3 * leg], u0[8 + 3 * leg]};
-    float u_f[3], u_m[3];
-    mtv3(R0, f3, u_f);
-    mtv3(R0, m3, u_m);
+  float u_f[3], u_m[3];
+  mtv3(R0, f3, u_f);
+  mtv3(R0, m3, u_m);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) { u_f[i] = -u_f[i]; u_m[i] = -u_m[i]; }
-    const float tau_pivot = -K[kKpPivot] * clipf(dyaw, -0.3f, 0.3f)
-                            - K[kKdPivot] * (qd5[0] + K[kXc8]);
-    const float m_yaw = K[kKpHipyaw] * (q_yaw_des - q5[0]) - K[kKdHipyaw] * qd5[0];
-    const float vec_z[3] = {vec_z_dir[0] * m_yaw, vec_z_dir[1] * m_yaw, vec_z_dir[2] * m_yaw};
-    const float c = c0[leg];
+  for (int i = 0; i < 3; ++i) { u_f[i] = -u_f[i]; u_m[i] = -u_m[i]; }
+  const float tau_pivot = -K[kKpPivot] * clipf(dyaw, -0.3f, 0.3f)
+                          - K[kKdPivot] * (qd5[0] + K[kXc8]);
+  const float m_yaw = K[kKpHipyaw] * (q_yaw_des - q5[0]) - K[kKdHipyaw] * qd5[0];
+  const float vec_z[3] = {R0[2][0] * m_yaw, R0[2][1] * m_yaw, R0[2][2] * m_yaw};
 #pragma unroll
-    for (int j = 0; j < 5; ++j) {
-      float t_st = dot3(jf[j], u_f) + dot3(ax[j], u_m);
-      float t_sw = dot3(jf[j], f_sw);
-      if (j == 0) {
-        t_st += tau_pivot;
-        t_sw += tau_fly;
-      }
-      const float t_yaw = clipf(dot3(ax[j], vec_z), -K[kTauYawClip], K[kTauYawClip]);
-      tau[5 * leg + j] = t_st * c + (t_sw + t_yaw) * (1.f - c);
+  for (int j = 0; j < 5; ++j) {
+    float t_st = dot3(jf[j], u_f) + dot3(ax[j], u_m);
+    float t_sw = dot3(jf[j], f_sw);
+    if (j == 0) {
+      t_st += tau_pivot;
+      t_sw += tau_fly;
     }
+    const float t_yaw = clipf(dot3(ax[j], vec_z), -K[kTauYawClip], K[kTauYawClip]);
+    tau5[j] = t_st * c_own + (t_sw + t_yaw) * (1.f - c_own);
   }
 }
 
@@ -343,62 +373,82 @@ tick_kernel(const float* __restrict__ consts, const float* __restrict__ tconsts,
             float* __restrict__ q_out, float* __restrict__ qd_out,
             float* __restrict__ energy_out, int n_env, double ll_dt, float sub_dt,
             int n_lowlevel, int n_substeps, int flags) {
-  __shared__ float C[kNConst];
-  __shared__ float T[kNTick];
-  for (int i = threadIdx.x; i < kNConst; i += kThreads) C[i] = consts[i];
-  for (int i = threadIdx.x; i < kNTick; i += kThreads) T[i] = tconsts[i];
-  __syncthreads();
-  const int e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= n_env) return;
+  __shared__ __align__(16) float S[kNStaged];
+  __shared__ __align__(16) float T[kNTick];
+  __shared__ __align__(16) float M[kEnvsPerBlock * kMinvStride];
+  const int e0 = blockIdx.x * kEnvsPerBlock;
+  stage_model_async(S, consts);
+  stage_tick_async(T, tconsts);
+  async_commit();
+  stage_minv_async(M, minv_in, e0, n_env);
+  async_commit();
 
-  float pos[3], quat[4], vb[6], q[10], qd[10], u0[12];
+  const int leg = threadIdx.x & 1, slot = threadIdx.x >> 1;
+  const int e_own = e0 + slot;
+  const int e = min(e_own, n_env - 1);  // a lane past the end repeats the last env
+  float pos[3], quat[4], vb[6], q5[5], qd5[5], cs[5], sn[5], f3[3], m3[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) pos[i] = pos_in[3 * e + i];
 #pragma unroll
   for (int i = 0; i < 4; ++i) quat[i] = quat_in[4 * e + i];
 #pragma unroll
   for (int i = 0; i < 6; ++i) vb[i] = vb_in[6 * e + i];
+  const int j0 = 10 * e + 5 * leg;
 #pragma unroll
-  for (int j = 0; j < 10; ++j) {
-    q[j] = q_in[10 * e + j];
-    qd[j] = qd_in[10 * e + j];
+  for (int l = 0; l < 5; ++l) {
+    q5[l] = q_in[j0 + l];
+    qd5[l] = qd_in[j0 + l];
   }
 #pragma unroll
-  for (int i = 0; i < 12; ++i) u0[i] = u0_in[12 * e + i];
-  const float c0[2] = {c0_in[2 * e], c0_in[2 * e + 1]};
+  for (int i = 0; i < 3; ++i) {
+    f3[i] = u0_in[12 * e + 3 * leg + i];
+    m3[i] = u0_in[12 * e + 6 + 3 * leg + i];
+  }
+  const float c0a = c0_in[2 * e], c0b = c0_in[2 * e + 1];
+  const float c_own = leg == 0 ? c0a : c0b;
+  const float flight = (1.f - c0a) * (1.f - c0b);
   const float v_int[2] = {v_int_in[2 * e], v_int_in[2 * e + 1]};
   const float t0 = t0_in[e], cmd_yaw = cmd_yaw_in[e];
-  const float4* minv = reinterpret_cast<const float4*>(minv_in) + 64 * static_cast<size_t>(e);
+  const float* minv = M + kMinvStride * slot;
   const float ll_dt_f = static_cast<float>(ll_dt);
+  joint_sincos(q5, cs, sn);
+  async_wait<1>();  // the constants; Minv may still be on its way
 
   float energy = 0.f;
 #pragma unroll 1
   for (int p = 0; p < n_lowlevel; ++p) {
     // p ll_dt rounded once to f32, as the plain version adds a Python float
     const float t_ll = t0 + static_cast<float>(p * ll_dt);
-    float R0[3][3], x[12], soles[2][3], tau[10];
-    feedback(C, T, pos, quat, vb, q, qd, R0, x, soles);
-    control_tau(T, flags, R0, x, soles, q, qd, u0, c0, t_ll, cmd_yaw, v_int, tau);
+    float R0[3][3], x[12], sole[3], tau5[5];
+    feedback(S, T, leg, pos, quat, vb, qd5, cs, sn, R0, x, sole);
+    control_tau(T, flags, leg, R0, x, sole, q5, qd5, cs, sn, f3, m3, c_own, flight, t_ll,
+                cmd_yaw, v_int, tau5);
     float work = 0.f;
 #pragma unroll
-    for (int j = 0; j < 10; ++j) work += fmaxf(tau[j] * qd[j], 0.f);
-    energy += work * ll_dt_f;
+    for (int l = 0; l < 5; ++l) work += fmaxf(tau5[l] * qd5[l], 0.f);
+    energy += pair_sum(work) * ll_dt_f;
+    if (p == 0) async_wait<0>();
 #pragma unroll 1
-    for (int s = 0; s < n_substeps; ++s) substep(C, pos, quat, vb, q, qd, tau, minv, sub_dt);
+    for (int s = 0; s < n_substeps; ++s)
+      substep(S, leg, minv, pos, quat, vb, q5, qd5, cs, sn, tau5, sub_dt, true);
   }
 
+  if (e_own < n_env) {
+    if (leg == 0) {  // the pair's copies are bit-equal: lane 0 writes the base
 #pragma unroll
-  for (int i = 0; i < 3; ++i) pos_out[3 * e + i] = pos[i];
+      for (int i = 0; i < 3; ++i) pos_out[3 * e + i] = pos[i];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) quat_out[4 * e + i] = quat[i];
+      for (int i = 0; i < 4; ++i) quat_out[4 * e + i] = quat[i];
 #pragma unroll
-  for (int i = 0; i < 6; ++i) vb_out[6 * e + i] = vb[i];
+      for (int i = 0; i < 6; ++i) vb_out[6 * e + i] = vb[i];
+      energy_out[e] = energy;
+    }
 #pragma unroll
-  for (int j = 0; j < 10; ++j) {
-    q_out[10 * e + j] = q[j];
-    qd_out[10 * e + j] = qd[j];
+    for (int l = 0; l < 5; ++l) {
+      q_out[j0 + l] = q5[l];
+      qd_out[j0 + l] = qd5[l];
+    }
   }
-  energy_out[e] = energy;
 }
 
 }  // namespace
@@ -424,7 +474,7 @@ extern "C" int tick_launch(const float* consts, const float* tconsts, const floa
   if (n_env == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n_env + kThreads - 1) / kThreads;
+  const int blocks = (n_env + kEnvsPerBlock - 1) / kEnvsPerBlock;
   tick_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       consts, tconsts, pos, quat, v_base, q, qd, u0, c0, t0, cmd_yaw, v_int, minv, pos_out,
       quat_out, v_base_out, q_out, qd_out, energy_out, n_env, ll_dt, sub_dt, n_lowlevel,

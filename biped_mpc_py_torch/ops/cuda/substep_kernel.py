@@ -10,14 +10,18 @@ gravity trick, qdd = Minv (tau - bias), and the Euler step with the
 exponential-map quaternion update. ``t`` advances by ``dt`` once, on the
 host side, as in the JAX wrapper.
 
-Tensors on the card go to the CUDA kernel in ``csrc/substep.cu`` (one
-thread per env), built with ``nvcc`` at first use (``ops/cuda/build.py``).
+Tensors on the card go to the CUDA kernel in ``csrc/substep.cu`` (two
+lanes per env, one per leg; the mass-matrix inverses staged in shared
+memory), built with ``nvcc`` at first use (``ops/cuda/build.py``).
 Tensors on the CPU go to :func:`fused_substeps_reference`, a loop of
 ``sim/engine.py::art_substep``. Nothing else chooses between the two.
 
 The kernel reads the model from a small constant buffer
 (:func:`model_constants`), so the model is a runtime input, not a
-compile-time fold; it stays one model for the whole batch, as in JAX.
+compile-time fold; it stays one model for the whole batch, as in JAX. The
+kernel repacks the buffer as it stages it (each spatial inertia as its
+rotational block, ``m c`` and ``m``), so the buffer's layout is the only
+contract between the two sides.
 """
 
 from __future__ import annotations
@@ -37,6 +41,13 @@ SOURCE = build.CSRC / "substep.cu"
 # the constant buffer's layout, mirrored in csrc/substep.cu
 N_CONSTS = 30 + 12 + 11 * 36 + 8 + 20  # 466 floats
 
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+# the library's C interface: {name: (argtypes, restype)}
+FUNCTIONS = {
+    "substep_launch": ([_PTR] * 13 + [_I32, ctypes.c_float, _I32, _I32, _PTR], _I32),
+    "substep_error_string": ([_I32], ctypes.c_char_p),
+}
+
 _lib = None
 _consts_cache: tuple | None = None  # (model, device, buffer) of the last call
 
@@ -44,13 +55,7 @@ _consts_cache: tuple | None = None  # (model, device, buffer) of the last call
 def _load():
     global _lib
     if _lib is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        _lib = build.load(SOURCE, {
-            "substep_launch": (
-                [ptr] * 13 + [i32, ctypes.c_float, i32, i32, ptr], i32,
-            ),
-            "substep_error_string": ([i32], ctypes.c_char_p),
-        })
+        _lib = build.load(SOURCE, FUNCTIONS)
     return _lib
 
 

@@ -9,8 +9,9 @@ positive joint work, and ``n_substeps`` physics substeps with the torques
 and a held mass-matrix inverse. The clock of period p is ``t0 + p ll_dt``;
 ``t`` advances by ``mpc.dt`` once, on the host side, as in the JAX wrapper.
 
-Tensors on the card go to the CUDA kernel in ``csrc/tick.cu`` (one thread
-per env), built with ``nvcc`` at first use (``ops/cuda/build.py``). Tensors
+Tensors on the card go to the CUDA kernel in ``csrc/tick.cu`` (two lanes
+per env, one per leg), built with ``nvcc`` at first use
+(``ops/cuda/build.py``). Tensors
 on the CPU go to :func:`fused_tick_reference`, the same tick composed of
 ``sim/engine.py::feedback_and_soles``, ``control/lowlevel.py::
 low_level_control`` and ``fused_substeps_reference``. Nothing else chooses
@@ -61,6 +62,17 @@ N_TICK_CONSTS = 11 + 33 + 2 + len(CONTROL_NAMES)  # 91 floats
 FLAG_SIN2, FLAG_CMD_BODY_FRAME, FLAG_COMPAT_FRAME, FLAG_COMPAT_YAW = 1, 2, 4, 8
 _GEOMETRY = ("l_thigh", "l_shank", "l_foot", "abd_y", "abd_y_const", "hip_x", "hip_y", "hip_z")
 
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+# the library's C interface: {name: (argtypes, restype)}
+FUNCTIONS = {
+    "tick_launch": (
+        [_PTR] * 19 + [_I32, ctypes.c_double, ctypes.c_float, _I32, _I32, _I32, _I32, _PTR],
+        _I32,
+    ),
+    "tick_n_consts": ([], _I32),
+    "tick_error_string": ([_I32], ctypes.c_char_p),
+}
+
 _lib = None
 _consts_cache: tuple | None = None  # (objects, device, buffers) of the last call
 
@@ -68,15 +80,7 @@ _consts_cache: tuple | None = None  # (objects, device, buffers) of the last cal
 def _load():
     global _lib
     if _lib is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib = build.load(SOURCE, {
-            "tick_launch": (
-                [ptr] * 19 + [i32, ctypes.c_double, ctypes.c_float, i32, i32, i32, i32, ptr],
-                i32,
-            ),
-            "tick_n_consts": ([], i32),
-            "tick_error_string": ([i32], ctypes.c_char_p),
-        })
+        lib = build.load(SOURCE, FUNCTIONS)
         if lib.tick_n_consts() != N_TICK_CONSTS:
             raise RuntimeError(
                 f"csrc/tick.cu expects {lib.tick_n_consts()} tick constants, "

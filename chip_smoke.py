@@ -8,8 +8,8 @@ Phases, each printed on its own lines:
 1. device: the card's name and ``nvidia-smi`` name and power limit;
 2. build: ``nvcc`` compiles ``biped_mpc_py_torch/csrc/qp_admm.cu``,
    ``csrc/substep.cu``, ``csrc/tick.cu`` and ``csrc/probe_ops.cu`` for
-   sm_90a from the checkout's sources, in parallel, and prints the QP
-   kernel's ``-Xptxas -v`` registers, spills and stack;
+   sm_90a from the checkout's sources, in parallel, and prints the QP,
+   substep and tick kernels' ``-Xptxas -v`` registers, spills and stack;
 3. QP kernel vs plain: the fused ADMM QP-solve kernel and its plain PyTorch
    version on the same 1024 real MPC QPs (perturbed standing states at
    every gait phase, domain-randomized robots, cold and warm starts), at
@@ -19,7 +19,8 @@ Phases, each printed on its own lines:
    plain core on the card; launch count, finiteness, falls, height, and
    the walking statistics of the two runs;
 5. substep kernel vs plain: the fused articulated-substep kernel and its
-   plain version on 1024 perturbed in-contact states, 5 substeps of 1 ms;
+   plain version on 1024 and 1000 perturbed in-contact states, 5 substeps
+   of 1 ms;
 6. articulated slice, substep-kernel path: 1024 envs x 250 ticks (10 s)
    walking at 0.3 m/s through ``batched_art_rollout_kernel`` at the bench
    budget (8 low-level periods of 5 substeps per tick, the mass-matrix
@@ -30,22 +31,27 @@ Phases, each printed on its own lines:
    remainder, nested loop, atan2) against numpy;
 8. tick kernel vs plain: the fused tick kernel (low-level control and
    physics of one tick, 8 periods of 5 substeps) and its plain version on
-   1024 and 1000 perturbed in-contact envs with random clocks, flags and
-   controls; the plain version on the CPU against itself on the card as
-   the noise floor;
+   1024 and 1000 perturbed in-contact envs (1000 leaves lane pairs of the
+   last warp without an env) with random clocks, flags and controls; the
+   plain version on the CPU against itself on the card as the noise floor;
 9. articulated slice, tick-kernel path: the same 1024 envs x 250 ticks
    through ``batched_art_rollout_tick_kernel`` (one tick launch per tick);
    launch counts (250 tick, 250 QP, 0 substep), the walking bounds, and
    the walking statistics after 25 ticks against the substep-kernel path's;
 10. times: the QP solve (also with ``ns_iters=0`` and ``n_iters=0``, for
    the split between the inverse and the ADMM loop, with its achieved
-   TFLOP/s, its share of the bound and its TF32 mma.sync rate), the
-   substep call and the tick call (CUDA events), the rollouts' env-steps/s
-   with kernel and plain version, and a per-stage split of one SRB tick and
-   of one articulated tick on each path;
+   TFLOP/s, its share of the bound and its TF32 mma.sync rate; CUDA
+   events), the substep, tick and probe kernels (device time from
+   ``torch.profiler``: they are shorter than their wrappers' host work, so
+   events around wrapper calls would time the host; that figure is printed
+   beside it), the physics kernels' device time, bound and share at 1024,
+   4096, 16,384 and 65,536 envs, the rollouts' env-steps/s with kernel and
+   plain version, and a per-stage split of one SRB tick and of one
+   articulated tick on each path;
 11. profile: one ``torch.profiler`` window of 5 steady tick-path ticks:
    device kernels and device busy per tick, the QP kernel's share of it,
-   and the card's idle share of the unprofiled tick of phase 9;
+   the tick kernel's time, and the card's idle share of the unprofiled tick
+   of phase 9;
 12. bounds: each kernel's least time on the card for the same work
    (``utils/roofline.py``), from the shapes of this run's inputs: the QP
    solve's from its budget (its Newton-Schulz products at the 3xTF32
@@ -108,8 +114,9 @@ def phase_build():
     paths = build.build(qp_kernel.SOURCE, substep_kernel.SOURCE, tick_kernel.SOURCE,
                         probe_cuda_ops.SOURCE, verbose=True)
     log(f"[build] {', '.join(p.name for p in paths)} in {time.time() - t0:.1f} s")
-    for line in build.ptxas_report(qp_kernel.SOURCE):
-        log(f"[build] qp_admm.cu -Xptxas -v: {line}")
+    for source in (qp_kernel.SOURCE, substep_kernel.SOURCE, tick_kernel.SOURCE):
+        for line in build.ptxas_report(source):
+            log(f"[build] {source.name} -Xptxas -v: {line}")
 
 
 def mpc_qps(torch, mpc, n, device, seed):
@@ -342,6 +349,34 @@ def _timed(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _device_ms(torch, fn, kernels, reps):
+    """Mean device ms per launch of the kernels whose names contain each
+    entry of ``kernels`` -> one figure per entry, over a window of ``reps``
+    calls of ``fn`` after one warm-up: the device's own record
+    (``torch.profiler``), so the host's time to check, allocate and launch
+    is not in it. ``fn`` launches each named kernel once per call. The
+    trace can lose launches at the window's edges (49 of 50 seen, once
+    none), so the mean is over the launches it holds, at least half of
+    ``reps``; a window with fewer is run again, three times at most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        spans = [[e.time_range.end - e.time_range.start for e in dev if k in e.name]
+                 for k in kernels]
+        if all(reps <= 2 * len(s) <= 2 * reps for s in spans):
+            return [sum(s) / 1e3 / len(s) for s in spans]
+    raise AssertionError(f"the profiler saw {[len(s) for s in spans]} launches of {kernels} "
+                         f"in {reps} calls")
+
+
 def qp_mma_flops(n_env, h, ns_iters, inverses):
     """TF32 operations the QP kernel issues on the tensor cores: each NS step
     after the first is two products of 3 mma.sync m16n8k8 passes (4 in the
@@ -398,24 +433,24 @@ def time_solves(torch, device):
     return out
 
 
-def bound_substep(torch, device):
-    """(bound ms, what sets it) of one 5-substep call at 1024 envs: the
+def bound_substep(torch, device, n=N_ENVS):
+    """(bound ms, what sets it) of one 5-substep call at ``n`` envs: the
     operations derived from the tree's shapes (``utils/roofline.py``); bytes
     of the state, torques, Minv and model read and the state written."""
     from biped_mpc_py_torch.sim.engine import mass_matrix_inv
     from biped_mpc_py_torch.sim.model import hector_model
     from biped_mpc_py_torch.utils import roofline
 
-    state, tau = perturbed_art_states(torch, N_ENVS, SEED)
+    state, tau = perturbed_art_states(torch, n, SEED)
     model = hector_model(device=device)
     sc, tc = state.to(device), tau.to(device)
     Minv = mass_matrix_inv(model, sc.q)
-    return roofline.bound_ms(roofline.substep_ops(N_ENVS, 5),
+    return roofline.bound_ms(roofline.substep_ops(n, 5),
                              roofline.tensor_bytes(sc, tc, Minv, model, sc))
 
 
-def bound_tick(torch, device):
-    """(bound ms, what sets it) of one tick call at 1024 envs (8 periods of
+def bound_tick(torch, device, n=N_ENVS):
+    """(bound ms, what sets it) of one tick call at ``n`` envs (8 periods of
     5 substeps), counted as for the substep call on the tick kernel's inputs
     and outputs (the state and the energy)."""
     from biped_mpc_py_torch.sim.engine import mass_matrix_inv
@@ -423,10 +458,10 @@ def bound_tick(torch, device):
     from biped_mpc_py_torch.utils import roofline
 
     model = hector_model(device=device)
-    state, args = tick_inputs(torch, N_ENVS, SEED)
+    state, args = tick_inputs(torch, n, SEED)
     sc, ac = state.to(device), [a.to(device) for a in args]
     Minv = mass_matrix_inv(model, sc.q)
-    return roofline.bound_ms(roofline.tick_ops(N_ENVS, 8, 5),
+    return roofline.bound_ms(roofline.tick_ops(n, 8, 5),
                              roofline.tensor_bytes(sc, ac, Minv, model, sc, sc.t))  # energy: (N,) as t
 
 
@@ -521,37 +556,43 @@ def perturbed_art_states(torch, n, seed):
 
 
 def phase_substep_kernel(torch, device):
-    """The substep kernel vs its plain version on the card, 1024 perturbed
-    in-contact envs, dt 5 ms in 5 substeps, held to SUBSTEP_BOUNDS. The
+    """The substep kernel vs its plain version on the card, 1024 and 1000
+    perturbed in-contact envs (1000 leaves lane pairs of the last warp
+    without an env), dt 5 ms in 5 substeps, held to SUBSTEP_BOUNDS. The
     plain version on the CPU against itself on the card is printed as the
-    noise floor between two f32 implementations."""
+    noise floor between two f32 implementations. Returns the largest field
+    error."""
     from biped_mpc_py_torch.ops.cuda.substep_kernel import (
         fused_substeps, fused_substeps_reference,
     )
     from biped_mpc_py_torch.sim.engine import mass_matrix_inv
     from biped_mpc_py_torch.sim.model import hector_model
 
-    state, tau = perturbed_art_states(torch, N_ENVS, SEED)
     model = hector_model(device=device)
-    sc, tc = state.to(device), tau.to(device)
-    Minv = mass_matrix_inv(model, sc.q)
-    out_k = fused_substeps(model, sc, tc, Minv, 0.005, 5)
-    torch.cuda.synchronize()
-    out_p = fused_substeps_reference(model, sc, tc, Minv, 0.005, 5)
-    out_c = fused_substeps_reference(hector_model(device="cpu"), state, tau, Minv.cpu(),
-                                     0.005, 5)
-    errs, noise = {}, {}
-    for name in SUBSTEP_BOUNDS:
-        k, p = getattr(out_k, name), getattr(out_p, name)
-        errs[name] = float((k - p).abs().max())
-        noise[name] = float((getattr(out_c, name).to(device) - p).abs().max())
-    finite = all(bool(torch.isfinite(getattr(out_k, n)).all()) for n in SUBSTEP_BOUNDS)
-    log(f"[substep] kernel vs plain max|err| {json.dumps(errs)}; plain CPU vs plain card "
-        f"{json.dumps(noise)}; bounds {json.dumps(SUBSTEP_BOUNDS)}; finite {finite}")
-    bad = [n for n, e in errs.items() if not e < SUBSTEP_BOUNDS[n]]
-    if bad or not finite or not torch.equal(out_k.t, out_p.t):
-        raise AssertionError(f"substep kernel vs plain past the bounds: {bad}")
-    return max(errs.values())
+    worst = 0.0
+    for n in (N_ENVS, 1000):
+        state, tau = perturbed_art_states(torch, n, SEED)
+        sc, tc = state.to(device), tau.to(device)
+        Minv = mass_matrix_inv(model, sc.q)
+        out_k = fused_substeps(model, sc, tc, Minv, 0.005, 5)
+        torch.cuda.synchronize()
+        out_p = fused_substeps_reference(model, sc, tc, Minv, 0.005, 5)
+        errs = {k: float((getattr(out_k, k) - getattr(out_p, k)).abs().max())
+                for k in SUBSTEP_BOUNDS}
+        finite = all(bool(torch.isfinite(getattr(out_k, k)).all()) for k in SUBSTEP_BOUNDS)
+        line = f"[substep] {n} envs: kernel vs plain max|err| {json.dumps(errs)}"
+        if n == N_ENVS:
+            out_c = fused_substeps_reference(hector_model(device="cpu"), state, tau, Minv.cpu(),
+                                             0.005, 5)
+            noise = {k: float((getattr(out_c, k).to(device) - getattr(out_p, k)).abs().max())
+                     for k in SUBSTEP_BOUNDS}
+            line += f"; plain CPU vs plain card {json.dumps(noise)}"
+        log(line + f"; bounds {json.dumps(SUBSTEP_BOUNDS)}; finite {finite}")
+        bad = [k for k, e in errs.items() if not e < SUBSTEP_BOUNDS[k]]
+        if bad or not finite or not torch.equal(out_k.t, out_p.t):
+            raise AssertionError(f"substep kernel vs plain past the bounds at {n} envs: {bad}")
+        worst = max(worst, *errs.values())
+    return worst
 
 
 def _art_config():
@@ -653,9 +694,11 @@ def _stage_split(torch, names, w, tick):
 
 
 def time_art(torch, device):
-    """The substep call (CUDA events), the plain chain's rollout rate, and
-    one articulated tick split into its stages (host clock, synchronized
-    after each stage, mean of 10 ticks after 2)."""
+    """The substep kernel (device time from ``torch.profiler``; the wrapper's
+    call by CUDA events beside it, which at this size is the host's launch
+    rate), the plain chain's rollout rate, and one articulated tick split
+    into its stages (host clock, synchronized after each stage, mean of 10
+    ticks after 2)."""
     from biped_mpc_py_torch.ops.cuda.substep_kernel import (
         fused_substeps, fused_substeps_reference,
     )
@@ -667,9 +710,12 @@ def time_art(torch, device):
     state, tau = perturbed_art_states(torch, N_ENVS, SEED)
     sc, tc = state.to(device), tau.to(device)
     Minv = mass_matrix_inv(model, sc.q)
-    ms_k = _timed(torch, lambda: fused_substeps(model, sc, tc, Minv, 0.005, 5), 50)
+    ms_k, = _device_ms(torch, lambda: fused_substeps(model, sc, tc, Minv, 0.005, 5),
+                       ("substep_kernel",), 50)
+    ms_call = _timed(torch, lambda: fused_substeps(model, sc, tc, Minv, 0.005, 5), 50)
     ms_p = _timed(torch, lambda: fused_substeps_reference(model, sc, tc, Minv, 0.005, 5), 5)
-    log(f"[times] fused_substeps ({N_ENVS} envs, 5 substeps): kernel {ms_k:.4f} ms, "
+    log(f"[times] fused_substeps ({N_ENVS} envs, 5 substeps): kernel {ms_k:.4f} ms of device "
+        f"time (torch.profiler), {ms_call:.4f} ms per wrapper call (CUDA events), "
         f"plain {ms_p:.3f} ms")
 
     mpc, gait = _art_config()
@@ -715,8 +761,8 @@ def time_art(torch, device):
 
 def phase_probe(torch, device):
     """The probe's four toy kernels against numpy (fails on any error past
-    its tolerance) -> (launches, max error, kernel ms for the four, numpy
-    ms for the four)."""
+    its tolerance) -> (launches, max error, device ms of the four kernels
+    (``torch.profiler``), numpy ms for the four)."""
     from biped_mpc_py_torch.tools import probe_cuda_ops as probe
 
     probe.probe_op.launches = 0
@@ -724,14 +770,15 @@ def phase_probe(torch, device):
     launches = probe.probe_op.launches
     a, b = probe.inputs()
     ta, tb = torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
-    ms = _timed(torch, lambda: [probe.probe_op(op, ta, tb) for op in probe.OPS], 20)
+    ms = sum(_device_ms(torch, lambda: [probe.probe_op(op, ta, tb) for op in probe.OPS],
+                        ("k_asin", "k_rem", "k_nested", "k_atan2"), 20))
     t0 = time.perf_counter()
     for _ in range(20):
         for op in probe.OPS:
             probe.oracle(op, a, b)
     plain_ms = (time.perf_counter() - t0) * 1e3 / 20
     log(f"[probe] {launches} launches, max|err| {json.dumps(errs)}; the four ops: "
-        f"kernels {ms:.4f} ms, numpy {plain_ms:.4f} ms")
+        f"kernels {ms:.4f} ms of device time (torch.profiler), numpy {plain_ms:.4f} ms")
     return launches, max(errs.values()), ms, plain_ms
 
 
@@ -856,8 +903,9 @@ def phase_tick_path(torch, device, w25_substep):
 
 
 def time_tick(torch, device):
-    """The tick call (CUDA events), kernel and plain version at 1024 envs,
-    and one tick of the tick-kernel path split into its stages (host clock,
+    """The tick kernel (device time from ``torch.profiler``; the wrapper's
+    call by CUDA events beside it) and its plain version at 1024 envs, and
+    one tick of the tick-kernel path split into its stages (host clock,
     synchronized after each stage, mean of 10 ticks after 2)."""
     from biped_mpc_py_torch import BipedParams
     from biped_mpc_py_torch.ops.cuda.tick_kernel import fused_tick, fused_tick_reference
@@ -870,9 +918,12 @@ def time_tick(torch, device):
     state, args = tick_inputs(torch, N_ENVS, SEED)
     sc, ac = state.to(device), [a.to(device) for a in args]
     Minv = mass_matrix_inv(model, sc.q)
-    ms_k = _timed(torch, lambda: fused_tick(model, biped, mpc, gait, sc, *ac, Minv), 20)
+    ms_k, = _device_ms(torch, lambda: fused_tick(model, biped, mpc, gait, sc, *ac, Minv),
+                       ("tick_kernel",), 20)
+    ms_call = _timed(torch, lambda: fused_tick(model, biped, mpc, gait, sc, *ac, Minv), 20)
     ms_p = _timed(torch, lambda: fused_tick_reference(model, biped, mpc, gait, sc, *ac, Minv), 3)
-    log(f"[times] fused_tick ({N_ENVS} envs, 8 periods x 5 substeps): kernel {ms_k:.4f} ms, "
+    log(f"[times] fused_tick ({N_ENVS} envs, 8 periods x 5 substeps): kernel {ms_k:.4f} ms of "
+        f"device time (torch.profiler), {ms_call:.4f} ms per wrapper call (CUDA events), "
         f"plain {ms_p:.3f} ms")
 
     names = ("control stage (MPC)", "Minv", "tick kernel", "post")
@@ -898,6 +949,46 @@ def time_tick(torch, device):
     return ms_k, ms_p
 
 
+PHYSICS_SIZES = (1024, 4096, 16384, 65536)
+
+
+def physics_kernel_ms(torch, device, n, reps=10):
+    """Device ms (``torch.profiler``) of one ``fused_substeps`` call (5
+    substeps) and one ``fused_tick`` call (8 periods x 5 substeps) at ``n``
+    perturbed in-contact envs -> (substep ms, tick ms)."""
+    from biped_mpc_py_torch import BipedParams
+    from biped_mpc_py_torch.ops.cuda.substep_kernel import fused_substeps
+    from biped_mpc_py_torch.ops.cuda.tick_kernel import fused_tick
+    from biped_mpc_py_torch.sim.engine import mass_matrix_inv
+    from biped_mpc_py_torch.sim.model import hector_model
+
+    mpc, gait = _art_config()
+    model, biped = hector_model(device=device), BipedParams().to(device)
+    state, args = tick_inputs(torch, n, SEED)
+    _, tau = perturbed_art_states(torch, n, SEED)
+    sc, tc, ac = state.to(device), tau.to(device), [a.to(device) for a in args]
+    Minv = mass_matrix_inv(model, sc.q)
+
+    def both():
+        fused_substeps(model, sc, tc, Minv, 0.005, 5)
+        fused_tick(model, biped, mpc, gait, sc, *ac, Minv)
+
+    return _device_ms(torch, both, ("substep_kernel", "tick_kernel"), reps)
+
+
+def time_physics_sizes(torch, device):
+    """Each physics kernel's device time, bound and share of it at 1024 to
+    65,536 envs (the kernel only; the plain versions run at 1024)."""
+    rows = []
+    for n in PHYSICS_SIZES:
+        ms_s, ms_t = physics_kernel_ms(torch, device, n)
+        b_s, b_t = bound_substep(torch, device, n)[0], bound_tick(torch, device, n)[0]
+        rows.append(f"{n} envs: fused_substeps {ms_s:.4f} ms (bound {b_s:.5f}, share "
+                    f"{b_s / ms_s:.4f}), fused_tick {ms_t:.4f} ms (bound {b_t:.5f}, share "
+                    f"{b_t / ms_t:.4f})")
+    log("[times] physics kernels by size (device time, torch.profiler): " + "; ".join(rows))
+
+
 def _union_ms(spans):
     """Length of the union of (start, end) intervals in us, in ms."""
     total, end = 0.0, float("-inf")
@@ -911,7 +1002,8 @@ def _union_ms(spans):
 def profile_tick_path(torch, device, n_ticks=5):
     """One ``torch.profiler`` window of ``n_ticks`` steady tick-path ticks
     -> (device kernels per tick, device busy ms per tick: the union of the
-    device's activity intervals, QP kernel ms per tick)."""
+    device's activity intervals, QP kernel ms per tick, tick kernel ms per
+    tick)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -930,8 +1022,10 @@ def profile_tick_path(torch, device, n_ticks=5):
     if not dev:
         raise AssertionError("the profiler saw no device activity on the tick path")
     busy = _union_ms([(e.time_range.start, e.time_range.end) for e in dev])
-    qp = sum(e.time_range.end - e.time_range.start for e in dev if "qp_admm" in e.name) / 1e3
-    return len(dev) / n_ticks, busy / n_ticks, qp / n_ticks
+    by_name = {k: sum(e.time_range.end - e.time_range.start for e in dev if k in e.name) / 1e3
+               for k in ("qp_admm", "tick_kernel")}
+    return len(dev) / n_ticks, busy / n_ticks, by_name["qp_admm"] / n_ticks, \
+        by_name["tick_kernel"] / n_ticks
 
 
 def main() -> int:
@@ -955,7 +1049,8 @@ def main() -> int:
         time_stages(torch, device)
         substep_ms, substep_plain_ms, sec_chain = time_art(torch, device)
         tick_ms, tick_plain_ms = time_tick(torch, device)
-        events, busy_ms, qp_tick_ms = profile_tick_path(torch, device)
+        time_physics_sizes(torch, device)
+        events, busy_ms, qp_tick_ms, tick_tick_ms = profile_tick_path(torch, device)
         bounds = {"fused_qp_solve": solve_ms["bench"][2:4],
                   "fused_substeps": bound_substep(torch, device),
                   "fused_tick": bound_tick(torch, device),
@@ -974,7 +1069,7 @@ def main() -> int:
     tick_path_ms = sec_tick * 1e3 / N_ART_TICKS
     log(f"[profile] tick-kernel path, 5 steady ticks: {events:.1f} device kernels per tick, "
         f"device busy {busy_ms:.3f} ms per tick (QP kernel {qp_tick_ms:.3f} ms, "
-        f"{qp_tick_ms / busy_ms:.3f} of it); against the unprofiled {tick_path_ms:.3f} ms "
+        f"{qp_tick_ms / busy_ms:.3f} of it; tick kernel {tick_tick_ms:.3f} ms); against the unprofiled {tick_path_ms:.3f} ms "
         f"tick above, the card idles {1 - busy_ms / tick_path_ms:.3f} of the tick")
     kernels = [
         {

@@ -22,15 +22,20 @@ chip_smoke.py::phase_kernel.
 
 The substep kernel: the bounds of ``tests/test_substep_kernel.py:73-76``
 (pos 5e-7, quat 1e-6, v_base 5e-6, q 1e-6, qd 1e-4) on 1024 perturbed
-in-contact envs, 5 substeps of 1 ms; the kernel path of the articulated
-loop launches it once per low-level period (8 per tick).
+in-contact envs, 5 substeps of 1 ms, at batch sizes that leave a warp's
+last env pairs empty (the kernels give an env to two lanes, 16 envs to a
+warp: N = 1, 17, 33, 1000); the kernel path of the articulated loop
+launches it once per low-level period (8 per tick).
 
 The tick kernel: the bounds of ``tests/test_tick_kernel.py:257-261`` (q,
 pos, quat 5e-4, qd 2e-2, energy rtol 2e-3 / atol 1e-3) on perturbed
 in-contact envs with random clocks, flags and controls, one tick of 8
 periods x 5 substeps, for the bench config and for configs that set the
-kernel's four switches; the tick-kernel path launches it once per tick and
-the substep kernel never.
+kernel's four switches, at the same ragged batch sizes and with the contact
+flags all stance, all swing and mixed; the tick-kernel path launches it
+once per tick and the substep kernel never. Both kernels also run a batch
+whose even envs are pressed deep into the ground and whose odd envs hang in
+the air, so that a lane that read its neighbour's env would show.
 """
 
 import dataclasses
@@ -179,21 +184,44 @@ def _perturbed_states(n, device, seed=0):
     return state.to(device), (5.0 * torch.randn(n, 10, generator=gen)).to(device)
 
 
-@pytest.mark.parametrize("n", [1024, 1000])
-def test_substep_kernel_matches_plain(cuda, n):
+SUBSTEP_BOUNDS = {"pos": 5e-7, "quat": 1e-6, "v_base": 5e-6, "q": 1e-6, "qd": 1e-4}
+TICK_BOUNDS = {"q": 5e-4, "pos": 5e-4, "quat": 5e-4, "qd": 2e-2}
+
+
+def _deep_and_airborne(state):
+    """Even envs 6 cm into the ground, odd envs 30 cm above it."""
+    pos = state.pos.clone()
+    pos[0::2, 2] = ArtState.standing().pos[0, 2] - 0.06
+    pos[1::2, 2] += 0.3
+    return dataclasses.replace(state, pos=pos)
+
+
+def _substep_case(cuda, state, tau):
     model = hector_model(device=cuda)
-    state, tau = _perturbed_states(n, cuda)
+    n = state.q.shape[0]
     Minv = mass_matrix_inv(model, state.q)
     before = sk.fused_substeps.launches
     out_k = sk.fused_substeps(model, state, tau, Minv, 0.005, 5)
     torch.cuda.synchronize()
     assert sk.fused_substeps.launches == before + 1
     out_p = sk.fused_substeps_reference(model, state, tau, Minv, 0.005, 5)
-    bounds = {"pos": 5e-7, "quat": 1e-6, "v_base": 5e-6, "q": 1e-6, "qd": 1e-4}
-    for name, tol in bounds.items():
-        err = float((getattr(out_k, name) - getattr(out_p, name)).abs().max())
+    for name, tol in SUBSTEP_BOUNDS.items():
+        k, p = getattr(out_k, name), getattr(out_p, name)
+        assert k.shape == (n,) + p.shape[1:] and torch.isfinite(k).all(), name
+        err = float((k - p).abs().max())
         assert err < tol, (name, err)
     assert torch.equal(out_k.t, out_p.t)
+
+
+@pytest.mark.parametrize("n", [1024, 1000, 33, 17, 1])
+def test_substep_kernel_matches_plain(cuda, n):
+    _substep_case(cuda, *_perturbed_states(n, cuda))
+
+
+def test_substep_kernel_neighbour_envs(cuda):
+    """Deep penetration beside free fall in every lane pair's warp."""
+    state, tau = _perturbed_states(64, cuda)
+    _substep_case(cuda, _deep_and_airborne(state), tau)
 
 
 def test_art_rollout_launches_substep_kernel(cuda):
@@ -239,13 +267,14 @@ def _tick_controls(n, device, seed=1):
     return [t.to(device) for t in out]
 
 
-@pytest.mark.parametrize("n,preset", [(1024, "walk"), (1000, "loaded"), (256, "compat")])
-def test_tick_kernel_matches_plain(cuda, n, preset):
+def _tick_case(cuda, preset, state, contact="mixed"):
     model = hector_model(device=cuda)
     mpc, gait = _tick_config(preset), GaitConfig(steps_per_phase=5)
     biped = BipedParams().to(cuda)
-    state, _ = _perturbed_states(n, cuda)
+    n = state.q.shape[0]
     args = _tick_controls(n, cuda)
+    if contact != "mixed":
+        args[1] = torch.full_like(args[1], float(contact == "stance"))
     state = dataclasses.replace(state, t=args[2].clone())
     Minv = mass_matrix_inv(model, state.q)
     before = tick.fused_tick.launches
@@ -253,11 +282,29 @@ def test_tick_kernel_matches_plain(cuda, n, preset):
     torch.cuda.synchronize()
     assert tick.fused_tick.launches == before + 1
     out_p, e_p = tick.fused_tick_reference(model, biped, mpc, gait, state, *args, Minv)
-    for name, tol in {"q": 5e-4, "pos": 5e-4, "quat": 5e-4, "qd": 2e-2}.items():
-        err = float((getattr(out_k, name) - getattr(out_p, name)).abs().max())
+    for name, tol in TICK_BOUNDS.items():
+        k, p = getattr(out_k, name), getattr(out_p, name)
+        assert k.shape == (n,) + p.shape[1:] and torch.isfinite(k).all(), name
+        err = float((k - p).abs().max())
         assert err < tol, (name, err)
-    assert torch.allclose(e_k, e_p, rtol=2e-3, atol=1e-3)
+    assert e_k.shape == (n,) and torch.allclose(e_k, e_p, rtol=2e-3, atol=1e-3)
     assert torch.equal(out_k.t, out_p.t)
+
+
+@pytest.mark.parametrize("n,preset,contact", [
+    (1024, "walk", "mixed"), (1000, "loaded", "mixed"), (256, "compat", "mixed"),
+    (1024, "loaded", "stance"), (1000, "walk", "swing"), (33, "compat", "stance"),
+    (33, "walk", "mixed"), (17, "loaded", "swing"), (17, "walk", "stance"),
+    (1, "walk", "mixed"), (1, "compat", "swing"),
+])
+def test_tick_kernel_matches_plain(cuda, n, preset, contact):
+    _tick_case(cuda, preset, _perturbed_states(n, cuda)[0], contact)
+
+
+@pytest.mark.parametrize("contact", ["mixed", "stance"])
+def test_tick_kernel_neighbour_envs(cuda, contact):
+    """Deep penetration beside free fall in every lane pair's warp."""
+    _tick_case(cuda, "walk", _deep_and_airborne(_perturbed_states(64, cuda)[0]), contact)
 
 
 def test_art_rollout_launches_tick_kernel(cuda):
