@@ -9,7 +9,10 @@ path; every function takes a leading env axis instead of being vmapped.
 The main paths are :func:`biped_mpc_py_torch.parallel.rollout.batched_rollout`
 (SRB) and, articulated,
 :func:`biped_mpc_py_torch.parallel.rollout_art.batched_art_rollout_tick_kernel`
-and :func:`~biped_mpc_py_torch.parallel.rollout_art.batched_art_rollout_kernel`.
+and :func:`~biped_mpc_py_torch.parallel.rollout_art.batched_art_rollout_kernel`
+on flat ground, and
+:func:`~biped_mpc_py_torch.parallel.rollout_art.batched_art_rollout_terrain`
+on per-env height fields (:class:`~biped_mpc_py_torch.sim.contact.Terrain`).
 Their kernels are hand-written CUDA for sm_90a, built with ``nvcc`` the
 first time a CUDA tensor reaches their wrappers: the fused ADMM QP solve
 (``csrc/qp_admm.cu``, ``ops.cuda.qp_kernel.fused_qp_solve``), the fused
@@ -49,6 +52,7 @@ from biped_mpc_py_torch.models.biped import (
 from biped_mpc_py_torch.parallel.rollout import (
     World,
     batch_worlds,
+    batched_cmd_rollout,
     batched_rollout,
     init_world,
     randomize_params,
@@ -61,9 +65,12 @@ from biped_mpc_py_torch.parallel.rollout_art import (
     art_mpc_config,
     batched_art_rollout,
     batched_art_rollout_kernel,
+    batched_art_rollout_terrain,
     batched_art_rollout_tick_kernel,
     init_art_world,
 )
+from biped_mpc_py_torch.ops.qp import sparse_qp_matrices
+from biped_mpc_py_torch.sim.contact import Terrain
 
 __version__ = "0.1.0"
 
@@ -79,6 +86,7 @@ __all__ = [
     "reference_compat_config",
     "World",
     "batch_worlds",
+    "batched_cmd_rollout",
     "batched_rollout",
     "init_world",
     "randomize_params",
@@ -89,7 +97,10 @@ __all__ = [
     "art_mpc_config",
     "batched_art_rollout",
     "batched_art_rollout_kernel",
+    "batched_art_rollout_terrain",
     "batched_art_rollout_tick_kernel",
     "init_art_world",
+    "Terrain",
+    "sparse_qp_matrices",
     "__version__",
 ]

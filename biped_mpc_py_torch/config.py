@@ -7,6 +7,24 @@ over at trace time. The vector fields (``x_cmd``, ``Q``, ``R``) are tuples of
 Python floats; compute code turns them into tensors on the device it runs
 on.
 
+Per-env values. Where the JAX package swaps a config field for a traced,
+vmapped array (``batched_cmd_rollout_fn`` replaces ``x_cmd`` per env), the
+port keeps the config as it is and hands the per-env values beside it:
+every function on the SRB path that reads ``mpc.x_cmd`` (``com_reference``,
+``foot_reference``, ``swing_target_xy``, ``build_mpc_qp``, ``srb_step``,
+``advance_cmd_ref``, ``advance_v_int``, ``ControllerState.init``,
+``RolloutMetrics.update``) takes an optional ``x_cmd`` tensor, (12,) or
+(N, 12) on the envs' device, that overrides the config's. With
+``x_cmd=None`` the config's floats are used and the result is bit-equal to
+a call without the argument; a Python branch on a command entry (the
+``sqrt`` of the commanded height, the small-turn-rate limit) becomes a
+tensor expression on the override branch only. :func:`cmd_entry` reads one
+entry under either form. The articulated low-level control
+(``control/lowlevel.py``) and the kernels' constant buffers read the
+config's command only. A sweep over other numeric fields (gains) is to
+use the same form: an optional per-env tensor beside the config, never a
+tensor inside it.
+
 State convention (13,): ``[roll, pitch, yaw, px, py, pz, wx, wy, wz, vx, vy,
 vz, 1]`` with angular and linear velocity in the world frame; R =
 Rz(yaw) Ry(pitch) Rx(roll). Controls (12,): ``[f_L, f_R, m_L, m_R]``. See the
@@ -157,6 +175,13 @@ def reference_compat_config(**overrides) -> MpcConfig:
         compat_swing_frame_bug=True,
     )
     return dataclasses.replace(cfg, **overrides)
+
+
+def cmd_entry(mpc: MpcConfig, x_cmd, i: int):
+    """Entry ``i`` of the command in force: ``mpc.x_cmd[i]``, a Python
+    float, or with an overriding ``x_cmd`` tensor ((12,) or (N, 12)) its
+    column ``x_cmd[..., i]`` (() or (N,))."""
+    return mpc.x_cmd[i] if x_cmd is None else x_cmd[..., i]
 
 
 def config_tensor(values, like: torch.Tensor) -> torch.Tensor:

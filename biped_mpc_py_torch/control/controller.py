@@ -11,7 +11,7 @@ import dataclasses
 
 import torch
 
-from biped_mpc_py_torch.config import GaitConfig, MpcConfig, config_tensor
+from biped_mpc_py_torch.config import GaitConfig, MpcConfig, cmd_entry, config_tensor
 from biped_mpc_py_torch.control.gait import advance_gait_clock, contact_sequence
 from biped_mpc_py_torch.control.lowlevel import low_level_control
 from biped_mpc_py_torch.control.mpc import solve_mpc
@@ -41,12 +41,21 @@ class ControllerState(TensorStruct):
 
     @classmethod
     def init(cls, mpc: MpcConfig, n: int = 1, device=None,
-             dtype=torch.float32) -> "ControllerState":
+             dtype=torch.float32, x_cmd: torch.Tensor | None = None) -> "ControllerState":
+        """A cold controller for ``n`` envs; ``x_cmd`` ((12,) or (N,12))
+        overrides ``mpc.x_cmd`` (the leaky pitch reference starts at the
+        commanded pitch)."""
         h, m = mpc.h, m_step(mpc)
 
         def zero(*shape):
             return torch.zeros((n,) + shape, dtype=dtype, device=device)
 
+        if mpc.pitch_ref_leak <= 0:
+            pitch_ref = zero()
+        elif x_cmd is None:
+            pitch_ref = torch.full((n,), mpc.x_cmd[1], dtype=dtype, device=device)
+        else:
+            pitch_ref = x_cmd[..., 1].to(dtype).expand(n).clone()
         return cls(
             qp=QpSolution(
                 controls=zero(h, 12), states=zero(h, 13), z=zero(h, m),
@@ -56,10 +65,7 @@ class ControllerState(TensorStruct):
             v_int=zero(2),
             t_gait=torch.full((n,), -mpc.dt, dtype=dtype, device=device),
             hold_count=torch.zeros(n, dtype=torch.int32, device=device),
-            pitch_ref=torch.full(
-                (n,), mpc.x_cmd[1] if mpc.pitch_ref_leak > 0 else 0.0,
-                dtype=dtype, device=device,
-            ),
+            pitch_ref=pitch_ref,
         )
 
 
@@ -69,16 +75,21 @@ CMD_REF_LEAK = 0.05
 
 
 def advance_cmd_ref(cmd_ref: torch.Tensor, x_fb: torch.Tensor,
-                    mpc: MpcConfig) -> torch.Tensor:
+                    mpc: MpcConfig, x_cmd: torch.Tensor | None = None) -> torch.Tensor:
     """One-tick update of the body-frame command anchor (N,3): integrate the
-    commanded arc, then leak toward the measured pose."""
+    commanded arc, then leak toward the measured pose. ``x_cmd`` ((12,) or
+    (N,12)) overrides ``mpc.x_cmd``."""
     yaw = cmd_ref[:, 2]
-    vbx, vby = mpc.x_cmd[9], mpc.x_cmd[10]
+    vbx, vby = cmd_entry(mpc, x_cmd, 9), cmd_entry(mpc, x_cmd, 10)
+    if x_cmd is None:
+        dyaw = torch.full_like(yaw, mpc.x_cmd[8] * mpc.dt)
+    else:
+        dyaw = (x_cmd[..., 8] * mpc.dt).expand_as(yaw)
     step = torch.stack(
         [
             (torch.cos(yaw) * vbx - torch.sin(yaw) * vby) * mpc.dt,
             (torch.sin(yaw) * vbx + torch.cos(yaw) * vby) * mpc.dt,
-            torch.full_like(yaw, mpc.x_cmd[8] * mpc.dt),
+            dyaw,
         ],
         -1,
     )
@@ -95,19 +106,19 @@ def advance_pitch_ref(pitch_ref: torch.Tensor, x_fb: torch.Tensor,
 
 
 def advance_v_int(v_int: torch.Tensor, x_fb: torch.Tensor,
-                  mpc: MpcConfig) -> torch.Tensor:
+                  mpc: MpcConfig, x_cmd: torch.Tensor | None = None) -> torch.Tensor:
     """One-tick update of the xy velocity-error integrator (N,2): clipped
     at ``cmd_v_int_max``, held at 0 on axes with a zero command and in
-    body-frame command mode."""
+    body-frame command mode. ``x_cmd`` ((12,) or (N,12)) overrides
+    ``mpc.x_cmd``."""
     if mpc.cmd_body_frame:
         return torch.zeros_like(v_int)
-    v_cmd = config_tensor(mpc.x_cmd[9:11], v_int)
+    v_cmd = config_tensor(mpc.x_cmd[9:11], v_int) if x_cmd is None else x_cmd[..., 9:11]
     err = v_cmd - x_fb[:, 9:11]
     nxt = torch.clamp(
         v_int + mpc.cmd_v_int_gain * err, -mpc.cmd_v_int_max, mpc.cmd_v_int_max
     )
-    gate = (v_cmd != 0)[None]
-    return torch.where(gate, nxt, torch.zeros_like(nxt))
+    return torch.where(v_cmd != 0, nxt, torch.zeros_like(nxt))
 
 
 def control_tick(

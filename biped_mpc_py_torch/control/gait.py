@@ -9,11 +9,12 @@ each env's time ``t`` (N,). The contact-sensed clock
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from biped_mpc_py_torch.config import GaitConfig, MpcConfig
-from biped_mpc_py_torch.sim.contact import no_terrain
 
 
 def _inv_dt(mpc: MpcConfig) -> float:
@@ -94,9 +95,12 @@ def swing_clock(t: torch.Tensor, mpc: MpcConfig, gait: GaitConfig | None, side, 
 def measured_contact(pf_w: torch.Tensor, terrain, gait: GaitConfig) -> torch.Tensor:
     """Per-foot ground-contact flags (N,2) bool from the measured sole
     heights pf_w (N,6) (``gait.py:93``): a sole within
-    ``gait.clock_z_tol`` of the plane z = 0 is down."""
-    no_terrain(terrain)
-    return torch.stack([pf_w[:, 2], pf_w[:, 5]], -1) < gait.clock_z_tol
+    ``gait.clock_z_tol`` of the ground under it is down, the plane z = 0 or
+    the ``terrain`` field."""
+    pz = torch.stack([pf_w[:, 2], pf_w[:, 5]], -1)
+    if terrain is not None:
+        pz = pz - terrain.height(pf_w[:, [0, 3]], pf_w[:, [1, 4]])
+    return pz < gait.clock_z_tol
 
 
 # The clock stores the exact f32 product (k + 1/16) dt, never a sum, so
@@ -123,3 +127,23 @@ def advance_gait_clock(t_gait: torch.Tensor, hold_count: torch.Tensor,
     t_used = (k_used.to(t_gait.dtype) + _CLOCK_STEP_BIAS) * mpc.dt
     hold_next = torch.where(wait, hold_count + 1, torch.zeros_like(hold_count))
     return t_used, hold_next
+
+
+def advance_gait_clock_host(t_gait: float, hold_count: int, down,
+                            mpc: MpcConfig, gait: GaitConfig):
+    """:func:`advance_gait_clock` for one env in plain Python floats and
+    ints (``gait.py:173``), for synchronous loops on the host: the same
+    hold rule and biased-product step. ``down`` is any pair of per-foot
+    contact booleans. Returns (t_used, hold_next)."""
+    dt = float(mpc.dt)
+    k = int(math.floor(t_gait / dt + (0.5 - _CLOCK_STEP_BIAS)))
+    p, f = gait.steps_per_phase, gait.flight_steps
+    s_next = (k + 1) % (2 * (p + f))
+    wait = (
+        ((s_next == 0 and not bool(down[0]))
+         or (s_next == p + f and not bool(down[1])))
+        and hold_count < gait.clock_max_hold
+        and int(gait.gait_mode) == 1
+    )
+    k_used = k if wait else k + 1
+    return (k_used + _CLOCK_STEP_BIAS) * dt, hold_count + 1 if wait else 0

@@ -26,16 +26,25 @@ def build_mpc_qp(
     terrain=None,
     v_int: torch.Tensor | None = None,
     pitch_ref: torch.Tensor | None = None,
+    x_cmd: torch.Tensor | None = None,
 ) -> CondensedQp:
     """Assemble every env's condensed MPC QP for one tick (no solve).
 
     Args:
       x_fb: (N,12) feedback states; t: (N,) times; foot: (N,6) world feet;
       contact: (N,h,2); cmd_ref: (N,3); foot_yaw: (N,2); v_int: (N,2);
-      pitch_ref: (N,).
+      pitch_ref: (N,); terrain: the ``sim.contact.Terrain`` the references
+      ride on (the commanded CoM height counts from the mean height under
+      the two feet); x_cmd: (12,) or (N,12) overriding ``mpc.x_cmd``.
     """
-    x_ref = com_reference(x_fb, mpc, cmd_ref, v_int=v_int, pitch_ref=pitch_ref)
-    foot_ref = foot_reference(x_fb, t, foot, mpc, contact, gait, terrain, v_int=v_int)
+    if terrain is None:
+        z_ground = 0.0
+    else:
+        z_ground = 0.5 * torch.sum(terrain.height(foot[:, [0, 3]], foot[:, [1, 4]]), -1)
+    x_ref = com_reference(x_fb, mpc, cmd_ref, z_ground=z_ground, v_int=v_int,
+                          pitch_ref=pitch_ref, x_cmd=x_cmd)
+    foot_ref = foot_reference(x_fb, t, foot, mpc, contact, gait, terrain, v_int=v_int,
+                              x_cmd=x_cmd)
     A, B = linearize_horizon(mpc, biped, x_ref, foot_ref)
     return condense(mpc, biped, x_fb, x_ref, A, B, contact, foot_yaw)
 
@@ -54,12 +63,13 @@ def solve_mpc(
     terrain=None,
     v_int: torch.Tensor | None = None,
     pitch_ref: torch.Tensor | None = None,
+    x_cmd: torch.Tensor | None = None,
 ) -> QpSolution:
     """One MPC solve per env -> :class:`QpSolution` with (N,h,13) states,
     (N,h,12) controls, the ADMM iterates (next tick's warm start) and the
     primal/dual residuals."""
     qp = build_mpc_qp(
         x_fb, t, foot, mpc, biped, contact, gait, cmd_ref, foot_yaw, terrain,
-        v_int, pitch_ref,
+        v_int, pitch_ref, x_cmd,
     )
     return solve_qp(qp, mpc, warm)

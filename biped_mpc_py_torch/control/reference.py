@@ -4,8 +4,9 @@
 Batched over a leading env axis. See the JAX module for the reference
 defects the ``compat_*`` flags replicate and for the framework extensions
 (body-frame commands, velocity-integral boost, leaky pitch reference).
-Terrain-adaptive references wait for the height-field terrain: a non-None
-``terrain`` raises.
+With a ``terrain`` the future foot targets land on the height field. Every
+function that reads the command takes an optional ``x_cmd`` tensor that
+overrides ``mpc.x_cmd`` (``config.py`` describes the mechanism).
 """
 
 from __future__ import annotations
@@ -14,9 +15,8 @@ import math
 
 import torch
 
-from biped_mpc_py_torch.config import GaitConfig, MpcConfig, config_tensor
+from biped_mpc_py_torch.config import GaitConfig, MpcConfig, cmd_entry, config_tensor
 from biped_mpc_py_torch.control.gait import phase_time
-from biped_mpc_py_torch.sim.contact import no_terrain
 
 
 def com_reference(
@@ -26,6 +26,7 @@ def com_reference(
     z_ground: torch.Tensor | float = 0.0,
     v_int: torch.Tensor | None = None,
     pitch_ref: torch.Tensor | None = None,
+    x_cmd: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """CoM/state reference over the horizon -> (N, 13, h).
 
@@ -35,19 +36,20 @@ def com_reference(
       z_ground: local ground height, scalar or (N,).
       v_int: (N, 2) velocity-error integral.
       pitch_ref: (N,) leaky pitch reference.
+      x_cmd: (12,) or (N, 12) command overriding ``mpc.x_cmd``.
     """
     h, n = mpc.h, x_fb.shape[0]
     dtype, device = x_fb.dtype, x_fb.device
     start = 0 if mpc.compat_ref_col0_bug else 1
     ks = torch.arange(start, h + start, dtype=dtype, device=device)  # (h,)
-    x_cmd = config_tensor(mpc.x_cmd, x_fb)
-    v_cmd_raw = x_cmd[6:12]  # (6,)
+    x_cmd_t = config_tensor(mpc.x_cmd, x_fb) if x_cmd is None else x_cmd
+    v_cmd_raw = x_cmd_t[..., 6:12]  # (6,) or (N,6)
     v_cmd = v_cmd_raw.expand(n, 6)
     if v_int is not None:
         boost = v_int * mpc.cmd_v_int_ref_scale
         v_cmd = torch.cat([v_cmd[:, :3], v_cmd[:, 3:5] + boost, v_cmd[:, 5:]], 1)
     pose_int = x_fb[:, :6, None] + v_cmd[:, :, None] * (ks * mpc.dt)  # (N,6,h)
-    pose_cmd = x_cmd[:6].expand(n, 6)
+    pose_cmd = x_cmd_t[..., :6].expand(n, 6)
     pose_cmd = torch.cat(
         [pose_cmd[:, :5], (pose_cmd[:, 5] + z_ground).expand(n)[:, None]], 1
     )
@@ -56,7 +58,7 @@ def com_reference(
             [pose_cmd[:, :1], pitch_ref[:, None], pose_cmd[:, 2:]], 1
         )
     pose_hold = pose_cmd[:, :, None].expand(n, 6, h)
-    integrate = (v_cmd_raw != 0)[None, :, None]
+    integrate = (v_cmd_raw != 0)[..., None].expand(n, 6, 1)
     pose = torch.where(integrate, pose_int, pose_hold)
     vel = v_cmd[:, :, None].expand(n, 6, h)
     if mpc.cmd_body_frame:
@@ -65,17 +67,26 @@ def com_reference(
             x0a, y0a, yaw0 = x_fb[:, 3:4], x_fb[:, 4:5], x_fb[:, 2:3]
         else:
             x0a, y0a, yaw0 = cmd_ref[:, 0:1], cmd_ref[:, 1:2], cmd_ref[:, 2:3]
-        wz = mpc.x_cmd[8]
-        vbx, vby = mpc.x_cmd[9], mpc.x_cmd[10]
-        yaw_k = yaw0 + wz * dtk  # (N,h)
         # closed-form arc integral of p_dot = Rz(yaw0 + wz s) @ v_body,
         # with the wz -> 0 limit
-        if abs(wz) < 1e-6:
-            ax = dtk * torch.cos(yaw0)
-            ay = dtk * torch.sin(yaw0)
-        else:
-            ax = (torch.sin(yaw_k) - torch.sin(yaw0)) / wz
-            ay = (torch.cos(yaw0) - torch.cos(yaw_k)) / wz
+        if x_cmd is None:
+            wz, vbx, vby = mpc.x_cmd[8], mpc.x_cmd[9], mpc.x_cmd[10]
+            yaw_k = yaw0 + wz * dtk  # (N,h)
+            if abs(wz) < 1e-6:
+                ax = dtk * torch.cos(yaw0)
+                ay = dtk * torch.sin(yaw0)
+            else:
+                ax = (torch.sin(yaw_k) - torch.sin(yaw0)) / wz
+                ay = (torch.cos(yaw0) - torch.cos(yaw_k)) / wz
+        else:  # commands as (1,) or (N,1) columns against the (N,h) rows
+            wz, vbx, vby = (x_cmd[..., i:i + 1] for i in (8, 9, 10))
+            yaw_k = yaw0 + wz * dtk
+            small = torch.abs(wz) < 1e-6
+            w_safe = torch.where(small, torch.ones_like(wz), wz)
+            ax = torch.where(small, dtk * torch.cos(yaw0),
+                             (torch.sin(yaw_k) - torch.sin(yaw0)) / w_safe)
+            ay = torch.where(small, dtk * torch.sin(yaw0),
+                             (torch.cos(yaw0) - torch.cos(yaw_k)) / w_safe)
         px = x0a + ax * vbx - ay * vby
         py = y0a + ay * vbx + ax * vby
         vx = torch.cos(yaw_k) * vbx - torch.sin(yaw_k) * vby
@@ -93,22 +104,27 @@ def com_reference(
 
 
 def _raibert_xy(x_fb: torch.Tensor, mpc: MpcConfig, lookahead: float,
-                v_int: torch.Tensor | None = None):
+                v_int: torch.Tensor | None = None,
+                x_cmd: torch.Tensor | None = None):
     """Raibert foot target ``p + v T_eff + kv (p - p_cmd)`` -> (fx, fy),
     each (N,)."""
     ff = 0.5 * lookahead * mpc.raibert_ff_scale
+    cmd_vx, cmd_vy = cmd_entry(mpc, x_cmd, 9), cmd_entry(mpc, x_cmd, 10)
     if mpc.cmd_body_frame:
         yaw = x_fb[:, 2]
-        vcx = torch.cos(yaw) * mpc.x_cmd[9] - torch.sin(yaw) * mpc.x_cmd[10]
-        vcy = torch.sin(yaw) * mpc.x_cmd[9] + torch.cos(yaw) * mpc.x_cmd[10]
+        vcx = torch.cos(yaw) * cmd_vx - torch.sin(yaw) * cmd_vy
+        vcy = torch.sin(yaw) * cmd_vx + torch.cos(yaw) * cmd_vy
         kv_x = kv_y = 0.0
     else:
-        vcx, vcy = mpc.x_cmd[9], mpc.x_cmd[10]
-        kv_x = mpc.kv * (x_fb[:, 3] - mpc.x_cmd[3])
-        kv_y = mpc.kv * (x_fb[:, 4] - mpc.x_cmd[4])
+        vcx, vcy = cmd_vx, cmd_vy
+        kv_x = mpc.kv * (x_fb[:, 3] - cmd_entry(mpc, x_cmd, 3))
+        kv_y = mpc.kv * (x_fb[:, 4] - cmd_entry(mpc, x_cmd, 4))
     v_err = torch.sqrt((x_fb[:, 9] - vcx) ** 2 + (x_fb[:, 10] - vcy) ** 2)
     gain = torch.clamp(mpc.raibert_capture_gain + mpc.capture_sched * v_err, max=1.0)
-    kc = gain * math.sqrt(max(mpc.x_cmd[5], 0.0) / 9.81)
+    if x_cmd is None:
+        kc = gain * math.sqrt(max(mpc.x_cmd[5], 0.0) / 9.81)
+    else:
+        kc = gain * torch.sqrt(torch.clamp(x_cmd[..., 5], min=0.0) / 9.81)
     vx_m = x_fb[:, 9] + mpc.raibert_am_y * x_fb[:, 7]
     vy_m = x_fb[:, 10] - mpc.raibert_am_x * x_fb[:, 6]
     pp = mpc.raibert_pitch_place * (x_fb[:, 1] - mpc.raibert_pitch_nom)
@@ -129,32 +145,37 @@ def foot_reference(
     gait: GaitConfig | None = None,
     terrain=None,
     v_int: torch.Tensor | None = None,
+    x_cmd: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Foot-position reference over the horizon -> (N, 6, h).
 
     Columns hold the current feet for the rest of this stance phase, the
     one-phase Raibert target for the next, then the two-phase target; the
     selector is the cumulative contact-flip count along the window. Falls
-    back to the current feet when the first step is not single-stance.
+    back to the current feet when the first step is not single-stance. On a
+    ``terrain`` the two targets land on its surface (z = 0 without one).
 
     Args:
       foot: (N, 6) current world foot positions.
       contact: (N, h, 2) contact flags.
     """
-    no_terrain(terrain)
     n, h = x_fb.shape[0], mpc.h
     t_p = phase_time(mpc, gait)
-    fx1, fy1 = _raibert_xy(x_fb, mpc, t_p, v_int)
-    fx2, fy2 = _raibert_xy(x_fb, mpc, 2.0 * t_p, v_int)
+    fx1, fy1 = _raibert_xy(x_fb, mpc, t_p, v_int, x_cmd)
+    fx2, fy2 = _raibert_xy(x_fb, mpc, 2.0 * t_p, v_int, x_cmd)
     if mpc.compat_foot_ref_bug:
         # reference ``:87``: x_fb[10] in place of x_fb[4]
         fy2 = (
             x_fb[:, 10]
             + x_fb[:, 10] * 0.5 * mpc.h * mpc.dt
-            + mpc.kv * (x_fb[:, 4] - mpc.x_cmd[4])
+            + mpc.kv * (x_fb[:, 4] - cmd_entry(mpc, x_cmd, 4))
         )
-    z1 = torch.zeros_like(fx1)
-    z2 = torch.zeros_like(fx2)
+    if terrain is None:
+        z1 = torch.zeros_like(fx1)
+        z2 = torch.zeros_like(fx2)
+    else:
+        z1 = terrain.height(fx1, fy1)
+        z2 = terrain.height(fx2, fy2)
     foot_1 = torch.stack([fx1, fy1, z1, fx1, fy1, z1], -1)  # (N,6)
     foot_2 = torch.stack([fx2, fy2, z2, fx2, fy2, z2], -1)
 

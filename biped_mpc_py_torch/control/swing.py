@@ -12,26 +12,26 @@ import math
 
 import torch
 
-from biped_mpc_py_torch.config import GaitConfig, MpcConfig
+from biped_mpc_py_torch.config import GaitConfig, MpcConfig, cmd_entry
 from biped_mpc_py_torch.control.gait import phase_time, swing_clock
 from biped_mpc_py_torch.control.reference import _raibert_xy
-from biped_mpc_py_torch.sim.contact import no_terrain
 
 Y_OFFSET = 0.04  # lateral swing-target offset [m] (reference ``:427``)
 
 
 def swing_target_xy(
     x_fb: torch.Tensor, mpc: MpcConfig, side, gait: GaitConfig | None = None,
-    v_int: torch.Tensor | None = None,
+    v_int: torch.Tensor | None = None, x_cmd: torch.Tensor | None = None,
 ):
     """Raibert swing-foot target (x, y), each (N,), with the lateral
     stance-width offset rotated by the heading predicted at mid-touchdown
-    (``compat_swing_yaw_bug`` adds it in world y, as the reference does)."""
+    (``compat_swing_yaw_bug`` adds it in world y, as the reference does).
+    ``x_cmd`` ((12,) or (N,12)) overrides ``mpc.x_cmd``."""
     t_p = phase_time(mpc, gait)
-    fx, fy = _raibert_xy(x_fb, mpc, t_p, v_int)
+    fx, fy = _raibert_xy(x_fb, mpc, t_p, v_int, x_cmd)
     if mpc.compat_swing_yaw_bug:
         return fx, fy + Y_OFFSET * side
-    yaw = x_fb[:, 2] + mpc.x_cmd[8] * 0.5 * t_p
+    yaw = x_fb[:, 2] + cmd_entry(mpc, x_cmd, 8) * 0.5 * t_p
     return (
         fx - torch.sin(yaw) * mpc.swing_y_offset * side,
         fy + torch.cos(yaw) * mpc.swing_y_offset * side,
@@ -91,11 +91,13 @@ def swing_leg_force(
     """World PD force (N,3) driving the swing foot (pf_w, vf_w (N,3)) to its
     Raibert target (``swing.py:113``), with the touchdown damping and
     retraction ramps, the tracking feedforward and the touchdown overdrive
-    of the JAX function (each 0 by default)."""
-    no_terrain(terrain)
+    of the JAX function (each 0 by default). On a ``terrain`` the swing
+    apex rides the surface under the target."""
     dtype = x_fb.dtype
     fx, fy = swing_target_xy(x_fb, mpc, side, gait, v_int)
     fz = swing_phase_z(t, mpc, gait, dtype, side=side)
+    if terrain is not None:
+        fz = fz + terrain.height(fx, fy)
     foot_des = torch.stack([fx, fy, fz], -1)
     if gait is not None and gait.flight_steps > 0:
         frac, _ = swing_clock(t, mpc, gait, side, dtype)

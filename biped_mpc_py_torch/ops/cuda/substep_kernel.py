@@ -110,7 +110,8 @@ def _check(state: ArtState, tau, Minv):
 
 
 def fused_substeps(model: ArticulatedModel, state: ArtState, tau: torch.Tensor,
-                   Minv: torch.Tensor, dt: float, n_steps: int) -> ArtState:
+                   Minv: torch.Tensor, dt: float, n_steps: int,
+                   terrain=None) -> ArtState:
     """Advance every env by ``n_steps`` substeps of ``dt / n_steps``.
 
     Args:
@@ -119,11 +120,15 @@ def fused_substeps(model: ArticulatedModel, state: ArtState, tau: torch.Tensor,
       tau: (N,10) joint torques, held across the substeps.
       Minv: (N,16,16) held mass-matrix inverse.
       dt: the full period [s].
+      terrain: must be None. The kernel knows the plane z = 0 only, as the
+        TPU kernel does; a height field runs ``art_step``'s plain chain.
 
     CUDA tensors launch the kernel (and count the launch in
     ``fused_substeps.launches``); CPU tensors run
-    :func:`fused_substeps_reference`. Flat ground only.
+    :func:`fused_substeps_reference`. Raises ValueError on a terrain.
     """
+    if terrain is not None:
+        raise ValueError("the substep kernel runs on flat ground only (terrain is None)")
     n = _check(state, tau, Minv)
     if n_steps < 1:
         raise ValueError("n_steps must be >= 1")

@@ -265,6 +265,76 @@ def condense(
     return CondensedQp(P=P, q=q, A_step=A_step, l=l, u=u, Sx=Sx, Su=Su, x0=x0)
 
 
+def sparse_qp_matrices(
+    mpc: MpcConfig,
+    biped: BipedParams,
+    x_fb: torch.Tensor,
+    x_ref: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    contact: torch.Tensor,
+):
+    """The reference script's sparse QP form, a parity surface
+    (``qp.py:781``): the 25h stacked states and controls, from the same
+    horizon linearization as :func:`condense` (same argument shapes). Not
+    on any solve path.
+
+    Returns (H, f, Aeq, beq, G, h_vec), each with a leading env axis:
+    H (N,25h,25h), f (N,25h), Aeq (N,13h,25h), beq (N,13h), G (N,36h,25h),
+    h_vec (N,36h). The inequality rows are grouped as in the reference: all
+    friction rows (8h), all box rows (24h, upper then lower per step), all
+    line-foot rows (4h).
+    """
+    n = x_fb.shape[0]
+    h, nx, nu = mpc.h, 13, 12
+    dtype, device = A.dtype, A.device
+    nv = (nx + nu) * h
+    ctrl0 = nx * h  # first control column
+    Qd = config_tensor(mpc.Q, A)
+    Rd = config_tensor(mpc.R, A)
+    H = (2.0 * torch.diag(torch.cat([Qd.repeat(h), Rd.repeat(h)]))).expand(n, nv, nv)
+    f = 2.0 * torch.cat(
+        [-(x_ref.transpose(1, 2) * Qd).reshape(n, nx * h),
+         torch.zeros((n, nu * h), dtype=dtype, device=device)], 1,
+    )
+
+    x0 = torch.cat([x_fb[:, :12], torch.ones((n, 1), dtype=dtype, device=device)], 1)
+    Aeq = torch.zeros((n, nx * h, nv), dtype=dtype, device=device)
+    eye = torch.eye(nx, dtype=dtype, device=device)
+    for i in range(h):
+        rows = slice(nx * i, nx * i + nx)
+        Aeq[:, rows, rows] = eye
+        Aeq[:, rows, ctrl0 + nu * i: ctrl0 + nu * i + nu] = -B[:, i]
+        if i > 0:
+            Aeq[:, rows, nx * (i - 1): nx * i] = -A[:, i]
+    beq = torch.cat(
+        [(A[:, 0] @ x0[:, :, None])[..., 0],
+         torch.zeros((n, nx * (h - 1)), dtype=dtype, device=device)], 1,
+    )
+
+    R = eul2rotm(x_fb[:, 0:3])
+    F = friction_rows(biped.mu).to(dtype)
+    LF = line_foot_rows(biped, R).to(dtype)
+    eye_u = torch.eye(nu, dtype=dtype, device=device)
+    box = torch.cat([eye_u, -eye_u], 0).expand(n, 2 * nu, nu)
+
+    def place(block):
+        r = block.shape[1]
+        G_blk = torch.zeros((n, r * h, nv), dtype=dtype, device=device)
+        for k in range(h):
+            G_blk[:, r * k: r * k + r, ctrl0 + nu * k: ctrl0 + nu * k + nu] = block
+        return G_blk
+
+    G = torch.cat([place(F), place(box), place(LF)], 1)
+    l, u = constraint_bounds(mpc, biped, contact)
+    h_box = torch.cat([u[:, :, 8:20], -l[:, :, 8:20]], -1).reshape(n, 2 * nu * h)
+    h_vec = torch.cat(
+        [torch.zeros((n, 8 * h), dtype=dtype, device=device), h_box,
+         torch.zeros((n, 4 * h), dtype=dtype, device=device)], 1,
+    )
+    return H, f, Aeq, beq, G, h_vec
+
+
 def ns_inverse(K: torch.Tensor, n_iters: int = 14) -> torch.Tensor:
     """SPD inverse by Jacobi-preconditioned Newton-Schulz (``qp.py:403``),
     batched over leading axes, in f32.

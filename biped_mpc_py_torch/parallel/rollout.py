@@ -5,6 +5,11 @@ One tick for every env: contact schedule, CoM and foot references, horizon
 linearization, condensation, Ruiz scaling, the fused ADMM solve (one CUDA
 kernel launch for the whole batch on the card), the SRB physics step, fall
 reset and metrics. ``lax.scan`` becomes a Python loop over ticks.
+
+:func:`batched_rollout` drives every env with the config's command,
+:func:`batched_cmd_rollout` each env with its own. The JAX package's
+single-env ``closed_loop_tick`` and ``rollout_fn`` have no separate port:
+the batched functions at N = 1 are their counterparts.
 """
 
 from __future__ import annotations
@@ -63,7 +68,8 @@ def batch_worlds(mpc: MpcConfig, n: int, device=DEFAULT_DEVICE) -> World:
 
 def _finish_tick(sim_new: SrbState, sol: QpSolution, cmd_ref: torch.Tensor,
                  metrics: RolloutMetrics, mpc: MpcConfig,
-                 v_int: torch.Tensor | None = None) -> World:
+                 v_int: torch.Tensor | None = None,
+                 x_cmd: torch.Tensor | None = None) -> World:
     """Per-env fall detection, in-batch reset and metrics update
     (``rollout.py:54``). A fallen env restarts standing with a cold
     controller; its clock ``t`` runs on."""
@@ -83,28 +89,30 @@ def _finish_tick(sim_new: SrbState, sol: QpSolution, cmd_ref: torch.Tensor,
         hold_count=torch.zeros(n, dtype=torch.int32, device=device),
         pitch_ref=zeros,
     )
-    ctrl_next = carried.where(fell, ControllerState.init(mpc, n, device, dtype))
-    metrics = metrics.update(x, mpc.x_cmd, sol.controls[:, 0], sol.res_prim,
-                             fell.to(dtype))
+    ctrl_next = carried.where(fell, ControllerState.init(mpc, n, device, dtype, x_cmd))
+    metrics = metrics.update(x, mpc.x_cmd if x_cmd is None else x_cmd,
+                             sol.controls[:, 0], sol.res_prim, fell.to(dtype))
     return World(sim=sim_next, ctrl=ctrl_next, metrics=metrics)
 
 
 def batched_closed_loop_tick(
-    world: World, mpc: MpcConfig, gait: GaitConfig, biped: BipedParams
+    world: World, mpc: MpcConfig, gait: GaitConfig, biped: BipedParams,
+    x_cmd: torch.Tensor | None = None,
 ) -> World:
     """One fused sim+MPC tick for every env (``rollout.py:100``); the QP
-    solve is one ``fused_qp_solve`` call for the whole batch."""
+    solve is one ``fused_qp_solve`` call for the whole batch. ``x_cmd``
+    ((12,) or (N,12)) overrides ``mpc.x_cmd`` throughout the tick."""
     sim = world.sim
     contact = contact_sequence(sim.t, mpc, gait)
     qp = build_mpc_qp(
         sim.x_fb, sim.t, sim.foot, mpc, biped, contact, gait,
-        world.ctrl.cmd_ref, v_int=world.ctrl.v_int,
+        world.ctrl.cmd_ref, v_int=world.ctrl.v_int, x_cmd=x_cmd,
     )
     sol = solve_qp(qp, mpc, warm=world.ctrl.qp)
-    sim_new = srb_step(sim, sol.controls[:, 0], mpc, gait, biped)
-    ref_next = advance_cmd_ref(world.ctrl.cmd_ref, sim.x_fb, mpc)
-    vi_next = advance_v_int(world.ctrl.v_int, sim.x_fb, mpc)
-    return _finish_tick(sim_new, sol, ref_next, world.metrics, mpc, vi_next)
+    sim_new = srb_step(sim, sol.controls[:, 0], mpc, gait, biped, x_cmd=x_cmd)
+    ref_next = advance_cmd_ref(world.ctrl.cmd_ref, sim.x_fb, mpc, x_cmd)
+    vi_next = advance_v_int(world.ctrl.v_int, sim.x_fb, mpc, x_cmd)
+    return _finish_tick(sim_new, sol, ref_next, world.metrics, mpc, vi_next, x_cmd)
 
 
 @f32_precision
@@ -120,6 +128,27 @@ def batched_rollout(
     w = worlds
     for _ in range(n_steps):
         w = batched_closed_loop_tick(w, mpc, gait, bipeds)
+    return w
+
+
+@f32_precision
+@torch.no_grad()
+def batched_cmd_rollout(
+    worlds: World, bipeds: BipedParams, x_cmd: torch.Tensor, n_steps: int,
+    mpc: MpcConfig, gait: GaitConfig,
+) -> World:
+    """``n_steps`` ticks with per-env commands: the counterpart of
+    ``batched_cmd_rollout_fn(n_steps, mpc, gait)(worlds, bipeds, x_cmd)``.
+    ``x_cmd`` (N,12) holds each env's command (its own speed and heading)
+    in the layout of ``MpcConfig.x_cmd`` and takes the place of the
+    config's everywhere in the tick, the metrics included."""
+    n = worlds.sim.x_fb.shape[0]
+    if x_cmd.shape != (n, 12):
+        raise ValueError(f"x_cmd of shape {tuple(x_cmd.shape)}, expected ({n}, 12)")
+    x_cmd = x_cmd.to(worlds.sim.x_fb.dtype)
+    w = worlds
+    for _ in range(n_steps):
+        w = batched_closed_loop_tick(w, mpc, gait, bipeds, x_cmd)
     return w
 
 

@@ -13,7 +13,7 @@ One 40 ms tick for every env:
 then fall reset, controller-state advance and metrics. The mass-matrix
 inverse is refreshed once per group of ``minv_ll_hold`` low-level periods.
 
-Three entry points differ in how the work below the MPC layer runs:
+Four entry points differ in how the work below the MPC layer runs:
 :func:`batched_art_rollout_tick_kernel` runs the whole low-level + physics
 hierarchy of a tick in one fused tick-kernel launch (the counterpart of
 ``batched_art_rollout_tick_kernel_fn`` and of ``bench.py BENCH_MODE=art
@@ -21,7 +21,14 @@ BENCH_ART_BACKEND=tick``); :func:`batched_art_rollout_kernel` launches the
 fused substep kernel once per low-level period (the counterpart of
 ``batched_art_rollout_kernel_fn``, ``BENCH_ART_BACKEND=kernel``);
 :func:`batched_art_rollout` runs the plain ``art_step`` chain (the
-counterpart of ``batched_art_rollout_fn``). Flat ground only.
+counterpart of ``batched_art_rollout_fn``), on the plane z = 0 or on one
+height field under every env; :func:`batched_art_rollout_terrain` runs the
+same chain with a height field per env (the counterpart of
+``batched_art_rollout_terrain_fn`` and of ``bench.py BENCH_TERRAIN``). The
+two kernels know flat ground only, as the TPU kernels do, so a terrain runs
+the plain chain in both packages. The JAX package's single-env
+``art_rollout_fn`` has no separate port: the batched functions at N = 1 are
+its counterpart.
 """
 
 from __future__ import annotations
@@ -48,7 +55,7 @@ from biped_mpc_py_torch.control.mpc import solve_mpc
 from biped_mpc_py_torch.models.biped import BipedParams
 from biped_mpc_py_torch.ops.cuda.substep_kernel import fused_substeps
 from biped_mpc_py_torch.ops.cuda.tick_kernel import fused_tick
-from biped_mpc_py_torch.sim.contact import no_terrain
+from biped_mpc_py_torch.sim.contact import Terrain
 from biped_mpc_py_torch.sim.engine import (
     ArtState,
     art_step,
@@ -222,14 +229,17 @@ def _lowlevel_stage(model, sim, t_ll, contact, u0, world, biped, mpc, gait,
 
 def _art_tick(world: ArtWorld, biped: BipedParams, mpc: MpcConfig,
               gait: GaitConfig, model: ArticulatedModel, n_lowlevel: int,
-              minv_ll_hold: int, physics) -> ArtWorld:
+              minv_ll_hold: int, physics, terrain=None) -> ArtWorld:
     """One tick; ``physics(sim, tau, Minv, ll_dt)`` advances a low-level
-    period."""
+    period. The MPC stage and the low-level control take their references
+    from ``terrain``; the ground under ``physics`` is the caller's."""
     if n_lowlevel % minv_ll_hold:
         raise ValueError(
             f"n_lowlevel {n_lowlevel} is not a multiple of minv_ll_hold {minv_ll_hold}"
         )
-    x_fb, t_g, hold, contact, sol = _art_control_stage(world, biped, mpc, gait, model)
+    x_fb, t_g, hold, contact, sol = _art_control_stage(
+        world, biped, mpc, gait, model, terrain
+    )
     u0 = sol.controls[:, 0]
     ll_dt = mpc.dt / n_lowlevel
     sim = world.sim
@@ -242,7 +252,8 @@ def _art_tick(world: ArtWorld, biped: BipedParams, mpc: MpcConfig,
             # gait-local low-level clock: the within-tick offset on the
             # (possibly held) MPC gait time
             t_ll = sim.t if not gait.contact_clock else t_g + (sim.t - t0)
-            tau = _lowlevel_stage(model, sim, t_ll, contact, u0, world, biped, mpc, gait)
+            tau = _lowlevel_stage(model, sim, t_ll, contact, u0, world, biped, mpc,
+                                  gait, terrain)
             # positive mechanical joint work this period (metrics.energy)
             energy = energy + torch.sum(torch.clamp(tau * sim.qd, min=0.0), 1) * ll_dt
             sim = physics(sim, tau, Minv, ll_dt)
@@ -256,13 +267,16 @@ def art_closed_loop_tick(world: ArtWorld, mpc: MpcConfig, gait: GaitConfig,
     """One full MPC period on the articulated robot with the plain substep
     chain (``rollout_art.py:254``). ``minv_ll_hold`` low-level periods share
     one Newton-Schulz mass-matrix inverse: 1 refreshes it every 5 ms, 8
-    once per tick."""
-    no_terrain(terrain)
+    once per tick. ``terrain``: the :class:`Terrain` under the robots (one
+    field for all, or one per env), None = the plane z = 0; contact, the
+    measured contact, the CoM height and foot references and the swing
+    apex all follow it."""
 
     def physics(sim, tau, Minv, dt):
-        return art_step(model, sim, tau, dt, n_substeps, Minv=Minv)
+        return art_step(model, sim, tau, dt, n_substeps, terrain, Minv=Minv)
 
-    return _art_tick(world, biped, mpc, gait, model, n_lowlevel, minv_ll_hold, physics)
+    return _art_tick(world, biped, mpc, gait, model, n_lowlevel, minv_ll_hold, physics,
+                     terrain)
 
 
 @f32_precision
@@ -271,16 +285,48 @@ def batched_art_rollout(worlds: ArtWorld, bipeds: BipedParams, n_steps: int,
                         mpc: MpcConfig, gait: GaitConfig,
                         model: ArticulatedModel | None = None,
                         n_lowlevel: int = 8, n_substeps: int = 10,
-                        minv_ll_hold: int = 1) -> ArtWorld:
+                        minv_ll_hold: int = 1,
+                        terrain: Terrain | None = None) -> ArtWorld:
     """``n_steps`` articulated ticks with the plain substep chain: the
     counterpart of ``batched_art_rollout_fn(n_steps, mpc, gait, model,
-    n_lowlevel=, n_substeps=, minv_ll_hold=)``. ``worlds`` and ``bipeds``
-    share the env axis and the device."""
+    n_lowlevel=, n_substeps=, minv_ll_hold=, terrain=)``, and at N = 1 of
+    ``art_rollout_fn``. ``worlds`` and ``bipeds`` share the env axis and
+    the device. ``terrain``: one height field under every env (None = the
+    plane z = 0); :func:`batched_art_rollout_terrain` takes one per env."""
     model = model or hector_model(device=worlds.sim.q.device)
     w = worlds
     for _ in range(n_steps):
         w = art_closed_loop_tick(w, mpc, gait, bipeds, model, n_lowlevel,
-                                 n_substeps, None, minv_ll_hold)
+                                 n_substeps, terrain, minv_ll_hold)
+    return w
+
+
+@f32_precision
+@torch.no_grad()
+def batched_art_rollout_terrain(worlds: ArtWorld, bipeds: BipedParams,
+                                terrains: Terrain, n_steps: int, mpc: MpcConfig,
+                                gait: GaitConfig,
+                                model: ArticulatedModel | None = None,
+                                n_lowlevel: int = 8, n_substeps: int = 10,
+                                minv_ll_hold: int = 1) -> ArtWorld:
+    """``n_steps`` articulated ticks with a height field per env: the
+    counterpart of ``batched_art_rollout_terrain_fn(n_steps, mpc, gait,
+    model, n_lowlevel, n_substeps, minv_ll_hold)(worlds, bipeds,
+    terrains)``, randomized robots on randomized rough ground.
+    ``terrains.heights`` is (N, H, W) with the worlds' env axis
+    (``Terrain.rough_batch``). Runs the plain substep chain, as in JAX: the
+    physics kernels know flat ground only."""
+    n = worlds.sim.q.shape[0]
+    if not terrains.batched or terrains.heights.shape[0] != n:
+        raise ValueError(
+            f"terrains.heights of shape {tuple(terrains.heights.shape)} has no "
+            f"env axis of the worlds' size {n}"
+        )
+    model = model or hector_model(device=worlds.sim.q.device)
+    w = worlds
+    for _ in range(n_steps):
+        w = art_closed_loop_tick(w, mpc, gait, bipeds, model, n_lowlevel,
+                                 n_substeps, terrains, minv_ll_hold)
     return w
 
 

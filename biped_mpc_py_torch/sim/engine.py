@@ -4,9 +4,9 @@
 :func:`art_step` advances the 16-DoF HECTOR by one control period with
 ``n_substeps`` semi-implicit Euler substeps of the leg-vectorized
 Featherstone dynamics (``sim/dynamics.py``) and toe/heel penalty contact
-(``sim/contact.py``) on flat ground. The torso frame origin is the nominal
-CoM, so the controller's feedback ``x_fb = [euler, pos, R omega_b, R v_b]``
-has the SRB state's meaning.
+(``sim/contact.py``) on the plane z = 0 or on a height-field ``Terrain``.
+The torso frame origin is the nominal CoM, so the controller's feedback
+``x_fb = [euler, pos, R omega_b, R v_b]`` has the SRB state's meaning.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 
 from biped_mpc_py_torch.ops.qp import ns_inverse
 from biped_mpc_py_torch.ops.rotations import quat_integrate, quat_to_eul, quat_to_rotm
-from biped_mpc_py_torch.sim.contact import contact_force_world, no_terrain
+from biped_mpc_py_torch.sim.contact import contact_force_world
 from biped_mpc_py_torch.sim.dynamics import (
     _body_velocities,
     _motion_subspace,
@@ -156,9 +156,10 @@ def contact_point_states(model: ArticulatedModel, state: ArtState):
 def art_substep(model: ArticulatedModel, state: ArtState, tau: torch.Tensor,
                 dt: float, terrain=None, Minv: torch.Tensor | None = None) -> ArtState:
     """One semi-implicit Euler substep under joint torques tau (N,10)
-    (``engine.py:188``). ``Minv`` (N,16,16) optionally holds the mass-matrix
-    inverse (see :func:`art_step`)."""
-    no_terrain(terrain)
+    (``engine.py:188``). ``terrain``: the ``sim.contact.Terrain`` under the
+    toe/heel points, None = the plane z = 0.
+    ``Minv`` (N,16,16) optionally holds the mass-matrix inverse (see
+    :func:`art_step`)."""
     n, dtype = state.q.shape[0], state.q.dtype
     R_w, p_w, v_b, _ = leg_kinematics_lv(
         model, state.pos, state.quat, state.q, state.v_base, state.qd

@@ -33,6 +33,12 @@ def _mtv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (M.transpose(-1, -2) @ v[..., None])[..., 0]
 
 
+def xform_identity(dtype=torch.float32, device=None) -> SpatialTransform:
+    """The identity transform (``spatial.py:32``)."""
+    return SpatialTransform(R=torch.eye(3, dtype=dtype, device=device),
+                            p=torch.zeros(3, dtype=dtype, device=device))
+
+
 def xform_compose(X2: SpatialTransform, X1: SpatialTransform) -> SpatialTransform:
     """X2 ∘ X1 (apply X1 first)."""
     return SpatialTransform(R=X2.R @ X1.R, p=X1.p + _mtv(X1.R, X2.p))

@@ -50,8 +50,11 @@ def srb_step(
     gait: GaitConfig,
     biped: BipedParams,
     n_substeps: int = 4,
+    x_cmd: torch.Tensor | None = None,
 ) -> SrbState:
-    """Advance every env by one MPC period dt under controls u (N,12)."""
+    """Advance every env by one MPC period dt under controls u (N,12).
+    ``x_cmd`` ((12,) or (N,12)) overrides ``mpc.x_cmd`` in the swing
+    targets."""
     dt_sub = mpc.dt / n_substeps
     x = state.x_fb
     f1, f2 = u[:, 0:3], u[:, 3:6]
@@ -85,20 +88,20 @@ def srb_step(
         )
 
     t_new = state.t + mpc.dt
-    foot_new = _advance_feet(state, x, t_new, mpc, gait)
+    foot_new = _advance_feet(state, x, t_new, mpc, gait, x_cmd)
     return SrbState(x_fb=x, foot=foot_new, t=t_new)
 
 
 def _advance_feet(
     state: SrbState, x_new: torch.Tensor, t_new: torch.Tensor, mpc: MpcConfig,
-    gait: GaitConfig,
+    gait: GaitConfig, x_cmd: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Kinematic swing-foot motion (N,6); stance feet stay planted and are
     dropped to the ground plane."""
     contact_now = contact_sequence(t_new, mpc, gait)[:, 0]  # (N,2)
     feet = []
     for leg, side in enumerate((1.0, -1.0)):
-        fx, fy = swing_target_xy(x_new, mpc, side, gait)
+        fx, fy = swing_target_xy(x_new, mpc, side, gait, x_cmd=x_cmd)
         fz = swing_phase_z(t_new, mpc, gait, x_new.dtype, side=side)
         swing_pos = torch.stack([fx, fy, fz], -1)
         foot3 = state.foot[:, 3 * leg: 3 * leg + 3]

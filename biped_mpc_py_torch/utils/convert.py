@@ -8,8 +8,13 @@ raising on a missing or extra field so that drift between the two packages
 fails loudly. :func:`to_numpy` goes back.
 
 Batched JAX objects map one to one: every leaf keeps its leading env axis.
-Fields annotated ``float`` (the scalar parameters of ``ArticulatedModel``)
-stay Python floats.
+Fields annotated ``float`` (the scalar parameters of ``ArticulatedModel``,
+``Terrain.extent``) stay Python floats. A vmapped JAX ``Terrain``
+(``Terrain.rough_batch``) carries its ``extent`` broadcast along the env
+axis; the port's ``Terrain`` has one extent for all envs, so
+:func:`from_numpy` folds an array of equal entries into that float and
+raises where envs differ, and :func:`to_numpy` broadcasts it again for a
+``Terrain`` with a field per env.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from biped_mpc_py_torch.config import _VECTOR_FIELDS, GaitConfig, MpcConfig
+from biped_mpc_py_torch.sim.contact import Terrain
 from biped_mpc_py_torch.utils.struct import TensorStruct
 
 _CONFIGS = (MpcConfig, GaitConfig)
@@ -60,6 +66,16 @@ def _config_value(name, value):
     return value
 
 
+def _fold_equal(name, value):
+    """A scalar parameter that arrives with an env axis (a vmapped JAX
+    object broadcasts it): its one value, or raise where envs differ."""
+    if isinstance(value, np.ndarray) and value.ndim > 0:
+        if value.size == 0 or not np.all(value == value.flat[0]):
+            raise ValueError(f"field {name} differs between envs; the port keeps one value")
+        return value.flat[0]
+    return value
+
+
 def from_numpy(cls, fields: dict, device=None):
     """Build a port object of class ``cls`` (an ``MpcConfig``,
     ``GaitConfig`` or TensorStruct dataclass) from a nested field dict."""
@@ -74,8 +90,8 @@ def from_numpy(cls, fields: dict, device=None):
             kwargs[name] = None
         elif sub is not None:
             kwargs[name] = from_numpy(sub, value, device)
-        elif hints[name] is float:  # a scalar parameter (ArticulatedModel)
-            kwargs[name] = _config_value(name, value)
+        elif hints[name] is float:  # a scalar parameter (ArticulatedModel, Terrain)
+            kwargs[name] = _config_value(name, _fold_equal(name, value))
         else:
             kwargs[name] = torch.as_tensor(np.array(value), device=device)  # a copy
     return cls(**kwargs)
@@ -93,6 +109,8 @@ def to_numpy(obj) -> dict:
             out[f.name] = to_numpy(v)
         elif isinstance(obj, MpcConfig) and f.name in _VECTOR_FIELDS:
             out[f.name] = np.asarray(v, np.float32)
+        elif isinstance(obj, Terrain) and f.name == "extent" and obj.batched:
+            out[f.name] = np.full(obj.heights.shape[0], v, np.float32)
         else:
             out[f.name] = v
     return out

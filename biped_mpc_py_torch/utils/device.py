@@ -1,9 +1,10 @@
 """The device the port's entry points build on.
 
 The constructors a user calls first (``init_world``, ``batch_worlds``,
-``randomize_params``, ``init_art_world``, ``hector_model``) build on the
-card unless the caller names another device, for example ``device="cpu"``.
-Without a card they raise at once: nothing falls back to the CPU.
+``randomize_params``, ``init_art_world``, ``hector_model``, the ``Terrain``
+constructors) build on the card unless the caller names another device, for
+example ``device="cpu"``. Without a card they raise at once: nothing falls
+back to the CPU.
 """
 
 from __future__ import annotations

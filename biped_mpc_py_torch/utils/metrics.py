@@ -32,14 +32,19 @@ class RolloutMetrics(TensorStruct):
             for f in dataclasses.fields(cls)
         })
 
-    def update(self, x_fb: torch.Tensor, x_cmd: tuple, u0: torch.Tensor,
+    def update(self, x_fb: torch.Tensor, x_cmd, u0: torch.Tensor,
                res_prim: torch.Tensor, fell: torch.Tensor,
                energy=0.0) -> "RolloutMetrics":
-        """Add one tick: x_fb (N,12), u0 (N,12), res_prim (N,), fell (N,)."""
-        v_cmd = config_tensor(x_cmd[9:12], x_fb)
+        """Add one tick: x_fb (N,12), u0 (N,12), res_prim (N,), fell (N,).
+        ``x_cmd`` is a config's tuple of 12 floats or a (12,) or (N,12)
+        tensor of per-env commands."""
+        if isinstance(x_cmd, torch.Tensor):
+            v_cmd, z_cmd = x_cmd[..., 9:12], x_cmd[..., 5]
+        else:
+            v_cmd, z_cmd = config_tensor(x_cmd[9:12], x_fb), x_cmd[5]
         return RolloutMetrics(
             n_steps=self.n_steps + 1,
-            height_err_sq=self.height_err_sq + (x_fb[:, 5] - x_cmd[5]) ** 2,
+            height_err_sq=self.height_err_sq + (x_fb[:, 5] - z_cmd) ** 2,
             attitude_err_sq=self.attitude_err_sq
             + torch.sum(x_fb[:, 0:2] ** 2, dim=1),
             vel_err_sq=self.vel_err_sq
@@ -50,3 +55,16 @@ class RolloutMetrics(TensorStruct):
             energy=self.energy + energy,
         )
 
+
+
+def cost_of_transport(energy_j, mass_kg, distance_m, g: float = 9.81):
+    """Dimensionless mechanical cost of transport E / (m g d)
+    (``metrics.py:57``) from a rollout's positive joint work [J], the
+    robot's mass [kg] and the distance covered [m]; tensors of one shape or
+    floats. The distance may be signed (its magnitude is used) and is
+    floored at 1e-9 m."""
+    if isinstance(distance_m, torch.Tensor):
+        d = torch.clamp(torch.abs(distance_m), min=1e-9)
+    else:
+        d = max(abs(distance_m), 1e-9)
+    return energy_j / (mass_kg * g * d)

@@ -38,7 +38,19 @@ Phases, each printed on its own lines:
    through ``batched_art_rollout_tick_kernel`` (one tick launch per tick);
    launch counts (250 tick, 250 QP, 0 substep), the walking bounds, and
    the walking statistics after 25 ticks against the substep-kernel path's;
-10. times: the QP solve (also with ``ns_iters=0`` and ``n_iters=0``, for
+10. terrain slice: 1024 domain-randomized robots on per-env rough height
+   fields (``Terrain.rough_batch``, amplitude 0.03 m, 64 x 64 cells) x 50
+   ticks (2 s) through ``batched_art_rollout_terrain`` at the bench budget
+   (5 substeps, the mass-matrix inverse held all tick): the plain substep
+   chain, since the physics kernels know flat ground only. Finite states,
+   launch counts (50 QP, 0 tick, 0 substep), the stance soles' mean gap to
+   their ground, and falls, distance, attitude and residual as reported
+   figures; then 3 ticks on flat per-env fields against
+   ``batched_art_rollout`` without a terrain (max |diff| under 1e-5);
+11. per-env commands: 1024 envs x 50 ticks of ``batched_cmd_rollout`` (SRB)
+   with each env's forward command spread over 0-0.4 m/s: zero falls, and
+   the distance covered ordered with the command;
+12. times: the QP solve (also with ``ns_iters=0`` and ``n_iters=0``, for
    the split between the inverse and the ADMM loop, with its achieved
    TFLOP/s, its share of the bound and its TF32 mma.sync rate; CUDA
    events), the substep, tick and probe kernels (device time from
@@ -47,12 +59,13 @@ Phases, each printed on its own lines:
    beside it), the physics kernels' device time, bound and share at 1024,
    4096, 16,384 and 65,536 envs, the rollouts' env-steps/s with kernel and
    plain version, and a per-stage split of one SRB tick and of one
-   articulated tick on each path;
-11. profile: one ``torch.profiler`` window of 5 steady tick-path ticks:
+   articulated tick on each path, the terrain path's beside the flat plain
+   chain's;
+13. profile: one ``torch.profiler`` window of 5 steady tick-path ticks:
    device kernels and device busy per tick, the QP kernel's share of it,
    the tick kernel's time, and the card's idle share of the unprofiled tick
    of phase 9;
-12. bounds: each kernel's least time on the card for the same work
+14. bounds: each kernel's least time on the card for the same work
    (``utils/roofline.py``), from the shapes of this run's inputs: the QP
    solve's from its budget (its Newton-Schulz products at the 3xTF32
    tensor-core rate), the physics kernels' from the tree's per-substep and
@@ -86,6 +99,15 @@ TICK_BOUNDS = {"q": 5e-4, "pos": 5e-4, "quat": 5e-4, "qd": 2e-2}
 # Ticks after which the tick-kernel and substep-kernel paths are compared
 # (tests/test_tick_kernel.py::test_tick_kernel_closed_loop).
 N_COMPARE_TICKS = 25
+# The terrain slice: 2 s of walking on fields of this amplitude [m] and
+# resolution (what the JAX bench's BENCH_TERRAIN path draws).
+N_TERRAIN_TICKS = 50
+TERRAIN_AMPLITUDE = 0.03
+TERRAIN_RES = 64
+# Stance soles against their ground [m]: a sole centre rests ~8 mm deep on
+# the toe/heel springs (8 kN/m each) and up to twice that under load; a foot
+# scheduled down may still be a few mm up.
+STANCE_GAP_RANGE = (-0.03, 0.01)
 
 
 def log(msg: str) -> None:
@@ -672,12 +694,12 @@ def phase_art_slice(torch, device):
     return launches, sec, w25
 
 
-def _stage_split(torch, names, w, tick):
-    """Mean ms per stage of ``tick(w, mark) -> w`` over 10 ticks after 2
+def _stage_split(torch, names, w, tick, n=10):
+    """Mean ms per stage of ``tick(w, mark) -> w`` over ``n`` ticks after 2
     (host clock, synchronized at each ``mark(name)``, which closes a stage;
     a stage marked several times in a tick sums)."""
     acc = dict.fromkeys(names, 0.0)
-    for i in range(12):
+    for i in range(n + 2):
         torch.cuda.synchronize()
         t_prev = time.perf_counter()
 
@@ -686,7 +708,7 @@ def _stage_split(torch, names, w, tick):
             torch.cuda.synchronize()
             now = time.perf_counter()
             if i >= 2:
-                acc[name] += (now - t_prev) * 1e3 / 10
+                acc[name] += (now - t_prev) * 1e3 / n
             t_prev = now
 
         w = tick(w, mark)
@@ -902,6 +924,225 @@ def phase_tick_path(torch, device, w25_substep):
     return launches, sec
 
 
+def terrain_setup(torch, device):
+    """The terrain slice's inputs: the articulated slice's 1024 desynced
+    worlds, domain-randomized robots (seed 0) and one rough field per env
+    from a seeded generator on the card."""
+    from biped_mpc_py_torch.parallel.rollout import randomize_params
+    from biped_mpc_py_torch.sim.contact import Terrain
+
+    w0, _ = art_worlds(torch, device)
+    bipeds = randomize_params(torch.Generator().manual_seed(SEED), N_ENVS, device=device)
+    terrains = Terrain.rough_batch(
+        torch.Generator(device=device).manual_seed(SEED + 1), N_ENVS,
+        amplitude=TERRAIN_AMPLITUDE, res=TERRAIN_RES, device=device,
+    )
+    return w0, bipeds, terrains
+
+
+def stance_gap(model, sim, terrains, mpc, gait):
+    """Sole-centre height above the env's own ground for the feet the
+    schedule has down at ``sim.t`` -> (mean, min, max) [m]."""
+    from biped_mpc_py_torch.control.gait import contact_sequence
+    from biped_mpc_py_torch.sim.engine import sole_positions
+
+    pf = sole_positions(model, sim)
+    gap = pf[:, [2, 5]] - terrains.height(pf[:, [0, 3]], pf[:, [1, 4]])
+    down = contact_sequence(sim.t, mpc, gait)[:, 0] > 0.5
+    g = gap[down]
+    return float(g.mean()), float(g.min()), float(g.max())
+
+
+def phase_terrain(torch, device):
+    """The rough-terrain articulated path at full width, then flat per-env
+    fields against no terrain. Returns (launch counts, seconds)."""
+    from biped_mpc_py_torch.ops.cuda import qp_kernel, substep_kernel, tick_kernel
+    from biped_mpc_py_torch.parallel.rollout_art import (
+        batched_art_rollout, batched_art_rollout_terrain,
+    )
+    from biped_mpc_py_torch.sim.contact import Terrain
+    from biped_mpc_py_torch.sim.model import hector_model
+
+    mpc, gait = _art_config()
+    model = hector_model(device=device)
+    w0, bipeds, terrains = terrain_setup(torch, device)
+    h = terrains.heights
+    log(f"[terrain] fields {tuple(h.shape)} {h.dtype} on {h.device}, {h.numel() * 4 / 1e6:.1f} MB, "
+        f"std {float(h.std()):.5f} m, range [{float(h.min()):.4f}, {float(h.max()):.4f}] m, "
+        f"cell {terrains.extent / (TERRAIN_RES - 1):.4f} m")
+    kw = dict(model=model, n_substeps=5, minv_ll_hold=8)
+    batched_art_rollout_terrain(w0, bipeds, terrains, 1, mpc, gait, **kw)  # warm-up
+    torch.cuda.synchronize()
+    counters = {"fused_qp_solve": qp_kernel.fused_qp_solve,
+                "fused_tick": tick_kernel.fused_tick,
+                "fused_substeps": substep_kernel.fused_substeps}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    w = batched_art_rollout_terrain(w0, bipeds, terrains, N_TERRAIN_TICKS, mpc, gait, **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    s, m = w.sim, w.metrics
+    finite = all(bool(torch.isfinite(t).all()) for t in (s.pos, s.quat, s.v_base, s.q, s.qd))
+    att = (m.attitude_err_sq / m.n_steps).sqrt()
+    gap = stance_gap(model, s, terrains, mpc, gait)
+    log(f"[terrain] {N_ENVS} envs x {N_TERRAIN_TICKS} ticks in {sec:.3f} s, launches "
+        f"{json.dumps(launches)}, finite {finite}; reported, not bounded: falls "
+        f"{float(m.falls.sum())} in {int((m.falls > 0).sum())} envs, x min "
+        f"{float(s.pos[:, 0].min()):.4f} mean {float(s.pos[:, 0].mean()):.4f} m, att RMS max "
+        f"{float(att.max()):.5f} mean {float(att.mean()):.5f}, res_prim max "
+        f"{float(m.res_prim_max.max()):.3e}, height [{float(s.pos[:, 2].min()):.4f}, "
+        f"{float(s.pos[:, 2].max()):.4f}]; stance sole gap mean {gap[0]:.5f} m "
+        f"[{gap[1]:.5f}, {gap[2]:.5f}] (bound on the mean {STANCE_GAP_RANGE})")
+    if launches != {"fused_qp_solve": N_TERRAIN_TICKS, "fused_tick": 0, "fused_substeps": 0}:
+        raise AssertionError(f"terrain path launch counts {launches} in {N_TERRAIN_TICKS} ticks")
+    if not finite:
+        raise AssertionError("the terrain path produced non-finite states")
+    if not STANCE_GAP_RANGE[0] < gap[0] < STANCE_GAP_RANGE[1]:
+        raise AssertionError(f"stance soles sit {gap[0]:.4f} m from their ground on average")
+
+    flat = Terrain.flat(n=N_ENVS, device=device)
+    w_f = batched_art_rollout_terrain(w0, bipeds, flat, 3, mpc, gait, **kw)
+    w_n = batched_art_rollout(w0, bipeds, 3, mpc, gait, **kw)
+    d_pos = float((w_f.sim.pos - w_n.sim.pos).abs().max())
+    d_q = float((w_f.sim.q - w_n.sim.q).abs().max())
+    log(f"[terrain] flat per-env fields vs no terrain, 3 ticks: max|dpos| {d_pos:.3e} m, "
+        f"max|dq| {d_q:.3e} rad (bound 1e-5)")
+    if not (d_pos < 1e-5 and d_q < 1e-5):
+        raise AssertionError("flat height fields and terrain=None walk differently")
+    return launches, sec
+
+
+def _device_kernels(torch, fn):
+    """Device kernels one call of ``fn`` launches (``torch.profiler``, after
+    a warm-up call): a count that does not depend on the host's speed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events())
+
+
+def time_terrain(torch, device, sec_terrain, sec_chain):
+    """One tick of the plain chain split into its stages (host clock,
+    synchronized after each stage, mean of 3 ticks after 2), on the terrain
+    slice's fields and on no terrain from the same worlds and robots, in
+    turns (terrain, flat, flat, terrain: the host's speed drifts within a
+    call), with the two rates; and the device kernels one substep and one
+    low-level stage launch with and without a terrain, the cost of the
+    height gathers that does not depend on the host."""
+    from biped_mpc_py_torch.parallel import rollout_art as ra
+    from biped_mpc_py_torch.sim.engine import art_step, art_substep, mass_matrix_inv
+    from biped_mpc_py_torch.sim.model import hector_model
+
+    mpc, gait = _art_config()
+    model = hector_model(device=device)
+    w0, bipeds, terrains = terrain_setup(torch, device)
+    names = ("control stage (MPC)", "Minv", "low-level x 8", "substeps x 8 (plain)", "post")
+    ll_dt = mpc.dt / 8
+
+    def chain_tick(terrain):
+        def tick(w, mark):
+            x_fb, t_g, hold, contact, sol = ra._art_control_stage(w, bipeds, mpc, gait, model,
+                                                                  terrain)
+            u0 = sol.controls[:, 0]
+            mark(names[0])
+            sim = w.sim
+            Minv = mass_matrix_inv(model, sim.q)
+            mark(names[1])
+            energy = torch.zeros_like(sim.t)
+            for _ in range(8):
+                tau = ra._lowlevel_stage(model, sim, sim.t, contact, u0, w, bipeds, mpc, gait,
+                                         terrain)
+                energy = energy + torch.sum(torch.clamp(tau * sim.qd, min=0.0), 1) * ll_dt
+                mark(names[2])
+                sim = art_step(model, sim, tau, ll_dt, 5, terrain, Minv=Minv)
+                mark(names[3])
+            w = ra._art_post_stage(w, sim, energy, x_fb, sol, t_g, hold, mpc)
+            mark(names[4])
+            return w
+
+        return tick
+
+    runs = [_stage_split(torch, names, w0, chain_tick(terrain), n=3)
+            for terrain in (terrains, None, None, terrains)]
+    turns = [(runs[0], runs[1]), (runs[3], runs[2])]
+    log(f"[times] terrain path {N_ENVS} envs x {N_TERRAIN_TICKS} ticks: "
+        f"{N_ENVS * N_TERRAIN_TICKS / sec_terrain:.1f} env-steps/s "
+        f"({sec_terrain * 1e3 / N_TERRAIN_TICKS:.3f} ms/tick; flat plain chain "
+        f"{N_ENVS / sec_chain:.1f} env-steps/s, {sec_chain * 1e3:.3f} ms/tick); stages, ms, mean "
+        f"of 3, terrain (flat plain chain), run in the order terrain, flat, flat, terrain: "
+        + "; then ".join(
+            ", ".join(f"{k} {acc_t[k]:.3f} ({acc_f[k]:.3f})" for k in names)
+            + f", total {sum(acc_t.values()):.3f} ({sum(acc_f.values()):.3f}), the gathers add "
+            f"{sum(acc_t.values()) / sum(acc_f.values()) - 1:.3f}" for acc_t, acc_f in turns))
+
+    sim = w0.sim
+    Minv = mass_matrix_inv(model, sim.q)
+    tau = torch.zeros_like(sim.q)
+    contact = ra.contact_sequence(sim.t, mpc, gait)
+    u0 = torch.zeros((N_ENVS, 12), device=device)
+    counts = {
+        label: (_device_kernels(torch, lambda: art_substep(model, sim, tau, 0.001, terrain,
+                                                           Minv=Minv)),
+                _device_kernels(torch, lambda: ra._lowlevel_stage(
+                    model, sim, sim.t, contact, u0, w0, bipeds, mpc, gait, terrain)))
+        for label, terrain in (("terrain", terrains), ("flat", None))
+    }
+    (sub_t, ll_t), (sub_f, ll_f) = counts["terrain"], counts["flat"]
+    log(f"[times] device kernels per call, terrain (flat): one plain substep {sub_t} ({sub_f}), "
+        f"one low-level stage {ll_t} ({ll_f}); per tick of 40 substeps and 8 low-level stages "
+        f"the gathers add {40 * (sub_t - sub_f) + 8 * (ll_t - ll_f)} launches to "
+        f"{40 * sub_f + 8 * ll_f}")
+
+
+def phase_cmd_rollout(torch, device):
+    """Per-env commands on the SRB loop: 1024 randomized robots x 50 ticks
+    through ``batched_cmd_rollout``, env i commanded forward at 0.4 i /
+    1023 m/s. Zero falls, and the mean distance of each quarter of the
+    command range above the quarter's below."""
+    from biped_mpc_py_torch import GaitConfig, fast_mpc_config
+    from biped_mpc_py_torch.ops.cuda import qp_kernel
+    from biped_mpc_py_torch.parallel.rollout import (
+        batch_worlds, batched_cmd_rollout, randomize_params,
+    )
+
+    mpc, gait = fast_mpc_config(), GaitConfig()
+    worlds = batch_worlds(mpc, N_ENVS, device=device)
+    bipeds = randomize_params(torch.Generator().manual_seed(SEED), N_ENVS, device=device)
+    x_cmd = torch.zeros(N_ENVS, 12, device=device)
+    x_cmd[:, 5] = 0.55
+    x_cmd[:, 9] = torch.linspace(0.0, 0.4, N_ENVS, device=device)
+    batched_cmd_rollout(worlds, bipeds, x_cmd, 2, mpc, gait)  # warm-up
+    torch.cuda.synchronize()
+    qp_kernel.fused_qp_solve.launches = 0
+    t0 = time.perf_counter()
+    w = batched_cmd_rollout(worlds, bipeds, x_cmd, N_TICKS, mpc, gait)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = qp_kernel.fused_qp_solve.launches
+    x = w.sim.x_fb
+    falls = float(w.metrics.falls.sum())
+    finite = bool(torch.isfinite(x).all())
+    speed = x[:, 3] / (N_TICKS * mpc.dt)
+    quarters = [float(q.mean()) for q in speed.chunk(4)]
+    vel_rms = float((w.metrics.vel_err_sq / w.metrics.n_steps).sqrt().mean())
+    log(f"[cmd] {N_ENVS} envs x {N_TICKS} ticks, vx 0-0.4 m/s per env: "
+        f"{N_ENVS * N_TICKS / sec:.1f} env-steps/s ({sec * 1e3 / N_TICKS:.3f} ms/tick), launches "
+        f"{launches}, falls {falls}, finite {finite}, mean speed by quarter of the command range "
+        f"{json.dumps(quarters)} m/s, vel RMS against each env's command {vel_rms:.5f}, height "
+        f"[{float(x[:, 5].min()):.4f}, {float(x[:, 5].max()):.4f}]")
+    if launches != N_TICKS:
+        raise AssertionError(f"QP kernel launched {launches} times in {N_TICKS} ticks")
+    if not (finite and falls == 0 and all(a < b for a, b in zip(quarters, quarters[1:]))):
+        raise AssertionError("per-env command rollout failed its checks")
+
+
 def time_tick(torch, device):
     """The tick kernel (device time from ``torch.profiler``; the wrapper's
     call by CUDA events beside it) and its plain version at 1024 envs, and
@@ -1044,11 +1285,14 @@ def main() -> int:
         probe = phase_probe(torch, device)
         tick_err = phase_tick_kernel(torch, device)
         tick_launches, sec_tick = phase_tick_path(torch, device, w25_substep)
+        _, sec_terrain = phase_terrain(torch, device)
+        phase_cmd_rollout(torch, device)
         solve_ms = time_solves(torch, device)
         time_default_rollouts(torch, device)
         time_stages(torch, device)
         substep_ms, substep_plain_ms, sec_chain = time_art(torch, device)
         tick_ms, tick_plain_ms = time_tick(torch, device)
+        time_terrain(torch, device, sec_terrain, sec_chain)
         time_physics_sizes(torch, device)
         events, busy_ms, qp_tick_ms, tick_tick_ms = profile_tick_path(torch, device)
         bounds = {"fused_qp_solve": solve_ms["bench"][2:4],

@@ -36,6 +36,13 @@ flags all stance, all swing and mixed; the tick-kernel path launches it
 once per tick and the substep kernel never. Both kernels also run a batch
 whose even envs are pressed deep into the ground and whose odd envs hang in
 the air, so that a lane that read its neighbour's env would show.
+
+The terrain path runs no physics kernel (they know flat ground only): 64
+envs x 2 ticks of ``batched_art_rollout_terrain`` on the card against the
+same rollout on the CPU (pos 1e-3, q 1e-2, qd 1.0: the QP kernel and its
+plain version differ by up to 0.05 N per solve, and stiff contact grows
+that), 2 QP launches and no other; both physics wrappers raise on a terrain
+before they launch.
 """
 
 import dataclasses
@@ -56,6 +63,7 @@ from biped_mpc_py_torch.parallel.rollout import (
     batched_rollout,
     randomize_params,
 )
+from biped_mpc_py_torch.sim.contact import Terrain
 from biped_mpc_py_torch.sim.engine import ArtState, mass_matrix_inv
 from biped_mpc_py_torch.sim.model import hector_model
 
@@ -320,3 +328,64 @@ def test_art_rollout_launches_tick_kernel(cuda):
     assert [a - b for a, b in zip(after, before)] == [ticks, ticks, 0]
     assert torch.isfinite(out.sim.pos).all() and torch.isfinite(out.sim.qd).all()
     assert float(out.metrics.falls.sum()) == 0
+
+
+def _bench_art_config():
+    return ra.art_config_for_speed(0.3, n_admm_iters=40, admm_rho_phases=1,
+                                   admm_polish=False, kinv_ns_iters=10)
+
+
+def test_terrain_rollout_card_matches_cpu(cuda):
+    mpc, gait = _bench_art_config()
+    n, ticks = 64, 2
+    terrains = Terrain.rough_batch(torch.Generator().manual_seed(0), n, amplitude=0.03,
+                                   res=32, device="cpu")
+    bipeds = randomize_params(torch.Generator().manual_seed(1), n, device="cpu")
+    worlds = ra.init_art_world(mpc, n, device="cpu")
+    kw = dict(n_substeps=5, minv_ll_hold=8)
+    out_cpu = ra.batched_art_rollout_terrain(worlds, bipeds, terrains, ticks, mpc, gait, **kw)
+    before = (tk.fused_qp_solve.launches, tick.fused_tick.launches, sk.fused_substeps.launches)
+    out = ra.batched_art_rollout_terrain(worlds.to(cuda), bipeds.to(cuda), terrains.to(cuda),
+                                         ticks, mpc, gait, **kw)
+    torch.cuda.synchronize()
+    after = (tk.fused_qp_solve.launches, tick.fused_tick.launches, sk.fused_substeps.launches)
+    assert [a - b for a, b in zip(after, before)] == [ticks, 0, 0]
+    assert out.sim.pos.device.type == "cuda"
+    for name, tol in (("pos", 1e-3), ("q", 1e-2), ("qd", 1.0)):
+        err = float((getattr(out.sim, name).cpu() - getattr(out_cpu.sim, name)).abs().max())
+        assert err < tol, (name, err)
+    assert torch.equal(out.sim.t.cpu(), out_cpu.sim.t)
+    assert torch.equal(out.metrics.falls.cpu(), out_cpu.metrics.falls)
+    flat = ra.batched_art_rollout(worlds.to(cuda), bipeds.to(cuda), ticks, mpc, gait, **kw)
+    assert float((out.sim.q - flat.sim.q).abs().max()) > 1e-4  # the fields were felt
+
+
+def test_terrain_constructors_build_on_the_card(cuda):
+    rough = Terrain.rough_batch(torch.Generator(device=cuda).manual_seed(0), 8, res=16)
+    again = Terrain.rough_batch(torch.Generator(device=cuda).manual_seed(0), 8, res=16)
+    assert rough.heights.device.type == "cuda" and rough.heights.shape == (8, 16, 16)
+    assert torch.equal(rough.heights, again.heights)
+    assert Terrain.flat(n=4).heights.device.type == "cuda"
+    # an edge query on the card stays in range (no device-side assert)
+    x = torch.tensor([4.0, -4.0, 100.0, -100.0, 0.0, 3.999, 1.0, 2.0], device=cuda)
+    h = rough.height(x, x.flip(0))
+    torch.cuda.synchronize()
+    assert torch.isfinite(h).all() and torch.isfinite(rough.normal(x, x)).all()
+
+
+def test_physics_wrappers_raise_on_terrain(cuda):
+    mpc, gait = _bench_art_config()
+    n = 16
+    model, biped = hector_model(device=cuda), BipedParams().to(cuda)
+    state = ArtState.standing(n, device=cuda)
+    Minv = mass_matrix_inv(model, state.q)
+    flat = Terrain.flat(n=n)
+    before = (tick.fused_tick.launches, sk.fused_substeps.launches)
+    with pytest.raises(ValueError, match="flat ground"):
+        sk.fused_substeps(model, state, torch.zeros(n, 10, device=cuda), Minv, 0.005, 5,
+                          terrain=flat)
+    with pytest.raises(ValueError, match="flat ground"):
+        tick.fused_tick(model, biped, mpc, gait, state, torch.zeros(n, 12, device=cuda),
+                        torch.ones(n, 2, device=cuda), state.t, torch.zeros(n, device=cuda),
+                        torch.zeros(n, 2, device=cuda), Minv, terrain=flat)
+    assert (tick.fused_tick.launches, sk.fused_substeps.launches) == before

@@ -192,13 +192,3 @@ def test_gait_helpers_match_jax():
     for g in (None, jcfg.GaitConfig(steps_per_phase=3)):
         tg = None if g is None else tcfg.GaitConfig(steps_per_phase=3)
         assert tgait.phase_time(tm, tg) == jgait.phase_time(jm, g)
-
-
-def test_terrain_references_raise():
-    """Terrain-adaptive references wait for the contact simulator."""
-    tm, tg = tcfg.MpcConfig(), tcfg.GaitConfig()
-    x = torch.zeros(1, 12)
-    t = torch.zeros(1)
-    c = tgait.contact_sequence(t, tm, tg)
-    with pytest.raises(NotImplementedError):
-        tref.foot_reference(x, t, torch.zeros(1, 6), tm, c, tg, terrain=object())

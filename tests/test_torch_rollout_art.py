@@ -16,6 +16,9 @@ Tolerances:
   once per substep, so the f32 clocks differ in the last bits and a swing
   clock near a phase boundary can read the other phase (measured here:
   pos 1.1e-3, qd 1.7);
+- the same chain at four more operating points (a run and a walk on the
+  contact-sensed clock, a turn in place, foot-frame wrench rows): the same
+  bounds, the gait clock and its hold counts equal;
 - the port alone, 50 ticks standing: the bounds of
   ``tests/test_rollout_art.py::test_articulated_standing``.
 """
@@ -81,6 +84,55 @@ def test_plain_chain_matches_jax(ticks, n_substeps, hold):
     np.testing.assert_array_equal(t["sim"]["t"], j["sim"]["t"])
     np.testing.assert_array_equal(t["ctrl"]["t_gait"], j["ctrl"]["t_gait"])
     np.testing.assert_array_equal(t["metrics"]["falls"], j["metrics"]["falls"])
+    np.testing.assert_allclose(t["metrics"]["energy"], j["metrics"]["energy"], rtol=1e-3)
+    np.testing.assert_allclose(t["ctrl"]["qp"]["controls"], j["ctrl"]["qp"]["controls"],
+                               atol=0.1, rtol=0)
+
+
+OPERATING_POINTS = {
+    # the running gait (p = 2, one flight step) on the contact-sensed clock
+    "run_contact_clock": lambda kw: _with_gait(jra.art_config_for_run(1.0, **kw),
+                                               contact_clock=True),
+    # the turn in place: body-frame commands, the unified heading point
+    "turn_in_place": lambda kw: jra.art_config_for_turn(0.3, **kw),
+    # foot-frame wrench rows: the measured foot headings enter the QP
+    "foot_frame_wrench": lambda kw: jra.art_config_for_speed(0.3, foot_frame_wrench=True, **kw),
+    # the walk on the contact-sensed clock
+    "walk_contact_clock": lambda kw: _with_gait(jra.art_config_for_speed(0.3, **kw),
+                                                contact_clock=True),
+}
+
+
+def _with_gait(configs, **gait_overrides):
+    jm, jg = configs
+    return jm, dataclasses.replace(jg, **gait_overrides)
+
+
+@pytest.mark.parametrize("point", sorted(OPERATING_POINTS))
+def test_plain_chain_operating_points_match_jax(point):
+    """3 ticks of ``batched_art_rollout`` against ``batched_art_rollout_fn``
+    away from the 0.3 m/s walk on the fixed clock: each operating point
+    turns on a branch of the closed loop (the gait clock and its holds, the
+    command anchor, the foot headings) that the walk leaves off. Bench
+    budget and physics, ``CHAIN_BOUNDS``."""
+    ticks = 3
+    jm, jg = OPERATING_POINTS[point](dict(
+        n_admm_iters=40, admm_rho_phases=1, admm_polish=False, kinv_ns_iters=10))
+    _, _, jw, jb = _setup()
+    jw = dataclasses.replace(
+        jw, ctrl=jax.vmap(lambda _: jra.init_art_world(jm).ctrl)(jnp.arange(4)))
+    out_j = jax.jit(jra.batched_art_rollout_fn(ticks, jm, jg, n_substeps=5, minv_ll_hold=8))(
+        jw, jb)
+    tm, tg, tw, tb = _port(jm, jg, jw, jb)
+    out_t = tra.batched_art_rollout(tw, tb, ticks, tm, tg, n_substeps=5, minv_ll_hold=8)
+    j, t = _fields(out_j), to_numpy(out_t)
+    for key, tol in CHAIN_BOUNDS.items():
+        assert _diff(t, j, key) < tol, (key, _diff(t, j, key))
+    np.testing.assert_array_equal(t["sim"]["t"], j["sim"]["t"])
+    np.testing.assert_array_equal(t["ctrl"]["t_gait"], j["ctrl"]["t_gait"])
+    np.testing.assert_array_equal(t["ctrl"]["hold_count"], j["ctrl"]["hold_count"])
+    np.testing.assert_array_equal(t["metrics"]["falls"], j["metrics"]["falls"])
+    np.testing.assert_allclose(t["ctrl"]["cmd_ref"], j["ctrl"]["cmd_ref"], atol=1e-5, rtol=0)
     np.testing.assert_allclose(t["metrics"]["energy"], j["metrics"]["energy"], rtol=1e-3)
     np.testing.assert_allclose(t["ctrl"]["qp"]["controls"], j["ctrl"]["qp"]["controls"],
                                atol=0.1, rtol=0)

@@ -1,6 +1,7 @@
 """The torch port's articulated engine against the JAX package: the model,
 spatial algebra, dynamics (generic and leg-vectorized), flat-ground
-contact, and the engine's feedback and substeps.
+contact, and the engine's feedback and substeps (height fields:
+``tests/test_torch_terrain.py``).
 
 Inputs are perturbed near-standing states with the soles pushed into the
 plane, made with numpy from a seed (``_perturbed`` mirrors
@@ -193,8 +194,6 @@ def test_contact_force_world():
     f_t = tcontact.contact_force_world(TM, torch.tensor(p), torch.tensor(v))
     _close(f_t, f_j, rel=1e-5, name="contact")
     assert float(f_t[torch.tensor(p[:, 2]) > 0].abs().max()) == 0.0
-    with pytest.raises(NotImplementedError):
-        tcontact.contact_force_world(TM, torch.tensor(p), torch.tensor(v), terrain=object())
 
 
 def test_engine_feedback():

@@ -22,7 +22,8 @@ Tolerances:
 - (c) the entry point, 8 envs x 3 ticks, against a JAX composition of the
   same tick: pos 2e-2, qd 2.0, zero falls on both sides
   (``test_kernel_rollout_matches_xla``'s bounds; measured pos 7.7e-7, qd
-  5.6e-4).
+  5.6e-4); once on the fixed clock and once on the contact-sensed clock,
+  where the gait time and the hold counts must also be equal.
 """
 
 import dataclasses
@@ -179,9 +180,20 @@ def test_tick_kernel_entry_point_matches_jax():
     the kernel's plain version) against the JAX composition of the same
     tick: ``_art_control_stage``, ``mass_matrix_inv``, the plain tick,
     ``_art_post_stage``."""
+    _entry_point_against_jax(contact_clock=False)
+
+
+def test_tick_kernel_entry_point_contact_clock_matches_jax():
+    """The same with ``contact_clock=True``: the tick's control clock starts
+    at the (possibly held) gait time ``t_g``, not at the state's ``t``."""
+    _entry_point_against_jax(contact_clock=True)
+
+
+def _entry_point_against_jax(contact_clock):
     n, ticks = 8, 3
     jm, jg = jra.art_config_for_speed(
         0.3, n_admm_iters=40, admm_rho_phases=1, admm_polish=False, kinv_ns_iters=10)
+    jg = dataclasses.replace(jg, contact_clock=contact_clock)
     rng = np.random.default_rng(0)
     jw = jax.vmap(lambda _: jra.init_art_world(jm))(jnp.arange(n))
     qd = jw.sim.qd + jnp.asarray(0.01 * rng.normal(size=(n, 10)), jnp.float32)
@@ -198,7 +210,8 @@ def test_tick_kernel_entry_point_matches_jax():
     for _ in range(ticks):
         x_fb, t_g, hold, contact, sol = control(w, jb)
         sim_new, energy = _jax_plain_tick(
-            jm, jg, w.sim, sol.controls[:, 0], contact[:, 0, 0:2], w.sim.t,
+            jm, jg, w.sim, sol.controls[:, 0], contact[:, 0, 0:2],
+            t_g if contact_clock else w.sim.t,
             w.ctrl.cmd_ref[:, 2], w.ctrl.v_int, minv(w.sim.q))
         w = post(w, sim_new, energy, x_fb, sol, t_g, hold)
 
@@ -210,6 +223,8 @@ def test_tick_kernel_entry_point_matches_jax():
     _close(out.sim.pos, j["sim"]["pos"], 2e-2, name="pos")
     _close(out.sim.qd, j["sim"]["qd"], 2.0, name="qd")
     np.testing.assert_array_equal(t["sim"]["t"], j["sim"]["t"])
+    np.testing.assert_array_equal(t["ctrl"]["t_gait"], j["ctrl"]["t_gait"])
+    np.testing.assert_array_equal(t["ctrl"]["hold_count"], j["ctrl"]["hold_count"])
     np.testing.assert_allclose(t["metrics"]["energy"], j["metrics"]["energy"], rtol=2e-3)
 
 
