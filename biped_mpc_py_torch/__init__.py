@@ -12,7 +12,14 @@ The main paths are :func:`biped_mpc_py_torch.parallel.rollout.batched_rollout`
 and :func:`~biped_mpc_py_torch.parallel.rollout_art.batched_art_rollout_kernel`
 on flat ground, and
 :func:`~biped_mpc_py_torch.parallel.rollout_art.batched_art_rollout_terrain`
-on per-env height fields (:class:`~biped_mpc_py_torch.sim.contact.Terrain`).
+on per-env height fields (:class:`~biped_mpc_py_torch.sim.contact.Terrain`);
+:func:`~biped_mpc_py_torch.parallel.sweep.art_sweep` runs a batch of
+configs (per-env gains and commands beside one config). Around one robot:
+:func:`~biped_mpc_py_torch.sim.mj_driver.run_mujoco_closed_loop` (MuJoCo as
+the plant), :class:`~biped_mpc_py_torch.runtime.realtime.RealtimeLoop` (a
+deadline-scheduled loop against any plant),
+:mod:`~biped_mpc_py_torch.sim.replay` (MuJoCo replay files) and
+``python -m biped_mpc_py_torch.demo``.
 Their kernels are hand-written CUDA for sm_90a, built with ``nvcc`` the
 first time a CUDA tensor reaches their wrappers: the fused ADMM QP solve
 (``csrc/qp_admm.cu``, ``ops.cuda.qp_kernel.fused_qp_solve``), the fused
@@ -33,7 +40,10 @@ Layer map:
   L6 driver            -> control.controller, sim.srb_sim, parallel.rollout
   L7 articulated sim   -> sim.dynamics, sim.contact, sim.engine,
                           ops.cuda.substep_kernel, ops.cuda.tick_kernel,
-                          parallel.rollout_art
+                          parallel.rollout_art, parallel.sweep
+  L8 deployment        -> sim.mjcf, sim.mj_driver, sim.replay,
+                          runtime.realtime, runtime.native, demo
+  utilities            -> utils.checkpoint, utils.logging, utils.profiling
 """
 
 from biped_mpc_py_torch.config import (
@@ -69,8 +79,13 @@ from biped_mpc_py_torch.parallel.rollout_art import (
     batched_art_rollout_tick_kernel,
     init_art_world,
 )
+from biped_mpc_py_torch.parallel.sweep import art_sweep, perturbed_worlds, stack_configs
 from biped_mpc_py_torch.ops.qp import sparse_qp_matrices
+from biped_mpc_py_torch.runtime.realtime import LoopStats, Plant, RealtimeLoop
 from biped_mpc_py_torch.sim.contact import Terrain
+from biped_mpc_py_torch.sim.mj_driver import run_mujoco_closed_loop
+from biped_mpc_py_torch.sim.replay import export_rollout, rollout_qpos_track
+from biped_mpc_py_torch.utils.checkpoint import load_pytree, save_pytree
 
 __version__ = "0.1.0"
 
@@ -102,5 +117,16 @@ __all__ = [
     "init_art_world",
     "Terrain",
     "sparse_qp_matrices",
+    "art_sweep",
+    "perturbed_worlds",
+    "stack_configs",
+    "LoopStats",
+    "Plant",
+    "RealtimeLoop",
+    "run_mujoco_closed_loop",
+    "export_rollout",
+    "rollout_qpos_track",
+    "load_pytree",
+    "save_pytree",
     "__version__",
 ]

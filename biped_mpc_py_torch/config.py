@@ -20,10 +20,13 @@ a call without the argument; a Python branch on a command entry (the
 ``sqrt`` of the commanded height, the small-turn-rate limit) becomes a
 tensor expression on the override branch only. :func:`cmd_entry` reads one
 entry under either form. The articulated low-level control
-(``control/lowlevel.py``) and the kernels' constant buffers read the
-config's command only. A sweep over other numeric fields (gains) is to
-use the same form: an optional per-env tensor beside the config, never a
-tensor inside it.
+(``control/lowlevel.py``, ``control/swing.py::swing_leg_force``) and the
+articulated tick stages take the same ``x_cmd`` and, beside it, a
+``per_env`` dict that maps some of the :data:`PER_ENV_FIELDS` (the
+low-level and swing gains) to (N,) tensors; :func:`config_value` reads one
+such field under either form. ``parallel/sweep.py::stack_configs`` builds
+both from a list of configs. The kernels' constant buffers hold one config
+per batch: ``fused_tick`` raises on per-env values.
 
 State convention (13,): ``[roll, pitch, yaw, px, py, pz, wx, wy, wz, vx, vy,
 vz, 1]`` with angular and linear velocity in the world frame; R =
@@ -38,6 +41,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from biped_mpc_py_torch.utils.device import host_to_device
 
 _VECTOR_FIELDS = ("x_cmd", "Q", "R")
 
@@ -184,16 +189,30 @@ def cmd_entry(mpc: MpcConfig, x_cmd, i: int):
     return mpc.x_cmd[i] if x_cmd is None else x_cmd[..., i]
 
 
+# The float fields that may differ between envs (``per_env``): every gain
+# the articulated low-level control (the first eight) and the swing force
+# (the rest) read.
+PER_ENV_FIELDS = (
+    "kp_hipyaw", "kd_hipyaw", "hipyaw_target_clip", "tau_yaw_clip",
+    "flight_yaw_kd", "hipyaw_rate_lead", "kp_pivot", "kd_pivot",
+    "kp_swing", "kd_swing", "swing_height", "swing_td_damp", "swing_track_ff",
+    "swing_land_frac", "swing_td_overdrive", "swing_retract", "swing_y_offset",
+)
+
+
+def config_value(mpc: MpcConfig, name: str, per_env: dict | None = None,
+                 dims: int = 0):
+    """Field ``name`` in force: ``getattr(mpc, name)``, a Python float, or
+    with ``per_env[name]`` present that (N,) tensor, followed by ``dims``
+    axes of length 1 so that it broadcasts against (N, ...) operands."""
+    v = per_env.get(name) if per_env else None
+    if v is None:
+        return getattr(mpc, name)
+    return v.reshape(v.shape + (1,) * dims)
+
+
 def config_tensor(values, like: torch.Tensor) -> torch.Tensor:
     """A small constant vector (a config's ``x_cmd``, ``Q``, ``R``, ...) as
-    a tensor of ``like``'s dtype on ``like``'s device.
-
-    On a CUDA device the values go through pinned memory with a
-    non-blocking copy: a copy from pageable memory would synchronize the
-    stream, and the card would then idle while the host queues the rest of
-    the tick.
-    """
-    t = torch.tensor(values, dtype=like.dtype)
-    if like.device.type == "cuda":
-        return t.pin_memory().to(like.device, non_blocking=True)
-    return t.to(like.device)
+    a tensor of ``like``'s dtype on ``like``'s device, through pinned memory
+    to the card (``utils.device.host_to_device``)."""
+    return host_to_device(values, like.device, like.dtype)

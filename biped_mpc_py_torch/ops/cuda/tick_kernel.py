@@ -154,11 +154,14 @@ def _constants(model, biped, mpc, gait, device):
 
 
 def _check(biped, gait, state, u0, c0, t0, cmd_yaw, v_int, Minv, n_lowlevel,
-           n_substeps, terrain):
+           n_substeps, terrain, x_cmd, per_env):
     if gait.flight_steps > 0:
         raise ValueError("the tick kernel runs walking gaits only (flight_steps == 0)")
     if terrain is not None:
         raise ValueError("the tick kernel runs on flat ground only (terrain is None)")
+    if x_cmd is not None or per_env:
+        raise ValueError("the tick kernel holds one config per batch: no per-env "
+                         "x_cmd or gains (run art_closed_loop_tick)")
     if n_lowlevel < 1 or n_substeps < 1:
         raise ValueError("n_lowlevel and n_substeps must be >= 1")
     if biped.jac_geometry.l_thigh.shape[0] != 1:
@@ -186,7 +189,7 @@ def fused_tick(model: ArticulatedModel, biped: BipedParams, mpc: MpcConfig,
                gait: GaitConfig, state: ArtState, u0: torch.Tensor, c0: torch.Tensor,
                t0: torch.Tensor, cmd_yaw: torch.Tensor, v_int: torch.Tensor,
                Minv: torch.Tensor, n_lowlevel: int = 8, n_substeps: int = 5,
-               terrain=None) -> tuple[ArtState, torch.Tensor]:
+               terrain=None, x_cmd=None, per_env=None) -> tuple[ArtState, torch.Tensor]:
     """One tick below the MPC layer -> (ArtState, energy (N,)).
 
     Args:
@@ -199,13 +202,15 @@ def fused_tick(model: ArticulatedModel, biped: BipedParams, mpc: MpcConfig,
         contact flags; t0: (N,) gait time at the tick's start; cmd_yaw: (N,)
         the command anchor's yaw; v_int: (N,2); Minv: (N,16,16) held.
       terrain: must be None (flat ground).
+      x_cmd, per_env: must be None: the constant buffer holds one config's
+        command and gains for the whole batch.
 
     CUDA tensors launch the kernel (and count the launch in
     ``fused_tick.launches``); CPU tensors run :func:`fused_tick_reference`.
-    Raises ValueError on a running gait or a terrain.
+    Raises ValueError on a running gait, a terrain or per-env values.
     """
     n = _check(biped, gait, state, u0, c0, t0, cmd_yaw, v_int, Minv, n_lowlevel,
-               n_substeps, terrain)
+               n_substeps, terrain, x_cmd, per_env)
     device = state.q.device
     if device.type == "cpu":
         return fused_tick_reference(model, biped, mpc, gait, state, u0, c0, t0, cmd_yaw,

@@ -165,10 +165,11 @@ def init_art_world(mpc: MpcConfig, n: int = 1, device=DEFAULT_DEVICE,
 
 
 def _art_control_stage(world: ArtWorld, biped: BipedParams, mpc: MpcConfig,
-                       gait: GaitConfig, model: ArticulatedModel, terrain=None):
+                       gait: GaitConfig, model: ArticulatedModel, terrain=None,
+                       x_cmd: torch.Tensor | None = None):
     """The MPC stage of a tick (``rollout_art.py:419``): feedback -> gait
     clock -> contact schedule -> solve_mpc. Returns (x_fb, t_g, hold,
-    contact, sol)."""
+    contact, sol). ``x_cmd`` ((12,) or (N,12)) overrides ``mpc.x_cmd``."""
     sim = world.sim
     x_fb, pf_w = feedback_and_soles(model, sim)
     if gait.contact_clock:
@@ -183,16 +184,18 @@ def _art_control_stage(world: ArtWorld, biped: BipedParams, mpc: MpcConfig,
     sol = solve_mpc(
         x_fb, t_g, pf_w, mpc, biped, contact, warm=world.ctrl.qp, gait=gait,
         cmd_ref=world.ctrl.cmd_ref, foot_yaw=foot_yaw, terrain=terrain,
-        v_int=world.ctrl.v_int, pitch_ref=world.ctrl.pitch_ref,
+        v_int=world.ctrl.v_int, pitch_ref=world.ctrl.pitch_ref, x_cmd=x_cmd,
     )
     return x_fb, t_g, hold, contact, sol
 
 
 def _art_post_stage(world: ArtWorld, sim_new: ArtState, energy, x_fb, sol,
-                    t_g, hold, mpc: MpcConfig) -> ArtWorld:
+                    t_g, hold, mpc: MpcConfig,
+                    x_cmd: torch.Tensor | None = None) -> ArtWorld:
     """Fall reset, controller-state advance and metrics
     (``rollout_art.py:446``). A fallen env restarts standing with a cold
-    controller; its clock runs on."""
+    controller; its clock runs on. ``x_cmd`` ((12,) or (N,12)) overrides
+    ``mpc.x_cmd``, the metrics' command included."""
     n, dtype, device = x_fb.shape[0], x_fb.dtype, x_fb.device
     z = sim_new.pos[:, 2]
     fell = (z < FALL_Z_MIN) | (z > FALL_Z_MAX)
@@ -201,44 +204,49 @@ def _art_post_stage(world: ArtWorld, sim_new: ArtState, energy, x_fb, sol,
     )
     ctrl = ControllerState(
         qp=sol,
-        cmd_ref=advance_cmd_ref(world.ctrl.cmd_ref, x_fb, mpc),
-        v_int=advance_v_int(world.ctrl.v_int, x_fb, mpc),
+        cmd_ref=advance_cmd_ref(world.ctrl.cmd_ref, x_fb, mpc, x_cmd),
+        v_int=advance_v_int(world.ctrl.v_int, x_fb, mpc, x_cmd),
         t_gait=t_g.to(dtype), hold_count=hold,
         pitch_ref=advance_pitch_ref(world.ctrl.pitch_ref, x_fb, mpc),
     )
     metrics = world.metrics.update(
-        sim_new.torso_state(), mpc.x_cmd, sol.controls[:, 0], sol.res_prim,
-        fell.to(dtype), energy=energy,
+        sim_new.torso_state(), mpc.x_cmd if x_cmd is None else x_cmd,
+        sol.controls[:, 0], sol.res_prim, fell.to(dtype), energy=energy,
     )
     return ArtWorld(
         sim=sim_new.where(fell, reset),
-        ctrl=ctrl.where(fell, ControllerState.init(mpc, n, device, dtype)),
+        ctrl=ctrl.where(fell, ControllerState.init(mpc, n, device, dtype, x_cmd)),
         metrics=metrics,
     )
 
 
 def _lowlevel_stage(model, sim, t_ll, contact, u0, world, biped, mpc, gait,
-                    terrain=None):
+                    terrain=None, x_cmd=None, per_env=None):
     """Joint torques of one low-level period on the current state."""
     x, pf = feedback_and_soles(model, sim)
     return low_level_control(
         x, t_ll, pf, sim.q, sim.qd, mpc, biped, contact, u0, gait=gait,
         cmd_ref=world.ctrl.cmd_ref, terrain=terrain, v_int=world.ctrl.v_int,
+        x_cmd=x_cmd, per_env=per_env,
     )
 
 
 def _art_tick(world: ArtWorld, biped: BipedParams, mpc: MpcConfig,
               gait: GaitConfig, model: ArticulatedModel, n_lowlevel: int,
-              minv_ll_hold: int, physics, terrain=None) -> ArtWorld:
+              minv_ll_hold: int, physics, terrain=None,
+              x_cmd: torch.Tensor | None = None,
+              per_env: dict | None = None) -> ArtWorld:
     """One tick; ``physics(sim, tau, Minv, ll_dt)`` advances a low-level
     period. The MPC stage and the low-level control take their references
-    from ``terrain``; the ground under ``physics`` is the caller's."""
+    from ``terrain``; the ground under ``physics`` is the caller's.
+    ``x_cmd`` and the ``per_env`` gains override the config's
+    (``config.py``)."""
     if n_lowlevel % minv_ll_hold:
         raise ValueError(
             f"n_lowlevel {n_lowlevel} is not a multiple of minv_ll_hold {minv_ll_hold}"
         )
     x_fb, t_g, hold, contact, sol = _art_control_stage(
-        world, biped, mpc, gait, model, terrain
+        world, biped, mpc, gait, model, terrain, x_cmd
     )
     u0 = sol.controls[:, 0]
     ll_dt = mpc.dt / n_lowlevel
@@ -253,30 +261,35 @@ def _art_tick(world: ArtWorld, biped: BipedParams, mpc: MpcConfig,
             # (possibly held) MPC gait time
             t_ll = sim.t if not gait.contact_clock else t_g + (sim.t - t0)
             tau = _lowlevel_stage(model, sim, t_ll, contact, u0, world, biped, mpc,
-                                  gait, terrain)
+                                  gait, terrain, x_cmd, per_env)
             # positive mechanical joint work this period (metrics.energy)
             energy = energy + torch.sum(torch.clamp(tau * sim.qd, min=0.0), 1) * ll_dt
             sim = physics(sim, tau, Minv, ll_dt)
-    return _art_post_stage(world, sim, energy, x_fb, sol, t_g, hold, mpc)
+    return _art_post_stage(world, sim, energy, x_fb, sol, t_g, hold, mpc, x_cmd)
 
 
 def art_closed_loop_tick(world: ArtWorld, mpc: MpcConfig, gait: GaitConfig,
                          biped: BipedParams, model: ArticulatedModel,
                          n_lowlevel: int = 8, n_substeps: int = 10,
-                         terrain=None, minv_ll_hold: int = 1) -> ArtWorld:
+                         terrain=None, minv_ll_hold: int = 1,
+                         x_cmd: torch.Tensor | None = None,
+                         per_env: dict | None = None) -> ArtWorld:
     """One full MPC period on the articulated robot with the plain substep
     chain (``rollout_art.py:254``). ``minv_ll_hold`` low-level periods share
     one Newton-Schulz mass-matrix inverse: 1 refreshes it every 5 ms, 8
     once per tick. ``terrain``: the :class:`Terrain` under the robots (one
     field for all, or one per env), None = the plane z = 0; contact, the
     measured contact, the CoM height and foot references and the swing
-    apex all follow it."""
+    apex all follow it. ``x_cmd`` ((12,) or (N,12)) and ``per_env`` (the
+    low-level and swing gains of ``config.PER_ENV_FIELDS`` as (N,)
+    tensors) override the config's, as a config batched under vmap does in
+    JAX (``parallel/sweep.py``)."""
 
     def physics(sim, tau, Minv, dt):
         return art_step(model, sim, tau, dt, n_substeps, terrain, Minv=Minv)
 
     return _art_tick(world, biped, mpc, gait, model, n_lowlevel, minv_ll_hold, physics,
-                     terrain)
+                     terrain, x_cmd, per_env)
 
 
 @f32_precision

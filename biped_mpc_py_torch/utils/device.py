@@ -9,6 +9,7 @@ back to the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -24,3 +25,16 @@ def entry_device(device) -> torch.device:
             "pass device='cpu' to build on the CPU"
         )
     return dev
+
+
+def host_to_device(values, device: torch.device, dtype=torch.float32) -> torch.Tensor:
+    """Host values (a numpy array or a sequence of numbers) as a new tensor
+    of ``dtype`` on ``device``. To the card they go through pinned memory
+    with a non-blocking copy: a copy from pageable memory (what
+    ``torch.tensor(list, device="cuda")`` makes) synchronizes the stream,
+    and the card would then idle while the host queues the rest of the
+    tick."""
+    t = torch.tensor(np.asarray(values), dtype=dtype)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t

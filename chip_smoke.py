@@ -70,6 +70,33 @@ Phases, each printed on its own lines:
    solve's from its budget (its Newton-Schulz products at the 3xTF32
    tensor-core rate), the physics kernels' from the tree's per-substep and
    per-period operation counts.
+15. sweep: 16 configs (a 4 x 4 grid of ``kp_hipyaw`` x ``kd_hipyaw``
+   around the articulated config's, the last cell a repeat of the base
+   config) x 64 ``perturbed_worlds`` (seed 0, scale 2e-3) = 1024 envs x 25
+   ticks of ``art_sweep`` (the plain chain, 5 substeps, Minv held all tick)
+   at the bench budget: finite states, 25 QP and no physics launches, the
+   repeated config bit-equal to the base on the nominal world, the
+   zero-gain config apart, falls per config and env-steps/s reported; 8 of
+   its envs x 2 ticks on the card against the CPU within ``CHAIN_BOUNDS``;
+16. one robot (N = 1) walking in place for 100 ticks under the controller
+   on the card at ``tests/test_mj_contact.py``'s ``ORACLE_MPC``: through
+   ``run_mujoco_closed_loop`` where MuJoCo is installed, else through
+   ``RealtimeLoop`` against ``EnginePlant`` (the port's engine on the card
+   as the plant). No fall, the mean total stance force after tick 10 within
+   10% of m g, duty factors 0.5 +- 0.1, 100 QP launches, ms per tick; 5
+   ticks with the controller on the card against the CPU within
+   ``MJ_BOUNDS``;
+17. real-time loop: ``RealtimeLoop`` on the card, 50 ticks as fast as
+   possible, then 25 against the 40 ms deadlines: the plant stays up, the
+   statistics are coherent, the latencies, misses and ``realtime_ok``
+   reported; the same loop on the CPU for 25 ticks as a figure;
+18. replay and checkpoint: ``export_rollout`` of 25 ticks (torso at walking
+   height; reloaded in MuJoCo where it is installed), and 1024 envs on the
+   tick-kernel path saved at tick 10 and resumed, bit-equal at tick 20 to
+   the run straight through;
+19. demo: ``python -m biped_mpc_py_torch.demo --compat --rollout-steps 50
+   --device cuda`` in a subprocess: exit code 0, the tick's torques against
+   the golden tick.
 
 The line before the last is a JSON object describing the kernels; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -83,6 +110,8 @@ import json
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 N_ENVS = 1024
 N_TICKS = 50
@@ -1143,6 +1172,469 @@ def phase_cmd_rollout(torch, device):
         raise AssertionError("per-env command rollout failed its checks")
 
 
+# --- the deployment slice: sweeps and the N = 1 loops ------------------------
+
+# The sweep: a 4 x 4 grid of foot-heading gains times 64 perturbed worlds.
+SWEEP_GRID = (0.0, 0.5, 1.0, 1.5)  # multiples of the base kp_hipyaw, kd_hipyaw
+SWEEP_WORLDS = 64
+SWEEP_TICKS = 25
+SWEEP_SCALE = 2e-3
+# (config, world) of the 8 envs run on the card and on the CPU
+SWEEP_COMPARE = ((0, 0), (5, 1), (10, 0), (10, 3), (15, 0), (3, 7), (7, 9), (12, 11))
+# The port's plain chain against JAX: tests/test_torch_rollout_art.py.
+CHAIN_BOUNDS = {"pos": 1e-4, "quat": 1e-4, "v_base": 2e-3, "q": 1e-3, "qd": 2e-2}
+# The N = 1 loops: tests/test_mj_contact.py's pinned MuJoCo operating point,
+# and tests/test_torch_deploy.py's bounds on the feedback states and forces.
+ORACLE_MPC = dict(kp_hipyaw=3.0, kd_hipyaw=0.4, tau_z_max=4.0, swing_td_damp=8.0,
+                  swing_z_sin2=True)
+MJ_BOUNDS = {"att_pos": 1e-4, "vel": 2e-3, "force": 1.0}
+N_MJ_TICKS = 100
+MG = 12.0 * 9.81
+N_CKPT_TICKS = 10
+
+
+def _have_mujoco() -> bool:
+    try:
+        import mujoco  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def _kernel_counters():
+    from biped_mpc_py_torch.ops.cuda import qp_kernel, substep_kernel, tick_kernel
+
+    return {"fused_qp_solve": qp_kernel.fused_qp_solve, "fused_tick": tick_kernel.fused_tick,
+            "fused_substeps": substep_kernel.fused_substeps}
+
+
+def _reset_counts():
+    for fn in _kernel_counters().values():
+        fn.launches = 0
+
+
+def _counts():
+    return {k: fn.launches for k, fn in _kernel_counters().items()}
+
+
+def _max_diff(a, b, keys):
+    return {k: float((getattr(a, k).cpu() - getattr(b, k).cpu()).abs().max()) for k in keys}
+
+
+def sweep_setup(torch, device):
+    """The sweep's 1024 envs: env 64 c + w runs config c of the grid on
+    perturbed world w. The grid's last cell repeats the base config, so that
+    two equal configs share the nominal world."""
+    import dataclasses
+
+    from biped_mpc_py_torch import BipedParams
+    from biped_mpc_py_torch.parallel.sweep import perturbed_worlds, stack_configs
+
+    mpc, gait = _art_config()
+    grid = [(mpc.kp_hipyaw * a, mpc.kd_hipyaw * b) for a in SWEEP_GRID for b in SWEEP_GRID]
+    grid[-1] = (mpc.kp_hipyaw, mpc.kd_hipyaw)
+    configs = [dataclasses.replace(mpc, kp_hipyaw=kp, kd_hipyaw=kd) for kp, kd in grid]
+    mpc_s, per_env = stack_configs([c for c in configs for _ in range(SWEEP_WORLDS)], device)
+    worlds = perturbed_worlds(mpc, SWEEP_WORLDS, torch.Generator().manual_seed(SEED),
+                              SWEEP_SCALE, device)
+    worlds = worlds.map(lambda t: t.repeat((len(grid),) + (1,) * (t.dim() - 1)))
+    n = len(grid) * SWEEP_WORLDS
+    return mpc_s, gait, per_env, worlds, BipedParams().expand(n).to(device), grid
+
+
+def phase_sweep(torch, device):
+    """16 configs x 64 perturbed worlds x 25 ticks of ``art_sweep``, then 8
+    of its envs x 2 ticks on the card against the CPU."""
+    from biped_mpc_py_torch.parallel.sweep import art_sweep
+    from biped_mpc_py_torch.sim.model import hector_model
+
+    mpc, gait, per_env, worlds, bipeds, grid = sweep_setup(torch, device)
+    n = bipeds.m.shape[0]
+    kw = dict(model=hector_model(device=device), n_substeps=5, minv_ll_hold=8)
+    art_sweep(worlds, bipeds, 1, mpc, gait, per_env, **kw)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    w = art_sweep(worlds, bipeds, SWEEP_TICKS, mpc, gait, per_env, **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = _counts()
+    s = w.sim
+    finite = all(bool(torch.isfinite(t).all()) for t in (s.pos, s.quat, s.v_base, s.q, s.qd))
+    falls = [float(f) for f in w.metrics.falls.reshape(len(grid), SWEEP_WORLDS).sum(1)]
+    base, repeat, zero = 10 * SWEEP_WORLDS, 15 * SWEEP_WORLDS, 0
+    equal = all(torch.equal(getattr(s, k)[base], getattr(s, k)[repeat])
+                for k in ("pos", "quat", "v_base", "q", "qd"))
+    d_zero = float((s.q[zero] - s.q[base]).abs().max())
+
+    idx = torch.tensor([c * SWEEP_WORLDS + w % SWEEP_WORLDS for c, w in SWEEP_COMPARE],
+                       device=device)
+    sub = {k: v[idx] for k, v in per_env.items()}
+    w8 = worlds.map(lambda t: t[idx])
+    out_c = art_sweep(w8, bipeds.map(lambda t: t[idx]), 2, mpc, gait, sub, **kw)
+    cpu = torch.device("cpu")
+    kw_cpu = dict(kw, model=kw["model"].to(cpu))
+    out_h = art_sweep(w8.to(cpu), bipeds.map(lambda t: t[idx]).to(cpu), 2, mpc, gait,
+                      {k: v.cpu() for k, v in sub.items()}, **kw_cpu)
+    diffs = _max_diff(out_c.sim, out_h.sim, CHAIN_BOUNDS)
+    log(f"[sweep] {len(grid)} configs (kp_hipyaw, kd_hipyaw) x {SWEEP_WORLDS} perturbed worlds "
+        f"(scale {SWEEP_SCALE}) x {SWEEP_TICKS} ticks in {sec:.3f} s: "
+        f"{n * SWEEP_TICKS / sec:.1f} env-steps/s ({sec * 1e3 / SWEEP_TICKS:.3f} ms/tick), "
+        f"launches {json.dumps(launches)}, finite {finite}, repeated config bit-equal {equal}, "
+        f"zero-gain config vs base max|dq| {d_zero:.3e}; falls per config [kp, kd, falls] "
+        + json.dumps([[round(kp, 4), round(kd, 4), f] for (kp, kd), f in zip(grid, falls)])
+        + f"; 8 envs x 2 ticks card vs CPU {json.dumps(diffs)} (bounds {json.dumps(CHAIN_BOUNDS)})")
+    if launches != {"fused_qp_solve": SWEEP_TICKS, "fused_tick": 0, "fused_substeps": 0}:
+        raise AssertionError(f"sweep launch counts {launches} in {SWEEP_TICKS} ticks")
+    if not (finite and equal and d_zero > 1e-5):
+        raise AssertionError("the sweep failed its checks")
+    if any(diffs[k] >= b for k, b in CHAIN_BOUNDS.items()):
+        raise AssertionError(f"the sweep on the card and on the CPU differ: {diffs}")
+    return sec
+
+
+class EnginePlant:
+    """The port's articulated engine as the robot behind the real-time
+    loop's Plant interface, where MuJoCo is not installed: one robot on
+    ``device``, each 5 ms period 5 substeps of 1 ms through
+    ``fused_substeps`` (the kernel on the card, its plain version on the
+    CPU), the mass-matrix inverse refreshed every 8 periods (the bench
+    physics). One read is one copy to the host; the foot normal forces of
+    every period are kept on the device. ``sec`` sums the plant's own time
+    (host clock; an apply ends synchronized)."""
+
+    def __init__(self, torch, device):
+        from biped_mpc_py_torch.sim.engine import ArtState
+        from biped_mpc_py_torch.sim.model import hector_model
+
+        self.torch, self.device = torch, device
+        self.model = hector_model(device=device)
+        self.s = ArtState.standing(1, device=device)
+        self.k, self.host, self.forces, self.sec = 0, None, [], 0.0
+
+    def _host(self):
+        from biped_mpc_py_torch.sim.engine import feedback_and_soles
+
+        if self.host is None:
+            t0 = time.perf_counter()
+            x, pf = feedback_and_soles(self.model, self.s)
+            self.host = self.torch.cat([x[0], self.s.q[0], self.s.qd[0], pf[0]]).cpu().numpy()
+            self.sec += time.perf_counter() - t0
+        return self.host
+
+    def read_state(self):
+        v = self._host()
+        return v[0:12], v[12:22], v[22:32]
+
+    def foot_positions(self):
+        return self._host()[32:38]
+
+    def apply(self, tau, dt):
+        from biped_mpc_py_torch.ops.cuda.substep_kernel import fused_substeps
+        from biped_mpc_py_torch.sim.contact import contact_force_world
+        from biped_mpc_py_torch.sim.engine import contact_point_states, mass_matrix_inv
+        from biped_mpc_py_torch.utils.device import host_to_device
+
+        t0 = time.perf_counter()
+        if self.k % 8 == 0:
+            self.Minv = mass_matrix_inv(self.model, self.s.q)
+        tau = host_to_device(tau, self.device)[None]
+        self.s = fused_substeps(self.model, self.s, tau, self.Minv, dt, 5)
+        self.k, self.host = self.k + 1, None
+        pts, vels, _, _ = contact_point_states(self.model, self.s)
+        f = contact_force_world(self.model, pts, vels)[0, :, 2]
+        self.forces.append(self.torch.stack([f[0] + f[1], f[2] + f[3]]))
+        if self.device.type == "cuda":
+            self.torch.cuda.synchronize()
+        self.sec += time.perf_counter() - t0
+
+    def z(self) -> float:
+        return float(self._host()[5])
+
+    def tick_forces(self):
+        """Per-foot normal forces (n_ticks, 2), each tick's 8 periods'
+        mean."""
+        return self.torch.stack(self.forces).reshape(-1, 8, 2).mean(1).cpu().numpy()
+
+
+class MujocoPlant:
+    """MuJoCo CPU as the robot behind the Plant interface (the port's
+    feedback of the MuJoCo state on the CPU), as tests/test_torch_deploy.py's."""
+
+    def __init__(self, torch):
+        import mujoco
+
+        from biped_mpc_py_torch.sim import mj_driver
+        from biped_mpc_py_torch.sim.engine import ArtState
+        from biped_mpc_py_torch.sim.mjcf import penalty_matched_solref, to_mjcf
+        from biped_mpc_py_torch.sim.model import hector_model
+
+        self.mujoco, self.driver = mujoco, mj_driver
+        self.model = hector_model(device="cpu")
+        self.m = mujoco.MjModel.from_xml_string(to_mjcf(
+            self.model, mj_driver.MJ_DT, contact=True, solref=penalty_matched_solref(self.model)))
+        self.d = mujoco.MjData(self.m)
+        s0 = ArtState.standing()
+        self.d.qpos[0:3], self.d.qpos[3:7] = s0.pos[0].numpy(), s0.quat[0].numpy()
+        self.d.qpos[7:17] = s0.q[0].numpy()
+        self.t, self.forces, self.sec = 0.0, [], 0.0
+
+    def read_state(self):
+        from biped_mpc_py_torch.sim.engine import feedback_and_soles
+
+        t0 = time.perf_counter()
+        s = self.driver.state_from_mj(self.d, self.t, device="cpu")
+        x, self.pf = feedback_and_soles(self.model, s)
+        self.sec += time.perf_counter() - t0
+        return x[0].numpy(), s.q[0].numpy(), s.qd[0].numpy()
+
+    def foot_positions(self):
+        self.read_state()
+        return self.pf[0].numpy()
+
+    def apply(self, tau, dt):
+        t0 = time.perf_counter()
+        self.d.qfrc_applied[6:16] = tau
+        for _ in range(int(round(dt / self.driver.MJ_DT))):
+            self.mujoco.mj_step(self.m, self.d)
+        self.t += dt
+        self.forces.append(self.driver.mj_foot_forces(self.m, self.d))
+        self.sec += time.perf_counter() - t0
+
+    def z(self) -> float:
+        return float(self.d.qpos[2])
+
+    def tick_forces(self):
+        return np.asarray(self.forces).reshape(-1, 8, 2).mean(1)
+
+
+def _plant(torch, device):
+    return MujocoPlant(torch) if _have_mujoco() else EnginePlant(torch, device)
+
+
+def _contact_stats(forces):
+    """(mean total stance force after tick 10, per-foot duty factors) of
+    per-tick per-foot forces (n, 2): tests/test_mj_contact.py:145-171."""
+    return float(forces[10:].sum(1).mean()), [float((forces[:, i] > 20).mean()) for i in (0, 1)]
+
+
+def phase_mujoco(torch, device):
+    """One robot walking in place for 100 ticks under the N = 1 controller
+    on the card: through ``run_mujoco_closed_loop`` where MuJoCo is
+    installed, else through ``RealtimeLoop`` against ``EnginePlant``; then 5
+    ticks with the controller on the card against the same on the CPU.
+    Returns ms per tick."""
+    from biped_mpc_py_torch import BipedParams, GaitConfig, RealtimeLoop
+    from biped_mpc_py_torch.parallel.rollout_art import art_mpc_config
+    from biped_mpc_py_torch.sim.mj_driver import run_mujoco_closed_loop
+
+    mpc, gait = art_mpc_config(**ORACLE_MPC), GaitConfig()
+    bench = art_mpc_config(**ORACLE_MPC, n_admm_iters=40, admm_rho_phases=1,
+                           admm_polish=False, kinv_ns_iters=10)
+    cpu = torch.device("cpu")
+    if _have_mujoco():
+        plant_name = "MuJoCo (run_mujoco_closed_loop)"
+        run_mujoco_closed_loop(mpc, gait, 1, device=device)  # warm-up
+        _reset_counts()
+        t0 = time.perf_counter()
+        forces, _, fell = run_mujoco_closed_loop(mpc, gait, N_MJ_TICKS, device=device)
+        sec = time.perf_counter() - t0
+        launches = _counts()
+        runs = [run_mujoco_closed_loop(bench, gait, 5, device=d) for d in (device, cpu)]
+        (f_c, x_c, _), (f_h, x_h, _) = runs
+    else:
+        plant_name = ("the port's engine (EnginePlant, RealtimeLoop; mujoco is not "
+                      "installed here)")
+        plant = EnginePlant(torch, device)
+        loop = RealtimeLoop(mpc, gait, BipedParams(), device=device)
+        loop.warmup(plant)
+        _reset_counts()
+        plant.sec = 0.0
+        t0 = time.perf_counter()
+        loop.run(plant, N_MJ_TICKS, realtime=False)
+        sec = time.perf_counter() - t0
+        launches = _counts()
+        plant_name += f", the plant {plant.sec * 1e3 / N_MJ_TICKS:.3f} ms of the tick"
+        forces, fell = plant.tick_forces(), plant.z() < 0.25
+        plants = []
+        for d in (device, cpu):
+            p = EnginePlant(torch, cpu)
+            RealtimeLoop(bench, gait, BipedParams(), device=d).run(p, 5, realtime=False)
+            plants.append(p)
+        (x_c, x_h) = (p.read_state()[0] for p in plants)
+        f_c, f_h = (p.tick_forces() for p in plants)
+    total, duty = _contact_stats(forces)
+    d = np.abs(np.asarray(x_c) - np.asarray(x_h))
+    diffs = {"att_pos": float(d[..., 0:6].max()), "vel": float(d[..., 6:12].max()),
+             "force": float(np.abs(f_c - f_h).max())}
+    log(f"[mujoco] plant: {plant_name}; 1 robot x {N_MJ_TICKS} ticks walking in place at "
+        f"ORACLE_MPC: {sec * 1e3 / N_MJ_TICKS:.3f} ms/tick, launches {json.dumps(launches)}, "
+        f"fell {fell}, mean total stance force after tick 10 {total:.2f} N (m g {MG:.2f}), duty "
+        f"factors {duty[0]:.3f} {duty[1]:.3f}; 5 ticks, controller on the card vs the CPU "
+        f"(bench budget): {json.dumps(diffs)} (bounds {json.dumps(MJ_BOUNDS)})")
+    if launches["fused_qp_solve"] != N_MJ_TICKS or launches["fused_tick"]:
+        raise AssertionError(f"N = 1 loop launch counts {launches} in {N_MJ_TICKS} ticks")
+    if fell or abs(total - MG) > 0.1 * MG or any(abs(x - 0.5) > 0.1 for x in duty):
+        raise AssertionError("the N = 1 walking loop failed its contact checks")
+    if any(diffs[k] >= b for k, b in MJ_BOUNDS.items()):
+        raise AssertionError(f"the N = 1 loop on the card and on the CPU differ: {diffs}")
+    return sec * 1e3 / N_MJ_TICKS
+
+
+def _stats_ok(stats, n):
+    return (stats.n_ticks == n and stats.latency_p50_ms > 0
+            and stats.latency_max_ms >= stats.latency_p99_ms >= stats.latency_p50_ms
+            and 0 <= stats.deadline_misses <= n)
+
+
+def phase_realtime(torch, device):
+    """``RealtimeLoop`` on the card against a plant: 50 ticks as fast as
+    possible, then 25 against the 40 ms deadlines; the latencies are
+    reported, not bounded. Then the same loop with the controller on the
+    CPU against the same kind of plant on the same device for 25 ticks, as
+    a figure. Each run's plant time per tick is printed beside it (the
+    controller's is the rest)."""
+    from biped_mpc_py_torch import BipedParams, GaitConfig, RealtimeLoop
+    from biped_mpc_py_torch.parallel.rollout_art import art_mpc_config
+
+    mpc, gait = art_mpc_config(), GaitConfig()
+
+    def run(plant, loop, n, **kw):
+        sec = plant.sec
+        stats = loop.run(plant, n, **kw)
+        return stats, (plant.sec - sec) * 1e3 / n
+
+    plant = _plant(torch, device)
+    loop = RealtimeLoop(mpc, gait, BipedParams(), device=device)
+    loop.warmup(plant)
+    _reset_counts()
+    fast = run(plant, loop, 50, realtime=False)
+    timed = run(plant, loop, 25, t0=50 * mpc.dt, realtime=True)
+    launches = _counts()
+    z = plant.z()
+    cpu = torch.device("cpu")
+    plant_h = _plant(torch, device)
+    loop_h = RealtimeLoop(mpc, gait, BipedParams(), device=cpu)
+    loop_h.warmup(plant_h)
+    host = run(plant_h, loop_h, 25, realtime=False)
+
+    def fmt(r):
+        s, plant_ms = r
+        return (f"p50 {s.latency_p50_ms:.3f} p99 {s.latency_p99_ms:.3f} max "
+                f"{s.latency_max_ms:.3f} ms (plant {plant_ms:.3f} ms per tick), misses "
+                f"{s.deadline_misses}/{s.n_ticks}, realtime_ok {s.realtime_ok(mpc.dt)}")
+
+    log(f"[realtime] plant {type(plant).__name__} on {device.type}, controller on the card: "
+        f"50 ticks as fast as possible: {fmt(fast)}; 25 ticks against the deadlines: "
+        f"{fmt(timed)}; torso z {z:.4f} m, launches {json.dumps(launches)}; controller on the "
+        f"CPU (a figure): 25 ticks {fmt(host)}")
+    fast, timed, host = fast[0], timed[0], host[0]
+    if not (z > 0.4 and _stats_ok(fast, 50) and _stats_ok(timed, 25)):
+        raise AssertionError("the real-time loop failed its checks")
+    if launches["fused_qp_solve"] != 75:
+        raise AssertionError(f"real-time loop launch counts {launches} in 75 ticks")
+    return fast, timed, host
+
+
+def phase_replay_checkpoint(torch, device):
+    """``export_rollout`` of 25 ticks of one robot on the card, reloaded
+    (in MuJoCo where it is installed); then a tick-path world of 1024 envs
+    saved at tick 10 and resumed, against the uninterrupted run at tick
+    20."""
+    import os
+    import tempfile
+    import xml.etree.ElementTree as ET
+
+    from biped_mpc_py_torch import GaitConfig, batched_art_rollout_tick_kernel
+    from biped_mpc_py_torch.parallel.rollout_art import art_mpc_config
+    from biped_mpc_py_torch.sim.replay import export_rollout
+    from biped_mpc_py_torch.utils.checkpoint import load_pytree, save_pytree
+
+    mpc = art_mpc_config(n_admm_iters=40, admm_rho_phases=1, admm_polish=False,
+                         kinv_ns_iters=10)
+    with tempfile.TemporaryDirectory() as d:
+        prefix = os.path.join(d, "flat")
+        _reset_counts()
+        info = export_rollout(prefix, mpc, GaitConfig(), 25, device=device, n_substeps=5,
+                              minv_ll_hold=8)
+        launches = _counts()
+        qpos = np.load(prefix + "_traj.npz")["qpos"]
+        root = ET.parse(prefix + "_model.xml").getroot()
+        n_bodies = len(root.findall(".//body"))
+        feet = []
+        if _have_mujoco():
+            import mujoco
+
+            m = mujoco.MjModel.from_xml_path(prefix + "_model.xml")
+            dm = mujoco.MjData(m)
+            for q in qpos:
+                dm.qpos[:] = q
+                mujoco.mj_forward(m, dm)
+                feet.append(min(dm.geom_xpos[mujoco.mj_name2id(
+                    m, mujoco.mjtObj.mjOBJ_GEOM, g)][2] for g in ("l_foot_toe", "r_foot_toe")))
+        ckpt = os.path.join(d, "world.npz")
+        mpc_a, gait = _art_config()
+        w0, bipeds = art_worlds(torch, device)
+        w10 = batched_art_rollout_tick_kernel(w0, bipeds, N_CKPT_TICKS, mpc_a, gait)
+        save_pytree(ckpt, w10)
+        straight = batched_art_rollout_tick_kernel(w10, bipeds, N_CKPT_TICKS, mpc_a, gait)
+        back = load_pytree(ckpt, w0)
+        resumed = batched_art_rollout_tick_kernel(back, bipeds, N_CKPT_TICKS, mpc_a, gait)
+    leaves = [(k, getattr(a, f), getattr(b, f)) for k, a, b in (
+        ("sim", resumed.sim, straight.sim), ("ctrl", resumed.ctrl, straight.ctrl),
+        ("metrics", resumed.metrics, straight.metrics))
+        for f in a.__dataclass_fields__ if torch.is_tensor(getattr(a, f))]
+    equal = all(torch.equal(x, y) for _, x, y in leaves) and torch.equal(
+        resumed.ctrl.qp.controls, straight.ctrl.qp.controls)
+    z = qpos[:, 2]
+    log(f"[replay] export_rollout of 25 ticks on the card: {json.dumps(info['frames'])} frames, "
+        f"falls {info['falls']}, launches {json.dumps(launches)}, torso z [{z.min():.4f}, "
+        f"{z.max():.4f}] m, {n_bodies} bodies in the MJCF"
+        + (f", lowest toe per frame max {max(feet):.4f} m (MuJoCo)" if feet else
+           " (mujoco is not installed here: the frames are not reloaded in it)")
+        + f"; checkpoint: {N_ENVS} envs on the tick-kernel path saved at tick {N_CKPT_TICKS}, "
+        f"resumed to tick {2 * N_CKPT_TICKS}: bit-equal to the run straight through {equal}")
+    if not (info["frames"] == 25 and info["falls"] == 0 and launches["fused_qp_solve"] == 25
+            and 0.45 < z.min() and z.max() < 0.65 and n_bodies == 11
+            and (not feet or max(feet) < 0.08)):
+        raise AssertionError("the exported rollout failed its checks")
+    if not equal:
+        raise AssertionError("a resumed checkpoint differs from the run straight through")
+
+
+def phase_demo(torch, device):
+    """``python -m biped_mpc_py_torch.demo --compat --rollout-steps 50
+    --device cuda`` in a subprocess: exit code 0 and the tick's torques
+    against the golden tick (tests/golden/tick_t0_walking.npz, 0.02 N m plus
+    the printout's 0.005)."""
+    import os
+    import re
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(root)] + [p for p in [env.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "biped_mpc_py_torch.demo", "--compat", "--rollout-steps", "50",
+         "--device", device.type],
+        capture_output=True, text=True, timeout=600, env=env, cwd=root,
+    )
+    sec = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"the demo exited {out.returncode}: {out.stderr[-2000:]}")
+    block = out.stdout.split("Torques:")[1].split("closed-loop")[0]
+    tau = np.array([float(v) for v in re.findall(r"-?\d+\.\d*", block)])
+    golden = np.load(root / "tests" / "golden" / "tick_t0_walking.npz")["tau"]
+    err = float(np.abs(tau - golden).max()) if tau.shape == golden.shape else float("inf")
+    lines = [ln for ln in out.stdout.splitlines()
+             if "execution time" in ln or "rollout" in ln or "final state" in ln]
+    log(f"[demo] rc 0 in {sec:.1f} s (process included), torques vs golden max|d| {err:.4f} "
+        f"N m (bound 0.025): " + " | ".join(ln.strip() for ln in lines))
+    if not err < 0.025:
+        raise AssertionError(f"the demo's torques are {err} N m from the golden tick")
+
+
 def time_tick(torch, device):
     """The tick kernel (device time from ``torch.profiler``; the wrapper's
     call by CUDA events beside it) and its plain version at 1024 envs, and
@@ -1295,6 +1787,11 @@ def main() -> int:
         time_terrain(torch, device, sec_terrain, sec_chain)
         time_physics_sizes(torch, device)
         events, busy_ms, qp_tick_ms, tick_tick_ms = profile_tick_path(torch, device)
+        phase_sweep(torch, device)
+        phase_mujoco(torch, device)
+        phase_realtime(torch, device)
+        phase_replay_checkpoint(torch, device)
+        phase_demo(torch, device)
         bounds = {"fused_qp_solve": solve_ms["bench"][2:4],
                   "fused_substeps": bound_substep(torch, device),
                   "fused_tick": bound_tick(torch, device),

@@ -37,6 +37,17 @@ once per tick and the substep kernel never. Both kernels also run a batch
 whose even envs are pressed deep into the ground and whose odd envs hang in
 the air, so that a lane that read its neighbour's env would show.
 
+The sweep (``parallel/sweep.py``) runs the plain chain with per-env gains:
+8 envs x 2 ticks on the card against the CPU within ``CHAIN_BOUNDS`` of
+``tests/test_torch_rollout_art.py`` (pos 1e-4, quat 1e-4, v_base 2e-3, q
+1e-3, qd 2e-2), one QP launch per tick and no physics launch; the tick
+kernel refuses per-env values before it launches. The N = 1 loops
+(``RealtimeLoop``, and ``run_mujoco_closed_loop`` where MuJoCo is
+installed) with the controller on the card against the CPU, 5 ticks at the
+bench budget: feedback attitude and position 1e-4, velocities 2e-3 (the
+bounds of ``tests/test_torch_deploy.py``). The new entry points build on
+the card by default.
+
 The terrain path runs no physics kernel (they know flat ground only): 64
 envs x 2 ticks of ``batched_art_rollout_terrain`` on the card against the
 same rollout on the CPU (pos 1e-3, q 1e-2, qd 1.0: the QP kernel and its
@@ -389,3 +400,110 @@ def test_physics_wrappers_raise_on_terrain(cuda):
                         torch.ones(n, 2, device=cuda), state.t, torch.zeros(n, device=cuda),
                         torch.zeros(n, 2, device=cuda), Minv, terrain=flat)
     assert (tick.fused_tick.launches, sk.fused_substeps.launches) == before
+
+
+CHAIN_BOUNDS = {"pos": 1e-4, "quat": 1e-4, "v_base": 2e-3, "q": 1e-3, "qd": 2e-2}
+
+
+def _counts():
+    return (tk.fused_qp_solve.launches, tick.fused_tick.launches, sk.fused_substeps.launches)
+
+
+def test_sweep_card_matches_cpu(cuda):
+    from biped_mpc_py_torch.parallel.sweep import art_sweep, perturbed_worlds, stack_configs
+
+    mpc, gait = _bench_art_config()
+    configs = [dataclasses.replace(mpc, kp_hipyaw=k, kd_hipyaw=d)
+               for k, d in ((2.4, 0.3), (0.0, 0.0), (3.6, 0.45), (1.2, 0.15))]
+    mpc_s, per_env = stack_configs([c for c in configs for _ in range(2)], device="cpu")
+    worlds = perturbed_worlds(mpc, 2, torch.Generator().manual_seed(0), device="cpu")
+    worlds = worlds.map(lambda t: t.repeat((4,) + (1,) * (t.dim() - 1)))
+    bipeds = BipedParams().expand(8)
+    kw = dict(n_substeps=5, minv_ll_hold=8)
+    out_cpu = art_sweep(worlds, bipeds, 2, mpc_s, gait, per_env, **kw)
+    before = _counts()
+    out = art_sweep(worlds.to(cuda), bipeds.to(cuda), 2, mpc_s, gait,
+                    {k: v.to(cuda) for k, v in per_env.items()}, **kw)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_counts(), before)] == [2, 0, 0]
+    for name, tol in CHAIN_BOUNDS.items():
+        err = float((getattr(out.sim, name).cpu() - getattr(out_cpu.sim, name)).abs().max())
+        assert err < tol, (name, err)
+    assert float((out.sim.q[0] - out.sim.q[2]).abs().max()) > 1e-5  # the gains were felt
+
+
+def test_fused_tick_raises_on_per_env_values(cuda):
+    mpc, gait = _bench_art_config()
+    n = 16
+    model, biped = hector_model(device=cuda), BipedParams().to(cuda)
+    state = ArtState.standing(n, device=cuda)
+    Minv = mass_matrix_inv(model, state.q)
+    args = (model, biped, mpc, gait, state, torch.zeros(n, 12, device=cuda),
+            torch.ones(n, 2, device=cuda), state.t, torch.zeros(n, device=cuda),
+            torch.zeros(n, 2, device=cuda), Minv)
+    before = _counts()
+    with pytest.raises(ValueError, match="per-env"):
+        tick.fused_tick(*args, per_env={"kp_hipyaw": torch.zeros(n, device=cuda)})
+    with pytest.raises(ValueError, match="per-env"):
+        tick.fused_tick(*args, x_cmd=torch.zeros(n, 12, device=cuda))
+    assert _counts() == before
+
+
+def _bench_oracle():
+    return ra.art_mpc_config(kp_hipyaw=3.0, kd_hipyaw=0.4, tau_z_max=4.0, swing_td_damp=8.0,
+                             swing_z_sin2=True, n_admm_iters=40, admm_rho_phases=1,
+                             admm_polish=False, kinv_ns_iters=10)
+
+
+def _assert_feedback_close(x_c, x_h):
+    d = (torch.as_tensor(x_c) - torch.as_tensor(x_h)).abs()
+    assert float(d[..., 0:6].max()) < 1e-4 and float(d[..., 6:12].max()) < 2e-3, d
+
+
+def test_realtime_loop_card_matches_cpu(cuda):
+    """Both controllers against the port's engine on the CPU as the plant
+    (chip_smoke.EnginePlant), 5 ticks."""
+    from chip_smoke import EnginePlant
+    from biped_mpc_py_torch.runtime.realtime import RealtimeLoop
+
+    plants, launched = [], []
+    for device in (cuda, torch.device("cpu")):
+        plant = EnginePlant(torch, torch.device("cpu"))
+        loop = RealtimeLoop(_bench_oracle(), GaitConfig(), BipedParams(), device=device)
+        before = _counts()
+        loop.run(plant, 5, realtime=False)
+        launched.append([a - b for a, b in zip(_counts(), before)])
+        plants.append(plant)
+    assert launched == [[5, 0, 0], [0, 0, 0]]
+    _assert_feedback_close(plants[0].read_state()[0], plants[1].read_state()[0])
+
+
+def test_mujoco_loop_card_matches_cpu(cuda):
+    pytest.importorskip("mujoco")
+    from biped_mpc_py_torch.sim.mj_driver import run_mujoco_closed_loop
+
+    before = _counts()
+    f_c, x_c, fell_c = run_mujoco_closed_loop(_bench_oracle(), GaitConfig(), 5, device=cuda)
+    assert [a - b for a, b in zip(_counts(), before)] == [5, 0, 0]
+    f_h, x_h, fell_h = run_mujoco_closed_loop(_bench_oracle(), GaitConfig(), 5, device="cpu")
+    assert fell_c == fell_h
+    _assert_feedback_close(x_c, x_h)
+    assert abs(f_c - f_h).max() < 1.0
+
+
+def test_new_entry_points_build_on_the_card(cuda):
+    from biped_mpc_py_torch.parallel.sweep import perturbed_worlds, stack_configs
+    from biped_mpc_py_torch.runtime.realtime import RealtimeLoop
+    from biped_mpc_py_torch.sim.replay import rollout_qpos_track
+
+    mpc, gait = _bench_art_config()
+    _, per_env = stack_configs([mpc, dataclasses.replace(mpc, kd_hipyaw=0.0)])
+    assert per_env["kd_hipyaw"].device.type == "cuda"
+    w = perturbed_worlds(mpc, 4, torch.Generator(device=cuda).manual_seed(0))
+    assert w.sim.q.device.type == "cuda" and w.ctrl.qp.z.device.type == "cuda"
+    loop = RealtimeLoop(mpc, gait, BipedParams())
+    assert loop.ctrl.qp.controls.device.type == "cuda"
+    before = _counts()
+    qpos, times, falls = rollout_qpos_track(mpc, gait, 2, n_substeps=5, minv_ll_hold=8)
+    assert [a - b for a, b in zip(_counts(), before)] == [2, 0, 0]
+    assert qpos.shape == (2, 17) and falls == 0.0 and 0.45 < qpos[:, 2].min()

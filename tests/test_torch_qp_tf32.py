@@ -32,7 +32,7 @@ kernel splits.
 
 Run as a script, it prints the solve-level comparison behind these choices
 (median |du| and envs past 0.1 N against the f32 plain solve over N QPs at
-both budgets; ``--rn`` accumulates to nearest instead, ~50x faster):
+both budgets; ``--rn`` accumulates to nearest instead):
 
     python -m tests.test_torch_qp_tf32 256
     python -m tests.test_torch_qp_tf32 1024 --rn
@@ -69,6 +69,16 @@ def to_f32_rz(v: torch.Tensor) -> torch.Tensor:
     return torch.where(f.double().abs() > v.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
 
 
+_RZ_MASK = -(1 << 29)  # clears the 29 low mantissa bits an f32 does not hold
+
+
+def rz64(v: torch.Tensor) -> torch.Tensor:
+    """:func:`to_f32_rz` kept in f64 (``rz64(v).float()`` is exact and
+    equal to it for values in f32's normal range): the mantissa bits below
+    f32's are cleared, which rounds the magnitude down."""
+    return (v.view(torch.int64) & _RZ_MASK).view(torch.float64)
+
+
 def mm_tf32(a: torch.Tensor, b: torch.Tensor, products: int = 3, accumulators: int = 2,
             truncate: bool = True) -> torch.Tensor:
     """a @ b as the kernel forms it: per k-step of 8, hi*hi into one f32
@@ -81,23 +91,25 @@ def mm_tf32(a: torch.Tensor, b: torch.Tensor, products: int = 3, accumulators: i
     if not truncate:
         small = al @ bl + al @ bh if products == 4 else al @ bh
         return (small + ah @ bl) + ah @ bh
-    big = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    # the accumulators hold f32 values in f64 (rz64 keeps them so)
+    ah, bh, al, bl = (t.double() for t in (ah, bh, al, bl))
+    big = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float64)
     cor = torch.zeros_like(big)
     pairs = ((al, bl), (al, bh), (ah, bl)) if products == 4 else ((al, bh), (ah, bl))
     for k in range(0, a.shape[-1], 8):
         ks = slice(k, k + 8)
 
         def step(x, y):
-            return x[..., ks].double() @ y[..., ks, :].double()
+            return x[..., ks] @ y[..., ks, :]
 
         if accumulators == 1:
             for x, y in (*pairs, (ah, bh)):
-                big = to_f32_rz(big.double() + step(x, y))
+                big = rz64(big + step(x, y))
         else:
             for x, y in pairs:
-                cor = to_f32_rz(cor.double() + step(x, y))
-            big = to_f32_rz(big.double() + step(ah, bh))
-    return big + cor
+                cor = rz64(cor + step(x, y))
+            big = rz64(big + step(ah, bh))
+    return big.float() + cor.float()
 
 
 def mm_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -172,6 +184,9 @@ def test_tf32_rounding():
 def test_truncating_accumulation():
     v = torch.tensor([1.0 + 2.0 ** -30, -(1.0 + 2.0 ** -30), 3.0], dtype=torch.float64)
     assert torch.equal(to_f32_rz(v), torch.tensor([1.0, -1.0, 3.0]))
+    w = torch.randn(4096, dtype=torch.float64, generator=torch.Generator().manual_seed(2))
+    w = torch.cat([w, w * 1e-30, w * 1e30, torch.zeros(1, dtype=torch.float64)])
+    assert torch.equal(rz64(w).float(), to_f32_rz(w))
     gen = torch.Generator().manual_seed(1)
     a, b = torch.randn(2, 24, 40, generator=gen), torch.randn(2, 40, 16, generator=gen)
     exact = a.double() @ b.double()
