@@ -19,14 +19,22 @@ every function on the SRB path that reads ``mpc.x_cmd`` (``com_reference``,
 a call without the argument; a Python branch on a command entry (the
 ``sqrt`` of the commanded height, the small-turn-rate limit) becomes a
 tensor expression on the override branch only. :func:`cmd_entry` reads one
-entry under either form. The articulated low-level control
-(``control/lowlevel.py``, ``control/swing.py::swing_leg_force``) and the
-articulated tick stages take the same ``x_cmd`` and, beside it, a
-``per_env`` dict that maps some of the :data:`PER_ENV_FIELDS` (the
-low-level and swing gains) to (N,) tensors; :func:`config_value` reads one
-such field under either form. ``parallel/sweep.py::stack_configs`` builds
-both from a list of configs. The kernels' constant buffers hold one config
-per batch: ``fused_tick`` raises on per-env values.
+entry under either form. The articulated control chain (the MPC stage, the
+gait clock, the low-level control, the controller state, the plain
+physics step) takes the same ``x_cmd`` and, beside it, a ``per_env`` dict
+that maps any of the :data:`PER_ENV_FIELDS` (the low-level and swing
+gains) and the :data:`MPC_PER_ENV_FIELDS` (the MPC model, weights and
+step, the contact polygon, the Raibert and command-shaping gains, the
+solver numerics) to (N,) tensors, (N, 13) for ``Q`` and (N, 12) for ``R``;
+:func:`config_value` and :func:`config_vector` read one such field under
+either form. A Python branch on such a field becomes a tensor expression
+where the field is per env, as under JAX's vmap; a per-env ``dt`` divides
+where the shared one multiplies by its folded reciprocal
+(``control/gait.py``). ``parallel/sweep.py::stack_configs`` builds both
+from a list of configs. The physics kernels' constant buffers and their
+``dt`` hold one config per batch: ``fused_tick`` and ``fused_substeps``
+raise on per-env values; the QP kernel takes per-env ``rho``, ``sigma``
+and ``alpha``.
 
 State convention (13,): ``[roll, pitch, yaw, px, py, pz, wx, wy, wz, vx, vy,
 vz, 1]`` with angular and linear velocity in the world frame; R =
@@ -189,26 +197,57 @@ def cmd_entry(mpc: MpcConfig, x_cmd, i: int):
     return mpc.x_cmd[i] if x_cmd is None else x_cmd[..., i]
 
 
+# The MpcConfig fields that select the program in JAX (``pytree_node=False``
+# in ``biped_mpc_py_tpu/config.py``): equal across a sweep, as there. Every
+# GaitConfig field is of this kind. Every other field may differ per env.
+STATIC_FIELDS = (
+    "h", "swing_z_sin2", "foot_frame_wrench", "tau_z_max", "mu_z", "cmd_body_frame",
+    "n_admm_iters", "admm_rho_phases", "admm_polish", "kinv_ns_iters",
+    "kinv_bf16_iters", "admm_bf16_matvec", "ruiz_bf16_norms", "ruiz_iters",
+    "compat_foot_ref_bug", "compat_force_box_bug", "compat_ref_col0_bug",
+    "compat_swing_frame_bug", "compat_swing_yaw_bug",
+)
+
 # The float fields that may differ between envs (``per_env``): every gain
 # the articulated low-level control (the first eight) and the swing force
-# (the rest) read.
+# (the rest) read ...
 PER_ENV_FIELDS = (
     "kp_hipyaw", "kd_hipyaw", "hipyaw_target_clip", "tau_yaw_clip",
     "flight_yaw_kd", "hipyaw_rate_lead", "kp_pivot", "kd_pivot",
     "kp_swing", "kd_swing", "swing_height", "swing_td_damp", "swing_track_ff",
     "swing_land_frac", "swing_td_overdrive", "swing_retract", "swing_y_offset",
 )
+# ... and every other dynamic field but ``x_cmd``: the MPC step and weights,
+# the contact polygon's margins, the Raibert and command-shaping gains and
+# the ADMM numerics. ``Q`` and ``R`` are (N, 13) and (N, 12) per env.
+MPC_PER_ENV_FIELDS = (
+    "dt", "Q", "R", "kv", "lf_toe_shrink", "lf_heel_shrink",
+    "raibert_capture_gain", "raibert_am_x", "raibert_am_y", "raibert_pitch_place",
+    "raibert_pitch_nom", "raibert_ff_scale", "raibert_vint", "capture_sched",
+    "pitch_ref_leak", "cmd_leak_yaw", "cmd_v_int_gain", "cmd_v_int_max",
+    "cmd_v_int_ref_scale", "admm_rho", "admm_sigma", "admm_alpha",
+)
 
 
 def config_value(mpc: MpcConfig, name: str, per_env: dict | None = None,
                  dims: int = 0):
-    """Field ``name`` in force: ``getattr(mpc, name)``, a Python float, or
-    with ``per_env[name]`` present that (N,) tensor, followed by ``dims``
-    axes of length 1 so that it broadcasts against (N, ...) operands."""
+    """Field ``name`` in force: ``getattr(mpc, name)`` (a Python float, or
+    for ``Q`` and ``R`` the config's tuple), or with ``per_env[name]``
+    present that (N,) or (N, k) tensor, followed by ``dims`` axes of length
+    1 so that it broadcasts against (N, ...) operands."""
     v = per_env.get(name) if per_env else None
     if v is None:
         return getattr(mpc, name)
     return v.reshape(v.shape + (1,) * dims)
+
+
+def config_vector(mpc: MpcConfig, name: str, per_env: dict | None,
+                  like: torch.Tensor) -> torch.Tensor:
+    """Vector field ``name`` (``Q``, ``R``) in force as a tensor: the
+    config's (k,) on ``like``'s device (:func:`config_tensor`), or the
+    (N, k) ``per_env[name]``."""
+    v = config_value(mpc, name, per_env)
+    return v if isinstance(v, torch.Tensor) else config_tensor(v, like)
 
 
 def config_tensor(values, like: torch.Tensor) -> torch.Tensor:

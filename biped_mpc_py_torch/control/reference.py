@@ -6,7 +6,9 @@ defects the ``compat_*`` flags replicate and for the framework extensions
 (body-frame commands, velocity-integral boost, leaky pitch reference).
 With a ``terrain`` the future foot targets land on the height field. Every
 function that reads the command takes an optional ``x_cmd`` tensor that
-overrides ``mpc.x_cmd`` (``config.py`` describes the mechanism).
+overrides ``mpc.x_cmd``, and a ``per_env`` dict whose (N,) tensors override
+the config's ``dt``, ``kv``, Raibert and command-shaping gains
+(``config.py`` describes the mechanism).
 """
 
 from __future__ import annotations
@@ -15,7 +17,13 @@ import math
 
 import torch
 
-from biped_mpc_py_torch.config import GaitConfig, MpcConfig, cmd_entry, config_tensor
+from biped_mpc_py_torch.config import (
+    GaitConfig,
+    MpcConfig,
+    cmd_entry,
+    config_tensor,
+    config_value,
+)
 from biped_mpc_py_torch.control.gait import phase_time
 
 
@@ -27,6 +35,7 @@ def com_reference(
     v_int: torch.Tensor | None = None,
     pitch_ref: torch.Tensor | None = None,
     x_cmd: torch.Tensor | None = None,
+    per_env: dict | None = None,
 ) -> torch.Tensor:
     """CoM/state reference over the horizon -> (N, 13, h).
 
@@ -37,6 +46,8 @@ def com_reference(
       v_int: (N, 2) velocity-error integral.
       pitch_ref: (N,) leaky pitch reference.
       x_cmd: (12,) or (N, 12) command overriding ``mpc.x_cmd``.
+      per_env: (N,) ``dt``, ``cmd_v_int_ref_scale``, ``pitch_ref_leak``
+        overriding the config's.
     """
     h, n = mpc.h, x_fb.shape[0]
     dtype, device = x_fb.dtype, x_fb.device
@@ -46,14 +57,18 @@ def com_reference(
     v_cmd_raw = x_cmd_t[..., 6:12]  # (6,) or (N,6)
     v_cmd = v_cmd_raw.expand(n, 6)
     if v_int is not None:
-        boost = v_int * mpc.cmd_v_int_ref_scale
+        boost = v_int * config_value(mpc, "cmd_v_int_ref_scale", per_env, 1)
         v_cmd = torch.cat([v_cmd[:, :3], v_cmd[:, 3:5] + boost, v_cmd[:, 5:]], 1)
-    pose_int = x_fb[:, :6, None] + v_cmd[:, :, None] * (ks * mpc.dt)  # (N,6,h)
+    dtk = ks * config_value(mpc, "dt", per_env, 1)  # (h,) or (N,h)
+    pose_int = x_fb[:, :6, None] + v_cmd[:, :, None] * dtk.unsqueeze(-2)  # (N,6,h)
     pose_cmd = x_cmd_t[..., :6].expand(n, 6)
     pose_cmd = torch.cat(
         [pose_cmd[:, :5], (pose_cmd[:, 5] + z_ground).expand(n)[:, None]], 1
     )
-    if pitch_ref is not None and mpc.pitch_ref_leak > 0:
+    leak = config_value(mpc, "pitch_ref_leak", per_env)
+    if pitch_ref is not None and (isinstance(leak, torch.Tensor) or leak > 0):
+        if isinstance(leak, torch.Tensor):  # JAX's branch-free form
+            pitch_ref = torch.where(leak > 0, pitch_ref, pose_cmd[:, 1])
         pose_cmd = torch.cat(
             [pose_cmd[:, :1], pitch_ref[:, None], pose_cmd[:, 2:]], 1
         )
@@ -62,7 +77,6 @@ def com_reference(
     pose = torch.where(integrate, pose_int, pose_hold)
     vel = v_cmd[:, :, None].expand(n, 6, h)
     if mpc.cmd_body_frame:
-        dtk = ks * mpc.dt  # (h,)
         if cmd_ref is None:
             x0a, y0a, yaw0 = x_fb[:, 3:4], x_fb[:, 4:5], x_fb[:, 2:3]
         else:
@@ -103,12 +117,18 @@ def com_reference(
     return x_ref
 
 
-def _raibert_xy(x_fb: torch.Tensor, mpc: MpcConfig, lookahead: float,
+def _raibert_xy(x_fb: torch.Tensor, mpc: MpcConfig, lookahead,
                 v_int: torch.Tensor | None = None,
-                x_cmd: torch.Tensor | None = None):
+                x_cmd: torch.Tensor | None = None,
+                per_env: dict | None = None):
     """Raibert foot target ``p + v T_eff + kv (p - p_cmd)`` -> (fx, fy),
-    each (N,)."""
-    ff = 0.5 * lookahead * mpc.raibert_ff_scale
+    each (N,). ``lookahead``: a float or (N,); ``per_env``: the gains as
+    (N,) tensors overriding the config's."""
+
+    def gain(name):
+        return config_value(mpc, name, per_env)
+
+    ff = 0.5 * lookahead * gain("raibert_ff_scale")
     cmd_vx, cmd_vy = cmd_entry(mpc, x_cmd, 9), cmd_entry(mpc, x_cmd, 10)
     if mpc.cmd_body_frame:
         yaw = x_fb[:, 2]
@@ -117,22 +137,24 @@ def _raibert_xy(x_fb: torch.Tensor, mpc: MpcConfig, lookahead: float,
         kv_x = kv_y = 0.0
     else:
         vcx, vcy = cmd_vx, cmd_vy
-        kv_x = mpc.kv * (x_fb[:, 3] - cmd_entry(mpc, x_cmd, 3))
-        kv_y = mpc.kv * (x_fb[:, 4] - cmd_entry(mpc, x_cmd, 4))
+        kv_x = gain("kv") * (x_fb[:, 3] - cmd_entry(mpc, x_cmd, 3))
+        kv_y = gain("kv") * (x_fb[:, 4] - cmd_entry(mpc, x_cmd, 4))
     v_err = torch.sqrt((x_fb[:, 9] - vcx) ** 2 + (x_fb[:, 10] - vcy) ** 2)
-    gain = torch.clamp(mpc.raibert_capture_gain + mpc.capture_sched * v_err, max=1.0)
+    capture = torch.clamp(
+        gain("raibert_capture_gain") + gain("capture_sched") * v_err, max=1.0
+    )
     if x_cmd is None:
-        kc = gain * math.sqrt(max(mpc.x_cmd[5], 0.0) / 9.81)
+        kc = capture * math.sqrt(max(mpc.x_cmd[5], 0.0) / 9.81)
     else:
-        kc = gain * torch.sqrt(torch.clamp(x_cmd[..., 5], min=0.0) / 9.81)
-    vx_m = x_fb[:, 9] + mpc.raibert_am_y * x_fb[:, 7]
-    vy_m = x_fb[:, 10] - mpc.raibert_am_x * x_fb[:, 6]
-    pp = mpc.raibert_pitch_place * (x_fb[:, 1] - mpc.raibert_pitch_nom)
+        kc = capture * torch.sqrt(torch.clamp(x_cmd[..., 5], min=0.0) / 9.81)
+    vx_m = x_fb[:, 9] + gain("raibert_am_y") * x_fb[:, 7]
+    vy_m = x_fb[:, 10] - gain("raibert_am_x") * x_fb[:, 6]
+    pp = gain("raibert_pitch_place") * (x_fb[:, 1] - gain("raibert_pitch_nom"))
     fx = x_fb[:, 3] + vx_m * ff + kc * (vx_m - vcx) + kv_x + pp
     fy = x_fb[:, 4] + vy_m * ff + kc * (vy_m - vcy) + kv_y
     if v_int is not None:
-        fx = fx - mpc.raibert_vint * v_int[:, 0]
-        fy = fy - mpc.raibert_vint * v_int[:, 1]
+        fx = fx - gain("raibert_vint") * v_int[:, 0]
+        fy = fy - gain("raibert_vint") * v_int[:, 1]
     return fx, fy
 
 
@@ -146,6 +168,7 @@ def foot_reference(
     terrain=None,
     v_int: torch.Tensor | None = None,
     x_cmd: torch.Tensor | None = None,
+    per_env: dict | None = None,
 ) -> torch.Tensor:
     """Foot-position reference over the horizon -> (N, 6, h).
 
@@ -158,17 +181,19 @@ def foot_reference(
     Args:
       foot: (N, 6) current world foot positions.
       contact: (N, h, 2) contact flags.
+      per_env: (N,) ``dt``, ``kv`` and Raibert gains overriding the
+        config's.
     """
     n, h = x_fb.shape[0], mpc.h
-    t_p = phase_time(mpc, gait)
-    fx1, fy1 = _raibert_xy(x_fb, mpc, t_p, v_int, x_cmd)
-    fx2, fy2 = _raibert_xy(x_fb, mpc, 2.0 * t_p, v_int, x_cmd)
+    t_p = phase_time(mpc, gait, per_env)
+    fx1, fy1 = _raibert_xy(x_fb, mpc, t_p, v_int, x_cmd, per_env)
+    fx2, fy2 = _raibert_xy(x_fb, mpc, 2.0 * t_p, v_int, x_cmd, per_env)
     if mpc.compat_foot_ref_bug:
         # reference ``:87``: x_fb[10] in place of x_fb[4]
         fy2 = (
             x_fb[:, 10]
-            + x_fb[:, 10] * 0.5 * mpc.h * mpc.dt
-            + mpc.kv * (x_fb[:, 4] - cmd_entry(mpc, x_cmd, 4))
+            + x_fb[:, 10] * 0.5 * mpc.h * config_value(mpc, "dt", per_env)
+            + config_value(mpc, "kv", per_env) * (x_fb[:, 4] - cmd_entry(mpc, x_cmd, 4))
         )
     if terrain is None:
         z1 = torch.zeros_like(fx1)

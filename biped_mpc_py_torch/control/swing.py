@@ -4,7 +4,8 @@
 The Raibert target with its stance-width offset, the swing height profile
 and the swing PD force, batched over envs; ``side`` is +1 for the left leg
 (leg 0) and -1 for the right. ``per_env`` maps swing gains to (N,)
-tensors that override the config's (``config.config_value``).
+tensors that override the config's (``config.config_value``), the MPC
+step ``dt`` and the Raibert gains included.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ def swing_target_xy(
     stance-width offset rotated by the heading predicted at mid-touchdown
     (``compat_swing_yaw_bug`` adds it in world y, as the reference does).
     ``x_cmd`` ((12,) or (N,12)) overrides ``mpc.x_cmd``."""
-    t_p = phase_time(mpc, gait)
-    fx, fy = _raibert_xy(x_fb, mpc, t_p, v_int, x_cmd)
+    t_p = phase_time(mpc, gait, per_env)
+    fx, fy = _raibert_xy(x_fb, mpc, t_p, v_int, x_cmd, per_env)
     if mpc.compat_swing_yaw_bug:
         return fx, fy + Y_OFFSET * side
     yaw = x_fb[:, 2] + cmd_entry(mpc, x_cmd, 8) * 0.5 * t_p
@@ -50,13 +51,13 @@ def swing_phase_z(t: torch.Tensor, mpc: MpcConfig, gait: GaitConfig | None,
     if gait is not None and gait.flight_steps > 0:
         if side is None:
             raise ValueError("running gait needs the per-leg clock (side)")
-        frac, _ = swing_clock(t, mpc, gait, side, dtype)
+        frac, _ = swing_clock(t, mpc, gait, side, dtype, per_env)
         frac = torch.clamp(frac / config_value(mpc, "swing_land_frac", per_env), 0.0, 1.0)
         s = torch.sin(math.pi * frac)
         if mpc.swing_z_sin2:
             return height * s * s
         return height * s
-    t_p = phase_time(mpc, gait)
+    t_p = phase_time(mpc, gait, per_env)
     t_phase = torch.remainder(t.to(dtype), t_p)
     s = torch.sin(math.pi * t_phase / t_p)
     if mpc.swing_z_sin2:
@@ -72,7 +73,7 @@ def swing_phase_z_vel(t: torch.Tensor, mpc: MpcConfig, gait: GaitConfig | None,
         if side is None:
             raise ValueError("running gait needs the per-leg clock (side)")
         land_frac = config_value(mpc, "swing_land_frac", per_env)
-        frac, T_sw = swing_clock(t, mpc, gait, side, dtype)
+        frac, T_sw = swing_clock(t, mpc, gait, side, dtype, per_env)
         g = frac / land_frac
         rate = math.pi / (T_sw * land_frac)
         gc = torch.clamp(g, 0.0, 1.0)
@@ -81,7 +82,7 @@ def swing_phase_z_vel(t: torch.Tensor, mpc: MpcConfig, gait: GaitConfig | None,
         else:
             dz = height * rate * torch.cos(math.pi * gc)
         return torch.where(g < 1.0, dz, torch.zeros_like(dz))
-    t_p = phase_time(mpc, gait)
+    t_p = phase_time(mpc, gait, per_env)
     u = torch.remainder(t.to(dtype), t_p)
     rate = math.pi / t_p
     if mpc.swing_z_sin2:
@@ -112,9 +113,9 @@ def swing_leg_force(
         fz = fz + terrain.height(fx, fy)
     foot_des = torch.stack([fx, fy, fz], -1)
     if gait is not None and gait.flight_steps > 0:
-        frac, _ = swing_clock(t, mpc, gait, side, dtype)
+        frac, _ = swing_clock(t, mpc, gait, side, dtype, per_env)
     else:
-        t_p = phase_time(mpc, gait)
+        t_p = phase_time(mpc, gait, per_env)
         frac = torch.remainder(t.to(dtype), t_p) / t_p
     ramp = torch.square(torch.clamp((frac - 0.6) / 0.4, 0.0, 1.0))
     yaw = x_fb[:, 2]

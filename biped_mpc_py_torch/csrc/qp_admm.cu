@@ -11,6 +11,13 @@
 //   optional polish: rho_pol = 1e4 on the detected active rows, a second
 //   NS inverse, 3 augmented-Lagrangian steps, exact-penalty merit accept.
 //
+// rho, sigma and alpha are one value per launch, or one per env (a config
+// sweep gives each env its own ADMM numerics): a non-null per-env pointer
+// replaces the scalar argument, and each CTA reads its env's three floats
+// once, before the phase loop. The equality boost and the OSQP re-pick then
+// start from the env's own rho. One env per CTA, so an env's result does not
+// depend on the other envs' values.
+//
 // The algorithm is that of the plain version fused_qp_solve_reference in
 // ops/cuda/qp_kernel.py (the scaled core of ops/qp.py::solve_qp in the JAX
 // package); the two differ in f32 summation order, and the Newton-Schulz
@@ -528,7 +535,9 @@ qp_admm_kernel(const float* __restrict__ P_all, const float* __restrict__ Ah_all
                const float* __restrict__ z0_all, const float* __restrict__ y0_all,
                float* __restrict__ x_out, float* __restrict__ z_out,
                float* __restrict__ y_out, int h, int ms, float rho, float sigma,
-               float alpha, int n_iters, int n_phases, int ns_iters, int polish) {
+               float alpha, const float* __restrict__ rho_env,
+               const float* __restrict__ sigma_env, const float* __restrict__ alpha_env,
+               int n_iters, int n_phases, int ns_iters, int polish) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* Km = smem;
@@ -565,6 +574,9 @@ qp_admm_kernel(const float* __restrict__ P_all, const float* __restrict__ Ah_all
   const int M = h * ms;
   const long env = blockIdx.x;
   const float* P = P_all + env * n * n;
+  if (rho_env != nullptr) rho = rho_env[env];
+  if (sigma_env != nullptr) sigma = sigma_env[env];
+  if (alpha_env != nullptr) alpha = alpha_env[env];
 
   static_assert(kSmemFloats % 4 == 0, "shared memory zeroed as float4");
   for (int i = tid; i < kSmemFloats / 4; i += kThreads) smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -682,14 +694,17 @@ qp_admm_kernel(const float* __restrict__ P_all, const float* __restrict__ Ah_all
 }  // namespace
 
 // Launch on `stream` (a cudaStream_t; 0 = the legacy default stream) of
-// device `device`. Returns the cudaError_t of the launch (0 = success); the
+// device `device`. rho_env, sigma_env, alpha_env: null, or n_env floats on
+// the device that replace rho, sigma, alpha per env. Returns the cudaError_t of the launch (0 = success); the
 // kernel allocates nothing and does not synchronize.
 extern "C" int qp_admm_solve(const float* P, const float* Ah, const float* q,
                              const float* l, const float* u, const float* x0,
                              const float* z0, const float* y0, float* x, float* z,
                              float* y, int n_env, int h, int ms, float rho,
-                             float sigma, float alpha, int n_iters, int n_phases,
-                             int ns_iters, int polish, int device, void* stream) {
+                             float sigma, float alpha, const float* rho_env,
+                             const float* sigma_env, const float* alpha_env,
+                             int n_iters, int n_phases, int ns_iters, int polish,
+                             int device, void* stream) {
   if (h < 1 || h > kHMax || ms < 1 || ms > kMsMax || n_phases < 1 || n_iters < 0 ||
       ns_iters < 0 || n_env < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -701,8 +716,8 @@ extern "C" int qp_admm_solve(const float* P, const float* Ah, const float* q,
                              smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   qp_admm_kernel<<<n_env, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      P, Ah, q, l, u, x0, z0, y0, x, z, y, h, ms, rho, sigma, alpha, n_iters,
-      n_phases, ns_iters, polish);
+      P, Ah, q, l, u, x0, z0, y0, x, z, y, h, ms, rho, sigma, alpha, rho_env, sigma_env,
+      alpha_env, n_iters, n_phases, ns_iters, polish);
   return static_cast<int>(cudaGetLastError());
 }
 

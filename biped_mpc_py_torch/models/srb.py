@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from biped_mpc_py_torch.config import MpcConfig
+from biped_mpc_py_torch.config import MpcConfig, config_value
 from biped_mpc_py_torch.models.biped import BipedParams
 from biped_mpc_py_torch.ops.linalg3 import inv3, mm3, mtm3
 from biped_mpc_py_torch.ops.rotations import eul2rotm, euler_rate_matrix_inv, skew
@@ -29,6 +29,7 @@ def linearize(
     biped: BipedParams,
     x_ref: torch.Tensor,
     foot_ref: torch.Tensor,
+    per_env: dict | None = None,
 ):
     """Linearization -> (A (..., 13, 13), B (..., 13, 12)).
 
@@ -36,6 +37,7 @@ def linearize(
       x_ref: (N, ..., 13) reference states; the first axis is the env axis
         that ``biped``'s fields carry.
       foot_ref: (N, ..., 6) both feet's world positions.
+      per_env: an (N,) ``"dt"`` overriding the config's step.
     """
     dtype, device = x_ref.dtype, x_ref.device
     batch = x_ref.shape[:-1]
@@ -56,7 +58,9 @@ def linearize(
     g_col = torch.stack(
         [torch.zeros_like(g), torch.zeros_like(g), -g], -1
     ).expand(batch + (3,))[..., None]
-    dt = mpc.dt
+    dt = config_value(mpc, "dt", per_env)
+    if isinstance(dt, torch.Tensor):
+        dt = _per_env(dt.to(dtype), nb)[..., None, None]  # against (N, ..., 3, 3)
     row0 = torch.cat([eye3, z33, E_inv * dt, z33, z31], dim=-1)
     row1 = torch.cat([z33, eye3, z33, eye3 * dt, z31], dim=-1)
     row2 = torch.cat([z33, z33, eye3, z33, z31], dim=-1)
@@ -72,7 +76,7 @@ def linearize(
     r2 = foot_ref[..., 3:6] - x_ref[..., 3:6]
     Iinv_dt = I_w_inv * dt
     m = _per_env(biped.m.to(dtype), nb)
-    m_eye = eye3 * (dt / m)[..., None, None]
+    m_eye = eye3 * (dt / m[..., None, None])
     z3_12 = torch.zeros(batch + (3, 12), dtype=dtype, device=device)
     brow2 = torch.cat(
         [mm3(Iinv_dt, skew(r1)), mm3(Iinv_dt, skew(r2)), Iinv_dt, Iinv_dt],
@@ -92,11 +96,13 @@ def linearize_horizon(
     biped: BipedParams,
     x_ref: torch.Tensor,
     foot_ref: torch.Tensor,
+    per_env: dict | None = None,
 ):
     """All h horizon steps of every env -> (A (N, h, 13, 13), B (N, h, 13, 12)).
 
     Args:
       x_ref: (N, 13, h) state reference.
       foot_ref: (N, 6, h) foot reference.
+      per_env: an (N,) ``"dt"`` overriding the config's step.
     """
-    return linearize(mpc, biped, x_ref.transpose(1, 2), foot_ref.transpose(1, 2))
+    return linearize(mpc, biped, x_ref.transpose(1, 2), foot_ref.transpose(1, 2), per_env)

@@ -12,7 +12,9 @@ u - l < 1e-6 get ρ ×1e3), inverts K by Jacobi-preconditioned Newton-Schulz,
 runs ``n_iters // n_phases`` over-relaxed ADMM steps, and re-picks ρ from the
 residual ratio (OSQP rule, clipped to [1e-2, 1e2]). An optional active-set
 polish follows (ρ_pol = 1e4, a second inverse, 3 augmented-Lagrangian steps,
-accepted by an exact-penalty merit).
+accepted by an exact-penalty merit). The ADMM numerics ``rho``, ``sigma``
+and ``alpha`` are each one float for the batch or an (N,) tensor, one value
+per env (a config sweep's); the kernel reads an env's own values.
 
 Tensors on the card go to the CUDA kernel in ``csrc/qp_admm.cu``, built with
 ``nvcc`` into ``build/torch_kernels/`` at first use and loaded with ctypes
@@ -44,7 +46,8 @@ def _load():
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         _lib = build.load(SOURCE, {
             "qp_admm_solve": (
-                [ptr] * 11 + [i32] * 3 + [f32] * 3 + [i32] * 4 + [i32, ptr], i32,
+                [ptr] * 11 + [i32] * 3 + [f32] * 3 + [ptr] * 3 + [i32] * 4 + [i32, ptr],
+                i32,
             ),
             "qp_admm_error_string": ([i32], ctypes.c_char_p),
         })
@@ -72,6 +75,29 @@ def _check(P, Ah, q, l, u, x0, z0, y0):
     return n_env, h, m, nu
 
 
+def _check_numerics(P, **values):
+    """Each ADMM numeric is a number or a contiguous f32 (N,) tensor on
+    P's device."""
+    for name, v in values.items():
+        if not isinstance(v, torch.Tensor):
+            continue
+        if v.device != P.device:
+            raise ValueError(f"{name} is on {v.device}, P on {P.device}")
+        if v.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {v.dtype}")
+        if tuple(v.shape) != (P.shape[0],):
+            raise ValueError(f"{name} has shape {tuple(v.shape)}, want ({P.shape[0]},)")
+        if not v.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _scalar_and_pointer(v):
+    """(the float argument, the per-env pointer or None) of one numeric."""
+    if isinstance(v, torch.Tensor):
+        return 0.0, v.data_ptr()
+    return float(v), None
+
+
 def fused_qp_solve(P, Ah, q, l, u, x0, z0, y0, *, rho, n_iters, n_phases,
                    ns_iters, sigma, alpha, polish):
     """Solve a batch of Ruiz-scaled box QPs -> (x (N,n), z (N,h,m),
@@ -81,12 +107,15 @@ def fused_qp_solve(P, Ah, q, l, u, x0, z0, y0, *, rho, n_iters, n_phases,
       P: (N,n,n) scaled Hessian, n = 12h.
       Ah: (N,h,m,12) scaled per-step constraint blocks.
       q: (N,n); l, u: (N,h,m) scaled bounds; x0, z0, y0: warm start.
+      rho, sigma, alpha: floats, or (N,) f32 tensors on P's device that
+        give each env its own (the rho re-pick starts from the env's rho).
 
     CUDA tensors launch the kernel (and count the launch in
     ``fused_qp_solve.launches``); CPU tensors run
     :func:`fused_qp_solve_reference`.
     """
     n_env, h, m, nu = _check(P, Ah, q, l, u, x0, z0, y0)
+    _check_numerics(P, rho=rho, sigma=sigma, alpha=alpha)
     if n_phases < 1:
         raise ValueError("n_phases must be >= 1")
     if P.device.type == "cpu":
@@ -111,9 +140,11 @@ def fused_qp_solve(P, Ah, q, l, u, x0, z0, y0, *, rho, n_iters, n_phases,
         return x, z, y
     lib = _load()
     stream = torch.cuda.current_stream(P.device).cuda_stream
+    (rho_f, rho_p), (sigma_f, sigma_p), (alpha_f, alpha_p) = (
+        _scalar_and_pointer(v) for v in (rho, sigma, alpha))
     rc = lib.qp_admm_solve(
         *[t.data_ptr() for t in (P, Ah, q, l, u, x0, z0, y0, x, z, y)],
-        n_env, h, m, float(rho), float(sigma), float(alpha),
+        n_env, h, m, rho_f, sigma_f, alpha_f, rho_p, sigma_p, alpha_p,
         int(n_iters), int(n_phases), int(ns_iters), int(bool(polish)),
         P.device.index if P.device.index is not None else torch.cuda.current_device(),
         stream,
@@ -156,17 +187,26 @@ def fused_qp_solve_reference(P, Ah, q, l, u, x0, z0, y0, *, rho, n_iters,
 
     The scaled core of the JAX ``solve_qp`` (``qp.py:547-680``) on per-step
     blocks; the CPU tests hold it against the JAX package and the card
-    holds the kernel against it.
+    holds the kernel against it. ``rho``, ``sigma`` and ``alpha`` enter as
+    (N,1,1) f32 columns whether given as floats or per env, so a float and
+    an (N,) tensor of its value run the same arithmetic (the kernel's: f32
+    throughout, ``1 - alpha`` included).
     """
     from biped_mpc_py_torch.ops.qp import ns_inverse
 
     n_env, h, m, nu = Ah.shape
     n = h * nu
+
+    def column(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(P.dtype).reshape(n_env, 1, 1)
+        return torch.full((n_env, 1, 1), float(v), dtype=P.dtype, device=P.device)
+
+    rho_s, sigma, alpha = column(rho), column(sigma), column(alpha)
     is_eq = (u - l) < 1e-6
     qs = q.reshape(n_env, h, nu)
     x = x0.reshape(n_env, h, nu)
     z, y = z0, y0
-    rho_s = torch.full((n_env, 1, 1), float(rho), dtype=P.dtype, device=P.device)
     eps = 1e-8
     iters_per_phase = max(1, n_iters // n_phases)
 

@@ -119,16 +119,21 @@ def fused_substeps(model: ArticulatedModel, state: ArtState, tau: torch.Tensor,
       state: ArtState with a leading env axis N (any N).
       tau: (N,10) joint torques, held across the substeps.
       Minv: (N,16,16) held mass-matrix inverse.
-      dt: the full period [s].
+      dt: the full period [s], one float for the batch.
       terrain: must be None. The kernel knows the plane z = 0 only, as the
         TPU kernel does; a height field runs ``art_step``'s plain chain.
 
     CUDA tensors launch the kernel (and count the launch in
     ``fused_substeps.launches``); CPU tensors run
-    :func:`fused_substeps_reference`. Raises ValueError on a terrain.
+    :func:`fused_substeps_reference`. Raises ValueError on a terrain and on
+    a per-env ``dt`` (a tensor): the kernel takes one step per launch, and
+    a sweep over ``dt`` runs ``art_step``'s plain chain.
     """
     if terrain is not None:
         raise ValueError("the substep kernel runs on flat ground only (terrain is None)")
+    if isinstance(dt, torch.Tensor):
+        raise ValueError("the substep kernel takes one dt per launch, not a per-env "
+                         "tensor (run art_closed_loop_tick)")
     n = _check(state, tau, Minv)
     if n_steps < 1:
         raise ValueError("n_steps must be >= 1")

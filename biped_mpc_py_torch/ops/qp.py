@@ -11,6 +11,9 @@ start into the scaled space, runs the scaled ADMM core
 (:func:`biped_mpc_py_torch.ops.cuda.qp_kernel.fused_qp_solve`: the CUDA
 kernel for tensors on the card, its plain PyTorch version for tensors on
 the CPU), then unscales and recovers the predicted states and residuals.
+A ``per_env`` dict (``config.py``) gives each env its own weights ``Q``
+(N,13) and ``R`` (N,12), line-foot margins and ADMM ``rho``, ``sigma`` and
+``alpha`` (N,), which the kernel reads per env.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import dataclasses
 
 import torch
 
-from biped_mpc_py_torch.config import MpcConfig, config_tensor
+from biped_mpc_py_torch.config import MpcConfig, config_tensor, config_value, config_vector
 from biped_mpc_py_torch.models.biped import BipedParams
 from biped_mpc_py_torch.ops.cuda.qp_kernel import fused_qp_solve
 from biped_mpc_py_torch.ops.linalg3 import mm3
@@ -107,7 +110,8 @@ def line_foot_rows(
 
     ``R`` (N,3,3) is the body attitude; ``foot_yaw`` (N,2) absolute foot
     headings turn the rows into each planted foot's frame
-    ``Rz(psi - yaw) @ R``; ``shrink`` = (toe, heel) lever-arm margins.
+    ``Rz(psi - yaw) @ R``; ``shrink`` = (toe, heel) lever-arm margins,
+    each a float or (N,).
     """
     toe_s, heel_s = (0.01, 0.02) if shrink is None else shrink
     lt = (biped.lt.to(R.dtype) - toe_s)[:, None]
@@ -180,6 +184,7 @@ def condense(
     B: torch.Tensor,
     contact: torch.Tensor,
     foot_yaw: torch.Tensor | None = None,
+    per_env: dict | None = None,
 ) -> CondensedQp:
     """Condensed QP from the horizon linearization (``qp.py:266``).
 
@@ -193,6 +198,8 @@ def condense(
       x_ref: (N,13,h) state references.
       A: (N,h,13,13), B: (N,h,13,12) from ``linearize_horizon``.
       contact: (N,h,2) contact flags.
+      per_env: ``Q`` (N,13), ``R`` (N,12), ``lf_toe_shrink`` and
+        ``lf_heel_shrink`` (N,) overriding the config's.
     """
     n = x_fb.shape[0]
     h, nx, nu = mpc.h, 13, 12
@@ -236,13 +243,13 @@ def condense(
         Sx = torch.stack(sx_rows, 1)
         Su = torch.stack(su_rows, 1)
 
-    Qd = config_tensor(mpc.Q, A)  # (13,)
-    Rd = config_tensor(mpc.R, A)  # (12,)
+    Qd = config_vector(mpc, "Q", per_env, A)  # (13,) or (N,13)
+    Rd = config_vector(mpc, "R", per_env, A)  # (12,) or (N,12)
     # P = Suᵀ Q̄ Su + R̄ ; q = Suᵀ Q̄ (Sx x0 - xref)
-    SuQ = Su * Qd[:, None]
+    SuQ = Su * (Qd[:, None, :, None] if Qd.dim() == 2 else Qd[:, None])
     Su_flat = Su.reshape(n, h * nx, nu * h)
     SuQ_flat = SuQ.reshape(n, h * nx, nu * h)
-    P = SuQ_flat.transpose(1, 2) @ Su_flat + torch.diag(Rd.repeat(h))
+    P = SuQ_flat.transpose(1, 2) @ Su_flat + torch.diag_embed(Rd.tile((h,)))
     free = torch.einsum("nkij,nj->nki", Sx, x0) - x_ref.transpose(1, 2)  # (N,h,13)
     q = (SuQ_flat.transpose(1, 2) @ free.reshape(n, h * nx, 1))[..., 0]
 
@@ -255,7 +262,8 @@ def condense(
         friction_rows(biped.mu).to(dtype),
         box,
         line_foot_rows(
-            biped, R, foot_yaw, shrink=(mpc.lf_toe_shrink, mpc.lf_heel_shrink)
+            biped, R, foot_yaw, shrink=(config_value(mpc, "lf_toe_shrink", per_env),
+                                        config_value(mpc, "lf_heel_shrink", per_env)),
         ),
     ]
     if mpc.mu_z is not None:
@@ -403,13 +411,18 @@ def ruiz_equilibrate(qp: CondensedQp, n_iters: int = 10):
     return Ph, qh, Ah, E * qp.l, E * qp.u, D, E, c
 
 
-def solver_args(mpc: MpcConfig) -> dict:
+def solver_args(mpc: MpcConfig, per_env: dict | None = None) -> dict:
     """The ADMM budget of ``mpc`` as keyword arguments of
-    ``fused_qp_solve``."""
+    ``fused_qp_solve``: ``rho``, ``sigma`` and ``alpha`` are floats, or the
+    (N,) ``per_env`` tensors where given."""
+    def numeric(name):
+        v = config_value(mpc, name, per_env)
+        return v if isinstance(v, torch.Tensor) else float(v)
+
     return dict(
-        rho=float(mpc.admm_rho), n_iters=mpc.n_admm_iters,
+        rho=numeric("admm_rho"), n_iters=mpc.n_admm_iters,
         n_phases=mpc.admm_rho_phases, ns_iters=mpc.kinv_ns_iters,
-        sigma=float(mpc.admm_sigma), alpha=float(mpc.admm_alpha),
+        sigma=numeric("admm_sigma"), alpha=numeric("admm_alpha"),
         polish=bool(mpc.admm_polish),
     )
 
@@ -457,7 +470,8 @@ def recover_solution(qp: CondensedQp, x, z, y, D, E, c) -> QpSolution:
 
 
 def solve_qp(
-    qp: CondensedQp, mpc: MpcConfig, warm: QpSolution | None = None
+    qp: CondensedQp, mpc: MpcConfig, warm: QpSolution | None = None,
+    per_env: dict | None = None,
 ) -> QpSolution:
     """Fixed-budget ADMM (BoxOSQP) solve of a batch of condensed QPs.
 
@@ -465,8 +479,10 @@ def solve_qp(
     (``qp.py:701``): Ruiz scaling, warm-start mapping, the scaled core in
     one ``fused_qp_solve`` call, unscaling. The device of the tensors picks
     the core (the CUDA kernel on the card, the plain version on the CPU).
+    ``per_env``: (N,) ``admm_rho``, ``admm_sigma``, ``admm_alpha``
+    overriding the config's, one value per env in the one launch.
     """
     Ph, qh, Ah, lh, uh, D, E, c = ruiz_equilibrate(qp, mpc.ruiz_iters)
     x0, z0, y0 = scaled_warm_start(warm, D, E, c, Ph.shape[-1])
-    x, z, y = fused_qp_solve(Ph, Ah, qh, lh, uh, x0, z0, y0, **solver_args(mpc))
+    x, z, y = fused_qp_solve(Ph, Ah, qh, lh, uh, x0, z0, y0, **solver_args(mpc, per_env))
     return recover_solution(qp, x, z, y, D, E, c)

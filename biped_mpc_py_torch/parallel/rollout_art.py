@@ -37,7 +37,7 @@ import dataclasses
 
 import torch
 
-from biped_mpc_py_torch.config import GaitConfig, MpcConfig
+from biped_mpc_py_torch.config import GaitConfig, MpcConfig, config_value
 from biped_mpc_py_torch.control.controller import (
     ControllerState,
     advance_cmd_ref,
@@ -166,36 +166,41 @@ def init_art_world(mpc: MpcConfig, n: int = 1, device=DEFAULT_DEVICE,
 
 def _art_control_stage(world: ArtWorld, biped: BipedParams, mpc: MpcConfig,
                        gait: GaitConfig, model: ArticulatedModel, terrain=None,
-                       x_cmd: torch.Tensor | None = None):
+                       x_cmd: torch.Tensor | None = None,
+                       per_env: dict | None = None):
     """The MPC stage of a tick (``rollout_art.py:419``): feedback -> gait
     clock -> contact schedule -> solve_mpc. Returns (x_fb, t_g, hold,
-    contact, sol). ``x_cmd`` ((12,) or (N,12)) overrides ``mpc.x_cmd``."""
+    contact, sol). ``x_cmd`` ((12,) or (N,12)) overrides ``mpc.x_cmd``,
+    ``per_env`` the config's other fields (``config.py``)."""
     sim = world.sim
     x_fb, pf_w = feedback_and_soles(model, sim)
     if gait.contact_clock:
         down = measured_contact(pf_w, terrain, gait)
         t_g, hold = advance_gait_clock(
-            world.ctrl.t_gait, world.ctrl.hold_count, down, mpc, gait
+            world.ctrl.t_gait, world.ctrl.hold_count, down, mpc, gait, per_env
         )
     else:
         t_g, hold = sim.t, world.ctrl.hold_count
-    contact = contact_sequence(t_g, mpc, gait)
+    contact = contact_sequence(t_g, mpc, gait, per_env)
     foot_yaw = x_fb[:, 2:3] + sim.q[:, [0, 5]] if mpc.foot_frame_wrench else None
     sol = solve_mpc(
         x_fb, t_g, pf_w, mpc, biped, contact, warm=world.ctrl.qp, gait=gait,
         cmd_ref=world.ctrl.cmd_ref, foot_yaw=foot_yaw, terrain=terrain,
         v_int=world.ctrl.v_int, pitch_ref=world.ctrl.pitch_ref, x_cmd=x_cmd,
+        per_env=per_env,
     )
     return x_fb, t_g, hold, contact, sol
 
 
 def _art_post_stage(world: ArtWorld, sim_new: ArtState, energy, x_fb, sol,
                     t_g, hold, mpc: MpcConfig,
-                    x_cmd: torch.Tensor | None = None) -> ArtWorld:
+                    x_cmd: torch.Tensor | None = None,
+                    per_env: dict | None = None) -> ArtWorld:
     """Fall reset, controller-state advance and metrics
     (``rollout_art.py:446``). A fallen env restarts standing with a cold
     controller; its clock runs on. ``x_cmd`` ((12,) or (N,12)) overrides
-    ``mpc.x_cmd``, the metrics' command included."""
+    ``mpc.x_cmd``, the metrics' command included; ``per_env`` the config's
+    other fields."""
     n, dtype, device = x_fb.shape[0], x_fb.dtype, x_fb.device
     z = sim_new.pos[:, 2]
     fell = (z < FALL_Z_MIN) | (z > FALL_Z_MAX)
@@ -204,10 +209,10 @@ def _art_post_stage(world: ArtWorld, sim_new: ArtState, energy, x_fb, sol,
     )
     ctrl = ControllerState(
         qp=sol,
-        cmd_ref=advance_cmd_ref(world.ctrl.cmd_ref, x_fb, mpc, x_cmd),
-        v_int=advance_v_int(world.ctrl.v_int, x_fb, mpc, x_cmd),
+        cmd_ref=advance_cmd_ref(world.ctrl.cmd_ref, x_fb, mpc, x_cmd, per_env),
+        v_int=advance_v_int(world.ctrl.v_int, x_fb, mpc, x_cmd, per_env),
         t_gait=t_g.to(dtype), hold_count=hold,
-        pitch_ref=advance_pitch_ref(world.ctrl.pitch_ref, x_fb, mpc),
+        pitch_ref=advance_pitch_ref(world.ctrl.pitch_ref, x_fb, mpc, per_env),
     )
     metrics = world.metrics.update(
         sim_new.torso_state(), mpc.x_cmd if x_cmd is None else x_cmd,
@@ -215,7 +220,7 @@ def _art_post_stage(world: ArtWorld, sim_new: ArtState, energy, x_fb, sol,
     )
     return ArtWorld(
         sim=sim_new.where(fell, reset),
-        ctrl=ctrl.where(fell, ControllerState.init(mpc, n, device, dtype, x_cmd)),
+        ctrl=ctrl.where(fell, ControllerState.init(mpc, n, device, dtype, x_cmd, per_env)),
         metrics=metrics,
     )
 
@@ -237,19 +242,19 @@ def _art_tick(world: ArtWorld, biped: BipedParams, mpc: MpcConfig,
               x_cmd: torch.Tensor | None = None,
               per_env: dict | None = None) -> ArtWorld:
     """One tick; ``physics(sim, tau, Minv, ll_dt)`` advances a low-level
-    period. The MPC stage and the low-level control take their references
-    from ``terrain``; the ground under ``physics`` is the caller's.
-    ``x_cmd`` and the ``per_env`` gains override the config's
-    (``config.py``)."""
+    period (``ll_dt`` a float, or (N,) with a per-env ``dt``). The MPC
+    stage and the low-level control take their references from
+    ``terrain``; the ground under ``physics`` is the caller's. ``x_cmd``
+    and ``per_env`` override the config's fields (``config.py``)."""
     if n_lowlevel % minv_ll_hold:
         raise ValueError(
             f"n_lowlevel {n_lowlevel} is not a multiple of minv_ll_hold {minv_ll_hold}"
         )
     x_fb, t_g, hold, contact, sol = _art_control_stage(
-        world, biped, mpc, gait, model, terrain, x_cmd
+        world, biped, mpc, gait, model, terrain, x_cmd, per_env
     )
     u0 = sol.controls[:, 0]
-    ll_dt = mpc.dt / n_lowlevel
+    ll_dt = config_value(mpc, "dt", per_env) / n_lowlevel
     sim = world.sim
     t0 = sim.t
     energy = torch.zeros_like(t0)
@@ -265,7 +270,7 @@ def _art_tick(world: ArtWorld, biped: BipedParams, mpc: MpcConfig,
             # positive mechanical joint work this period (metrics.energy)
             energy = energy + torch.sum(torch.clamp(tau * sim.qd, min=0.0), 1) * ll_dt
             sim = physics(sim, tau, Minv, ll_dt)
-    return _art_post_stage(world, sim, energy, x_fb, sol, t_g, hold, mpc, x_cmd)
+    return _art_post_stage(world, sim, energy, x_fb, sol, t_g, hold, mpc, x_cmd, per_env)
 
 
 def art_closed_loop_tick(world: ArtWorld, mpc: MpcConfig, gait: GaitConfig,
@@ -280,10 +285,11 @@ def art_closed_loop_tick(world: ArtWorld, mpc: MpcConfig, gait: GaitConfig,
     once per tick. ``terrain``: the :class:`Terrain` under the robots (one
     field for all, or one per env), None = the plane z = 0; contact, the
     measured contact, the CoM height and foot references and the swing
-    apex all follow it. ``x_cmd`` ((12,) or (N,12)) and ``per_env`` (the
-    low-level and swing gains of ``config.PER_ENV_FIELDS`` as (N,)
-    tensors) override the config's, as a config batched under vmap does in
-    JAX (``parallel/sweep.py``)."""
+    apex all follow it. ``x_cmd`` ((12,) or (N,12)) and ``per_env`` (any
+    of ``config.PER_ENV_FIELDS`` and ``config.MPC_PER_ENV_FIELDS`` as (N,)
+    tensors, ``Q`` and ``R`` as (N,13) and (N,12)) override the config's,
+    as a config batched under vmap does in JAX (``parallel/sweep.py``); a
+    per-env ``dt`` steps each env's physics by its own period."""
 
     def physics(sim, tau, Minv, dt):
         return art_step(model, sim, tau, dt, n_substeps, terrain, Minv=Minv)

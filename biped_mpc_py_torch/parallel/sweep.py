@@ -5,12 +5,14 @@ The articulated closed loop is chaotic near its capability boundaries, so a
 controller is tuned by mapping its stability region in one batch: gains x
 commands x initial-state perturbations along the env axis. JAX batches the
 whole ``MpcConfig`` pytree under vmap; the port keeps one config of floats
-and hands the fields that differ between envs beside it, as (N,) or (N, 12)
-tensors (``config.py`` describes the mechanism). :func:`stack_configs`
-builds that pair from a list of configs, :func:`perturbed_worlds` the
-perturbed initial worlds, and :func:`art_sweep` runs the plain articulated
-chain (``art_closed_loop_tick``) over them. The physics kernels are not
-used: the tick kernel's constant buffer holds one config per batch.
+and hands the fields that differ between envs beside it, as (N,), (N, 12)
+or (N, 13) tensors (``config.py`` describes the mechanism): every dynamic
+field may differ, as in JAX. :func:`stack_configs` builds that pair from a
+list of configs, :func:`perturbed_worlds` the perturbed initial worlds, and
+:func:`art_sweep` runs the plain articulated chain
+(``art_closed_loop_tick``) over them, with one launch of the QP kernel a
+tick that takes each env's ADMM numerics. The physics kernels are not
+used: their constant buffers and step hold one config per batch.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import dataclasses
 
 import torch
 
-from biped_mpc_py_torch.config import PER_ENV_FIELDS, GaitConfig, MpcConfig
+from biped_mpc_py_torch.config import STATIC_FIELDS, GaitConfig, MpcConfig
+from biped_mpc_py_torch.utils.device import host_to_device
 from biped_mpc_py_torch.models.biped import BipedParams
 from biped_mpc_py_torch.parallel.rollout_art import (
     ArtWorld,
@@ -30,29 +33,19 @@ from biped_mpc_py_torch.sim.model import ArticulatedModel, hector_model
 from biped_mpc_py_torch.utils.device import DEFAULT_DEVICE, entry_device
 from biped_mpc_py_torch.utils.precision import f32_precision
 
-# The MpcConfig fields that select the program in JAX (``pytree_node=False``
-# in ``biped_mpc_py_tpu/config.py``): equal across a sweep, as there. Every
-# GaitConfig field is of this kind.
-STATIC_FIELDS = (
-    "h", "swing_z_sin2", "foot_frame_wrench", "tau_z_max", "mu_z", "cmd_body_frame",
-    "n_admm_iters", "admm_rho_phases", "admm_polish", "kinv_ns_iters",
-    "kinv_bf16_iters", "admm_bf16_matvec", "ruiz_bf16_norms", "ruiz_iters",
-    "compat_foot_ref_bug", "compat_force_box_bug", "compat_ref_col0_bug",
-    "compat_swing_frame_bug", "compat_swing_yaw_bug",
-)
-
 
 def stack_configs(configs, device=DEFAULT_DEVICE):
     """One config and its per-env values from a list of N configs
     (``sweep.py:36``).
 
     Fields equal across the list stay in the returned config (the first of
-    the list). ``x_cmd`` where it differs becomes an (N, 12) tensor and a
-    differing low-level or swing gain (``config.PER_ENV_FIELDS``) an (N,)
-    tensor, f32 on ``device`` (the card unless named), in the ``per_env``
-    dict. Raises ``ValueError`` where a static field differs (JAX compiles
-    one program per static combination) and where any other float field
-    differs: the port's functions take no per-env value of it.
+    the list), as JAX keeps them unbatched. Every other field that differs
+    becomes a tensor in the ``per_env`` dict, f32 on ``device`` (the card
+    unless named): (N, 12) for ``x_cmd`` and ``R``, (N, 13) for ``Q``, (N,)
+    for a float (``config.PER_ENV_FIELDS``, ``config.MPC_PER_ENV_FIELDS``).
+    Raises ``ValueError`` naming the field where a static field or a
+    ``GaitConfig`` field differs (JAX compiles one program per static
+    combination).
 
     Returns (mpc, per_env).
     """
@@ -71,12 +64,7 @@ def stack_configs(configs, device=DEFAULT_DEVICE):
                 f"configs differ in static field {f.name}; split the sweep into one "
                 "run per static combination"
             )
-        if f.name != "x_cmd" and f.name not in PER_ENV_FIELDS:
-            raise ValueError(
-                f"configs differ in {f.name}, which the port takes from the config "
-                f"only; per-env fields are x_cmd and {', '.join(PER_ENV_FIELDS)}"
-            )
-        per_env[f.name] = torch.tensor(col, dtype=torch.float32).to(device)
+        per_env[f.name] = host_to_device(col, device, torch.float32)
     return base, per_env
 
 
@@ -105,10 +93,10 @@ def art_sweep(worlds: ArtWorld, bipeds: BipedParams, n_steps: int, mpc: MpcConfi
     goes to the tick (``n_lowlevel``, ``n_substeps``, ``minv_ll_hold``,
     ``terrain``)."""
     model = model or hector_model(device=worlds.sim.q.device)
-    gains = {k: v for k, v in per_env.items() if k != "x_cmd"}
+    fields = {k: v for k, v in per_env.items() if k != "x_cmd"}
     x_cmd = per_env.get("x_cmd")
     w = worlds
     for _ in range(n_steps):
-        w = art_closed_loop_tick(w, mpc, gait, bipeds, model, x_cmd=x_cmd, per_env=gains,
+        w = art_closed_loop_tick(w, mpc, gait, bipeds, model, x_cmd=x_cmd, per_env=fields,
                                  **tick_kw)
     return w

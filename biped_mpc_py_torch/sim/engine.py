@@ -154,10 +154,11 @@ def contact_point_states(model: ArticulatedModel, state: ArtState):
 
 
 def art_substep(model: ArticulatedModel, state: ArtState, tau: torch.Tensor,
-                dt: float, terrain=None, Minv: torch.Tensor | None = None) -> ArtState:
-    """One semi-implicit Euler substep under joint torques tau (N,10)
-    (``engine.py:188``). ``terrain``: the ``sim.contact.Terrain`` under the
-    toe/heel points, None = the plane z = 0.
+                dt, terrain=None, Minv: torch.Tensor | None = None) -> ArtState:
+    """One semi-implicit Euler substep of ``dt`` (a float, or (N,) per env,
+    each env's ``t`` advancing by its own in f32) under joint torques tau
+    (N,10) (``engine.py:188``). ``terrain``: the ``sim.contact.Terrain``
+    under the toe/heel points, None = the plane z = 0.
     ``Minv`` (N,16,16) optionally holds the mass-matrix inverse (see
     :func:`art_step`)."""
     n, dtype = state.q.shape[0], state.q.dtype
@@ -195,12 +196,13 @@ def art_substep(model: ArticulatedModel, state: ArtState, tau: torch.Tensor,
     )
 
     # semi-implicit: velocities first, then positions
-    v_base = state.v_base + qdd[:, 0:6] * dt
-    qd = state.qd + qdd[:, 6:16] * dt
+    dt_col = dt[:, None] if isinstance(dt, torch.Tensor) else dt
+    v_base = state.v_base + qdd[:, 0:6] * dt_col
+    qd = state.qd + qdd[:, 6:16] * dt_col
     R = quat_to_rotm(state.quat)
-    pos = state.pos + _mv(R, v_base[:, 3:6]) * dt
-    quat = quat_integrate(state.quat, _mv(R, v_base[:, 0:3]), dt)
-    return ArtState(pos=pos, quat=quat, v_base=v_base, q=state.q + qd * dt,
+    pos = state.pos + _mv(R, v_base[:, 3:6]) * dt_col
+    quat = quat_integrate(state.quat, _mv(R, v_base[:, 0:3]), dt_col)
+    return ArtState(pos=pos, quat=quat, v_base=v_base, q=state.q + qd * dt_col,
                     qd=qd, t=state.t + dt)
 
 
@@ -211,10 +213,10 @@ def mass_matrix_inv(model: ArticulatedModel, q: torch.Tensor) -> torch.Tensor:
 
 
 def art_step(model: ArticulatedModel, state: ArtState, tau: torch.Tensor,
-             dt: float, n_substeps: int = 80, terrain=None, m_refresh: int = 1,
+             dt, n_substeps: int = 80, terrain=None, m_refresh: int = 1,
              Minv: torch.Tensor | None = None) -> ArtState:
-    """Advance one control period (tau held) with ``n_substeps`` substeps
-    (``engine.py:261``).
+    """Advance one control period ``dt`` (a float, or (N,) per env) with tau
+    held, in ``n_substeps`` substeps (``engine.py:261``).
 
     ``Minv``: a mass-matrix inverse held for the whole period. Otherwise
     ``m_refresh`` > 1 refreshes :func:`mass_matrix_inv` every ``m_refresh``

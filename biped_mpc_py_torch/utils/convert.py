@@ -15,6 +15,11 @@ axis; the port's ``Terrain`` has one extent for all envs, so
 :func:`from_numpy` folds an array of equal entries into that float and
 raises where envs differ, and :func:`to_numpy` broadcasts it again for a
 ``Terrain`` with a field per env.
+
+A config sweep carries across with :func:`config_batch_from_numpy`: JAX's
+``stack_configs`` returns a batched ``MpcConfig`` and its vmap axes, and the
+port's counterpart is one config with the batched fields beside it as
+tensors (``parallel/sweep.py::stack_configs``).
 """
 
 from __future__ import annotations
@@ -26,7 +31,14 @@ import typing
 import numpy as np
 import torch
 
-from biped_mpc_py_torch.config import _VECTOR_FIELDS, GaitConfig, MpcConfig
+from biped_mpc_py_torch.config import (
+    _VECTOR_FIELDS,
+    MPC_PER_ENV_FIELDS,
+    PER_ENV_FIELDS,
+    STATIC_FIELDS,
+    GaitConfig,
+    MpcConfig,
+)
 from biped_mpc_py_torch.sim.contact import Terrain
 from biped_mpc_py_torch.utils.struct import TensorStruct
 
@@ -114,3 +126,39 @@ def to_numpy(obj) -> dict:
         else:
             out[f.name] = v
     return out
+
+
+def config_batch_from_numpy(fields: dict, axes: dict, device=None):
+    """The port's ``(mpc, per_env)`` from JAX's ``stack_configs`` output:
+    ``fields`` the field dict of its batched ``MpcConfig`` (as numpy) and
+    ``axes`` that of its ``in_axes`` (``dataclasses.asdict(in_axes)``: 0 or
+    None per dynamic field). A field with axis None goes into the config; a
+    field with axis 0 becomes an f32 tensor in ``per_env`` on ``device``
+    ((N,), or (N, 12) / (N, 13) for the vectors) and its first row goes
+    into the config, as the port's ``stack_configs`` keeps the first
+    config. Raises ``ValueError`` where the two disagree: a static field
+    batched, an axis other than 0 or None, a batched field the port does
+    not take per env, or batched fields of different lengths."""
+    _check_fields(MpcConfig, fields)
+    _check_fields(MpcConfig, axes)
+    per_env_names = set(PER_ENV_FIELDS) | set(MPC_PER_ENV_FIELDS) | {"x_cmd"}
+    base, per_env, n = {}, {}, None
+    for name, value in fields.items():
+        axis = None if name in STATIC_FIELDS else axes[name]
+        if name in STATIC_FIELDS and np.ndim(value) > 0:
+            raise ValueError(f"static field {name} arrives batched; JAX compiles one "
+                             "program per static value")
+        if axis is None:
+            base[name] = value
+            continue
+        if axis != 0 or name not in per_env_names:
+            raise ValueError(f"field {name} is batched on axis {axis}; the port takes "
+                             "per-env values on axis 0 of its per-env fields only")
+        value = np.asarray(value, np.float32)
+        if n is None:
+            n = value.shape[0]
+        if value.ndim == 0 or value.shape[0] != n:
+            raise ValueError(f"field {name} has shape {value.shape}, the batch has {n} envs")
+        base[name] = value[0]
+        per_env[name] = torch.tensor(value, device=device)  # a copy
+    return from_numpy(MpcConfig, base), per_env

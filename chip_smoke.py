@@ -78,7 +78,21 @@ Phases, each printed on its own lines:
    repeated config bit-equal to the base on the nominal world, the
    zero-gain config apart, falls per config and env-steps/s reported; 8 of
    its envs x 2 ticks on the card against the CPU within ``CHAIN_BOUNDS``;
-16. one robot (N = 1) walking in place for 100 ticks under the controller
+16. sweep numerics: every dynamic config field per env. 16 configs
+   (``raibert_pitch_place`` in 0, 0.1, 0.2, 0.25 with ``raibert_pitch_nom``
+   0.12, x ``admm_rho`` in 0.1, 0.3, 1, 3; the last cell a repeat of the
+   base cell) x 64 ``perturbed_worlds`` = 1024 envs x 25 ticks of
+   ``art_sweep`` at ``art_mpc_config()``'s bench budget: 25 QP launches
+   (each env's rho in the kernel) and no physics launch, finite, the
+   repeated cell bit-equal to its twin, falls per config and env-steps/s
+   reported, 8 envs x 2 ticks card vs CPU within ``CHAIN_BOUNDS``; the QP
+   kernel on 1024 real QPs with per-env (rho, sigma, alpha) in four groups
+   of 256: within 0.05 N per env of the plain version, bit-equal to one
+   scalar launch per group and, with the config's values per env, to the
+   scalar launch, timed beside it; per-env ``dt`` (0.03-0.045 s, 4 configs
+   x 8 worlds x 10 ticks): finite, card vs CPU within ``CHAIN_BOUNDS``,
+   each env's clock bit-equal to its config run alone;
+17. one robot (N = 1) walking in place for 100 ticks under the controller
    on the card at ``tests/test_mj_contact.py``'s ``ORACLE_MPC``: through
    ``run_mujoco_closed_loop`` where MuJoCo is installed, else through
    ``RealtimeLoop`` against ``EnginePlant`` (the port's engine on the card
@@ -86,15 +100,15 @@ Phases, each printed on its own lines:
    10% of m g, duty factors 0.5 +- 0.1, 100 QP launches, ms per tick; 5
    ticks with the controller on the card against the CPU within
    ``MJ_BOUNDS``;
-17. real-time loop: ``RealtimeLoop`` on the card, 50 ticks as fast as
+18. real-time loop: ``RealtimeLoop`` on the card, 50 ticks as fast as
    possible, then 25 against the 40 ms deadlines: the plant stays up, the
    statistics are coherent, the latencies, misses and ``realtime_ok``
    reported; the same loop on the CPU for 25 ticks as a figure;
-18. replay and checkpoint: ``export_rollout`` of 25 ticks (torso at walking
+19. replay and checkpoint: ``export_rollout`` of 25 ticks (torso at walking
    height; reloaded in MuJoCo where it is installed), and 1024 envs on the
    tick-kernel path saved at tick 10 and resumed, bit-equal at tick 20 to
    the run straight through;
-19. demo: ``python -m biped_mpc_py_torch.demo --compat --rollout-steps 50
+20. demo: ``python -m biped_mpc_py_torch.demo --compat --rollout-steps 50
    --device cuda`` in a subprocess: exit code 0, the tick's torques against
    the golden tick.
 
@@ -1221,25 +1235,64 @@ def _max_diff(a, b, keys):
     return {k: float((getattr(a, k).cpu() - getattr(b, k).cpu()).abs().max()) for k in keys}
 
 
+def _sweep_worlds(torch, configs, n_worlds, device):
+    """``stack_configs`` of each config on ``n_worlds`` perturbed worlds
+    (seed 0): env ``n_worlds c + w`` runs config c on world w."""
+    from biped_mpc_py_torch import BipedParams
+    from biped_mpc_py_torch.parallel.sweep import perturbed_worlds, stack_configs
+
+    mpc_s, per_env = stack_configs([c for c in configs for _ in range(n_worlds)], device)
+    worlds = perturbed_worlds(configs[0], n_worlds, torch.Generator().manual_seed(SEED),
+                              SWEEP_SCALE, device)
+    worlds = worlds.map(lambda t: t.repeat((len(configs),) + (1,) * (t.dim() - 1)))
+    n = len(configs) * n_worlds
+    return mpc_s, per_env, worlds, BipedParams().expand(n).to(device)
+
+
+def _card_vs_cpu(torch, worlds, bipeds, mpc, gait, per_env, kw, ticks, idx=None):
+    """``art_sweep`` of the envs ``idx`` (all when None) on the card, then
+    on the CPU, each stopping at the tick counts in ``ticks`` -> (card world
+    at the last, the card run's launch counts, max |diff| per CHAIN_BOUNDS
+    key at each)."""
+    from biped_mpc_py_torch.parallel.sweep import art_sweep
+
+    if idx is not None:
+        worlds, bipeds = worlds.map(lambda t: t[idx]), bipeds.map(lambda t: t[idx])
+        per_env = {k: v[idx] for k, v in per_env.items()}
+    cpu = torch.device("cpu")
+    kw_cpu = dict(kw, model=kw["model"].to(cpu))
+    host = (worlds.to(cpu), bipeds.to(cpu), {k: v.cpu() for k, v in per_env.items()})
+    _reset_counts()
+    card, done = [worlds], 0
+    for n in ticks:
+        card.append(art_sweep(card[-1], bipeds, n - done, mpc, gait, per_env, **kw))
+        done = n
+    torch.cuda.synchronize()
+    launches = _counts()
+    w, done, diffs = host[0], 0, []
+    for n, w_c in zip(ticks, card[1:]):
+        w = art_sweep(w, host[1], n - done, mpc, gait, host[2], **kw_cpu)
+        done = n
+        diffs.append(_max_diff(w_c.sim, w.sim, CHAIN_BOUNDS))
+    return card[-1], launches, diffs
+
+
+def _finite(sim):
+    return all(bool(t.isfinite().all()) for t in (sim.pos, sim.quat, sim.v_base, sim.q, sim.qd))
+
+
 def sweep_setup(torch, device):
     """The sweep's 1024 envs: env 64 c + w runs config c of the grid on
     perturbed world w. The grid's last cell repeats the base config, so that
     two equal configs share the nominal world."""
     import dataclasses
 
-    from biped_mpc_py_torch import BipedParams
-    from biped_mpc_py_torch.parallel.sweep import perturbed_worlds, stack_configs
-
     mpc, gait = _art_config()
     grid = [(mpc.kp_hipyaw * a, mpc.kd_hipyaw * b) for a in SWEEP_GRID for b in SWEEP_GRID]
     grid[-1] = (mpc.kp_hipyaw, mpc.kd_hipyaw)
     configs = [dataclasses.replace(mpc, kp_hipyaw=kp, kd_hipyaw=kd) for kp, kd in grid]
-    mpc_s, per_env = stack_configs([c for c in configs for _ in range(SWEEP_WORLDS)], device)
-    worlds = perturbed_worlds(mpc, SWEEP_WORLDS, torch.Generator().manual_seed(SEED),
-                              SWEEP_SCALE, device)
-    worlds = worlds.map(lambda t: t.repeat((len(grid),) + (1,) * (t.dim() - 1)))
-    n = len(grid) * SWEEP_WORLDS
-    return mpc_s, gait, per_env, worlds, BipedParams().expand(n).to(device), grid
+    mpc_s, per_env, worlds, bipeds = _sweep_worlds(torch, configs, SWEEP_WORLDS, device)
+    return mpc_s, gait, per_env, worlds, bipeds, grid
 
 
 def phase_sweep(torch, device):
@@ -1260,7 +1313,7 @@ def phase_sweep(torch, device):
     sec = time.perf_counter() - t0
     launches = _counts()
     s = w.sim
-    finite = all(bool(torch.isfinite(t).all()) for t in (s.pos, s.quat, s.v_base, s.q, s.qd))
+    finite = _finite(s)
     falls = [float(f) for f in w.metrics.falls.reshape(len(grid), SWEEP_WORLDS).sum(1)]
     base, repeat, zero = 10 * SWEEP_WORLDS, 15 * SWEEP_WORLDS, 0
     equal = all(torch.equal(getattr(s, k)[base], getattr(s, k)[repeat])
@@ -1269,14 +1322,7 @@ def phase_sweep(torch, device):
 
     idx = torch.tensor([c * SWEEP_WORLDS + w % SWEEP_WORLDS for c, w in SWEEP_COMPARE],
                        device=device)
-    sub = {k: v[idx] for k, v in per_env.items()}
-    w8 = worlds.map(lambda t: t[idx])
-    out_c = art_sweep(w8, bipeds.map(lambda t: t[idx]), 2, mpc, gait, sub, **kw)
-    cpu = torch.device("cpu")
-    kw_cpu = dict(kw, model=kw["model"].to(cpu))
-    out_h = art_sweep(w8.to(cpu), bipeds.map(lambda t: t[idx]).to(cpu), 2, mpc, gait,
-                      {k: v.cpu() for k, v in sub.items()}, **kw_cpu)
-    diffs = _max_diff(out_c.sim, out_h.sim, CHAIN_BOUNDS)
+    diffs = _card_vs_cpu(torch, worlds, bipeds, mpc, gait, per_env, kw, (2,), idx)[2][0]
     log(f"[sweep] {len(grid)} configs (kp_hipyaw, kd_hipyaw) x {SWEEP_WORLDS} perturbed worlds "
         f"(scale {SWEEP_SCALE}) x {SWEEP_TICKS} ticks in {sec:.3f} s: "
         f"{n * SWEEP_TICKS / sec:.1f} env-steps/s ({sec * 1e3 / SWEEP_TICKS:.3f} ms/tick), "
@@ -1291,6 +1337,212 @@ def phase_sweep(torch, device):
     if any(diffs[k] >= b for k, b in CHAIN_BOUNDS.items()):
         raise AssertionError(f"the sweep on the card and on the CPU differ: {diffs}")
     return sec
+
+
+# The numerics sweep: raibert_pitch_place x admm_rho, 64 perturbed worlds each.
+NUMERICS_PITCH_PLACE = (0.0, 0.1, 0.2, 0.25)  # with raibert_pitch_nom 0.12
+NUMERICS_PITCH_NOM = 0.12
+NUMERICS_RHO = (0.1, 0.3, 1.0, 3.0)
+NUMERICS_BASE = 1  # the cell (pitch_place 0, rho 0.3) that the last cell repeats
+# (rho, sigma, alpha) of the kernel's four value groups, 256 envs each
+NUMERICS_GROUPS = ((0.1, 1e-6, 1.6), (0.3, 1e-5, 1.4), (1.0, 1e-4, 1.8), (3.0, 1e-6, 1.2))
+DT_SWEEP = (0.03, 0.035, 0.04, 0.045)
+DT_WORLDS = 8
+DT_TICKS = 10
+
+
+def _numerics_config():
+    """``art_mpc_config()`` at the bench budget, walking in place at three
+    MPC steps a phase (the sweeps' operating point in
+    ``tests/test_torch_sweep.py``)."""
+    from biped_mpc_py_torch import GaitConfig
+    from biped_mpc_py_torch.parallel.rollout_art import art_mpc_config
+
+    mpc = art_mpc_config(n_admm_iters=40, admm_rho_phases=1, admm_polish=False,
+                         kinv_ns_iters=10)
+    return mpc, GaitConfig(steps_per_phase=3)
+
+
+def sweep_numerics_rollout(torch, device):
+    """16 configs (``raibert_pitch_place`` x ``admm_rho``, the last cell a
+    repeat of the base cell) x 64 perturbed worlds x 25 ticks of
+    ``art_sweep``: one QP launch a tick with each env's rho, no physics
+    launch, finite, the repeated cell bit-equal to its twin on every world;
+    8 envs x 2 ticks on the card against the CPU."""
+    import dataclasses
+
+    from biped_mpc_py_torch.parallel.sweep import art_sweep
+    from biped_mpc_py_torch.sim.model import hector_model
+
+    mpc, gait = _numerics_config()
+    grid = [(pp, rho) for pp in NUMERICS_PITCH_PLACE for rho in NUMERICS_RHO]
+    grid[-1] = grid[NUMERICS_BASE]
+    configs = [dataclasses.replace(mpc, raibert_pitch_place=pp,
+                                   raibert_pitch_nom=NUMERICS_PITCH_NOM, admm_rho=rho)
+               for pp, rho in grid]
+    mpc_s, per_env, worlds, bipeds = _sweep_worlds(torch, configs, SWEEP_WORLDS, device)
+    if set(per_env) != {"raibert_pitch_place", "admm_rho"}:
+        raise AssertionError(f"the numerics sweep batches {sorted(per_env)}")
+    n = bipeds.m.shape[0]
+    kw = dict(model=hector_model(device=device), n_substeps=5, minv_ll_hold=8)
+    art_sweep(worlds, bipeds, 1, mpc_s, gait, per_env, **kw)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    w = art_sweep(worlds, bipeds, SWEEP_TICKS, mpc_s, gait, per_env, **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = _counts()
+    s = w.sim
+    twin = slice(NUMERICS_BASE * SWEEP_WORLDS, (NUMERICS_BASE + 1) * SWEEP_WORLDS)
+    last = slice(n - SWEEP_WORLDS, n)
+    equal = all(torch.equal(getattr(s, k)[twin], getattr(s, k)[last])
+                for k in ("pos", "quat", "v_base", "q", "qd", "t"))
+    falls = [float(f) for f in w.metrics.falls.reshape(len(grid), SWEEP_WORLDS).sum(1)]
+    idx = torch.tensor([c * SWEEP_WORLDS + w_ % SWEEP_WORLDS for c, w_ in SWEEP_COMPARE],
+                       device=device)
+    diffs = _card_vs_cpu(torch, worlds, bipeds, mpc_s, gait, per_env, kw, (2,), idx)[2][0]
+    log(f"[numerics] {len(grid)} configs (raibert_pitch_place, admm_rho; pitch_nom "
+        f"{NUMERICS_PITCH_NOM}) x {SWEEP_WORLDS} perturbed worlds x {SWEEP_TICKS} ticks in "
+        f"{sec:.3f} s: {n * SWEEP_TICKS / sec:.1f} env-steps/s ({sec * 1e3 / SWEEP_TICKS:.3f} "
+        f"ms/tick), launches {json.dumps(launches)}, finite {_finite(s)}, repeated cell "
+        f"bit-equal to its twin on all {SWEEP_WORLDS} worlds {equal}; falls per config "
+        "[pitch_place, rho, falls] "
+        + json.dumps([[pp, rho, f] for (pp, rho), f in zip(grid, falls)])
+        + f"; 8 envs x 2 ticks card vs CPU {json.dumps(diffs)}")
+    if launches != {"fused_qp_solve": SWEEP_TICKS, "fused_tick": 0, "fused_substeps": 0}:
+        raise AssertionError(f"numerics sweep launch counts {launches} in {SWEEP_TICKS} ticks")
+    if not (_finite(s) and equal):
+        raise AssertionError("the numerics sweep failed its checks")
+    if any(diffs[k] >= b for k, b in CHAIN_BOUNDS.items()):
+        raise AssertionError(f"the numerics sweep on the card and on the CPU differ: {diffs}")
+    return sec
+
+
+def numerics_kernel(torch, device):
+    """1024 real MPC QPs at the bench budget with per-env (rho, sigma,
+    alpha) in four value groups of 256 envs, in one launch: within
+    ``BOUND_BENCH`` per env of the plain version with the same per-env
+    values, bit-equal per env to one scalar launch per group, and per-env
+    values all equal to the config's bit-equal to the scalar launch. Times
+    the per-env launch beside the scalar launch (CUDA events, in turns)
+    -> (max |du| N, per-env ms, scalar ms)."""
+    from biped_mpc_py_torch import fast_mpc_config
+    from biped_mpc_py_torch.ops import qp as tqp
+    from biped_mpc_py_torch.ops.cuda.qp_kernel import (
+        fused_qp_solve, fused_qp_solve_reference,
+    )
+
+    mpc = fast_mpc_config()
+    qp = mpc_qps(torch, mpc, N_ENVS, device, SEED)
+    Ph, qh, Ah, lh, uh, D, E, c = tqp.ruiz_equilibrate(qp, mpc.ruiz_iters)
+    args = (Ph, Ah, qh, lh, uh, *tqp.scaled_warm_start(None, D, E, c, Ph.shape[-1]))
+    kw = tqp.solver_args(mpc)
+    g = N_ENVS // len(NUMERICS_GROUPS)
+    table = torch.tensor(NUMERICS_GROUPS).repeat_interleave(g, 0).to(device)
+    per_env = {k: table[:, i].contiguous() for i, k in enumerate(("rho", "sigma", "alpha"))}
+    out = fused_qp_solve(*args, **{**kw, **per_env})
+    torch.cuda.synchronize()
+    ref = fused_qp_solve_reference(*args, **{**kw, **per_env})
+    du = (tqp.recover_solution(qp, *out, D, E, c).controls
+          - tqp.recover_solution(qp, *ref, D, E, c).controls).abs().flatten(1).amax(1)
+    du_groups = [float(du[i * g:(i + 1) * g].max()) for i in range(len(NUMERICS_GROUPS))]
+    groups_equal = []
+    for i, (rho, sigma, alpha) in enumerate(NUMERICS_GROUPS):
+        rows = slice(i * g, (i + 1) * g)
+        part = fused_qp_solve(*[a[rows] for a in args],
+                              **{**kw, "rho": rho, "sigma": sigma, "alpha": alpha})
+        groups_equal.append(all(torch.equal(u[rows], v) for u, v in zip(out, part)))
+    same = {k: torch.full((N_ENVS,), kw[k], device=device) for k in per_env}
+    scalar_equal = all(torch.equal(u, v) for u, v in zip(
+        fused_qp_solve(*args, **kw), fused_qp_solve(*args, **{**kw, **same})))
+    times = {"scalar": [], "per_env": []}
+    for which in ("scalar", "per_env", "per_env", "scalar"):
+        kw_w = kw if which == "scalar" else {**kw, **per_env}
+        times[which].append(_timed(torch, lambda: fused_qp_solve(*args, **kw_w), 20))
+    ms_env, ms_scalar = (sum(times[k]) / 2 for k in ("per_env", "scalar"))
+    log(f"[numerics] QP kernel, {N_ENVS} real QPs at the bench budget, per-env (rho, sigma, "
+        f"alpha) in {len(NUMERICS_GROUPS)} groups of {g} {json.dumps(NUMERICS_GROUPS)}, one "
+        f"launch: max|du| against the plain version with the same values per group "
+        f"{json.dumps(du_groups)} N (bound {BOUND_BENCH}); bit-equal to one scalar launch per "
+        f"group {groups_equal}; all equal to the config's bit-equal to the scalar launch "
+        f"{scalar_equal}; per-env launch {ms_env:.4f} ms ({', '.join(f'{t:.4f}' for t in times['per_env'])}), "
+        f"scalar launch {ms_scalar:.4f} ms ({', '.join(f'{t:.4f}' for t in times['scalar'])}) "
+        "(CUDA events, in turns)")
+    if not (all(groups_equal) and scalar_equal):
+        raise AssertionError("the per-env QP launch is not bit-equal to the scalar launches")
+    if not (bool(torch.isfinite(out[0]).all()) and max(du_groups) < BOUND_BENCH):
+        raise AssertionError(f"per-env QP kernel vs plain past {BOUND_BENCH} N: {du_groups}")
+    return max(du_groups), ms_env, ms_scalar
+
+
+def sweep_dt(torch, device):
+    """4 configs with ``dt`` in ``DT_SWEEP`` x 8 perturbed worlds x 10
+    ticks on the card: one QP launch a tick and no physics launch, finite,
+    within ``CHAIN_BOUNDS`` of the CPU after 2 ticks (the horizon those
+    bounds hold at: the closed loop's contact events flip on last-bit
+    differences later, with or without per-env values, so the 10-tick
+    difference is printed beside that of the same worlds under one shared
+    ``dt``), and each env's clock bit-equal to a run of its config alone
+    on the CPU (8 worlds, the ``dt`` handed per env as in the sweep; the
+    config's float form, which rounds the substep from double as the JAX
+    loop with a trace-time ``dt`` does, within 1 us)."""
+    import dataclasses
+
+    from biped_mpc_py_torch import BipedParams
+    from biped_mpc_py_torch.parallel.sweep import art_sweep, perturbed_worlds
+    from biped_mpc_py_torch.sim.model import hector_model
+
+    mpc, gait = _numerics_config()
+    kw = dict(model=hector_model(device=device), n_substeps=5, minv_ll_hold=8)
+
+    def card_and_cpu(configs):
+        mpc_s, per_env, worlds, bipeds = _sweep_worlds(torch, configs, DT_WORLDS, device)
+        out = _card_vs_cpu(torch, worlds, bipeds, mpc_s, gait, per_env, kw, (2, DT_TICKS))
+        return (*out, per_env)
+
+    configs = [dataclasses.replace(mpc, dt=dt) for dt in DT_SWEEP]
+    out_c, launches, (diffs2, diffs10), per_env = card_and_cpu(configs)
+    if set(per_env) != {"dt"}:
+        raise AssertionError(f"the dt sweep batches {sorted(per_env)}")
+    control10 = card_and_cpu([mpc] * len(DT_SWEEP))[2][1]
+    cpu = torch.device("cpu")
+    kw_cpu = dict(kw, model=kw["model"].to(cpu))
+    w8 = perturbed_worlds(mpc, DT_WORLDS, torch.Generator().manual_seed(SEED), SWEEP_SCALE, cpu)
+    b8 = BipedParams().expand(DT_WORLDS)
+    t_card = out_c.sim.t.cpu().reshape(len(DT_SWEEP), DT_WORLDS)
+    alone_equal, float_err = [], []
+    for i, cfg in enumerate(configs):
+        dt8 = {"dt": torch.full((DT_WORLDS,), cfg.dt)}
+        t_alone = art_sweep(w8, b8, DT_TICKS, cfg, gait, dt8, **kw_cpu).sim.t
+        t_float = art_sweep(w8, b8, DT_TICKS, cfg, gait, {}, **kw_cpu).sim.t
+        alone_equal.append(torch.equal(t_card[i], t_alone))
+        float_err.append(float((t_card[i] - t_float).abs().max()))
+    clocks = [float(t_card[i, 0]) for i in range(len(DT_SWEEP))]
+    falls = [float(f) for f in out_c.metrics.falls.reshape(len(DT_SWEEP), DT_WORLDS).sum(1)]
+    log(f"[numerics] dt sweep {json.dumps(DT_SWEEP)} x {DT_WORLDS} worlds x {DT_TICKS} ticks: "
+        f"launches on the card {json.dumps(launches)}, finite {_finite(out_c.sim)}, card vs "
+        f"CPU after 2 ticks {json.dumps(diffs2)} (bounds {json.dumps(CHAIN_BOUNDS)}), after "
+        f"{DT_TICKS} ticks {json.dumps(diffs10)} (one shared dt {mpc.dt} on the same worlds: "
+        f"{json.dumps(control10)}); clocks after {DT_TICKS} ticks {json.dumps(clocks)} s, "
+        f"bit-equal to each config alone {alone_equal}, the float form within "
+        f"{json.dumps(float_err)} s; falls per config {json.dumps(falls)}")
+    if launches != {"fused_qp_solve": DT_TICKS, "fused_tick": 0, "fused_substeps": 0}:
+        raise AssertionError(f"dt sweep launch counts {launches}")
+    if not (_finite(out_c.sim) and all(alone_equal) and max(float_err) < 1e-6):
+        raise AssertionError("the dt sweep failed its checks")
+    if any(diffs2[k] >= b for k, b in CHAIN_BOUNDS.items()):
+        raise AssertionError(f"the dt sweep on the card and on the CPU differ: {diffs2}")
+
+
+def phase_sweep_numerics(torch, device):
+    """Every dynamic config field per env (``raibert_pitch_place`` x
+    ``admm_rho`` at 1024 envs, the QP kernel's per-env numerics, per-env
+    ``dt``) -> (per-env QP ms, scalar QP ms)."""
+    sweep_numerics_rollout(torch, device)
+    _, ms_env, ms_scalar = numerics_kernel(torch, device)
+    sweep_dt(torch, device)
+    return ms_env, ms_scalar
 
 
 class EnginePlant:
@@ -1788,6 +2040,7 @@ def main() -> int:
         time_physics_sizes(torch, device)
         events, busy_ms, qp_tick_ms, tick_tick_ms = profile_tick_path(torch, device)
         phase_sweep(torch, device)
+        phase_sweep_numerics(torch, device)
         phase_mujoco(torch, device)
         phase_realtime(torch, device)
         phase_replay_checkpoint(torch, device)

@@ -81,10 +81,14 @@ CLOCK_PHASES = ("feedback", "control", "forward pass", "contact", "backward pass
 
 def launcher(source: Path):
     """A solve with ``fused_qp_solve``'s signature that launches the kernel
-    built from ``source`` (the ``qp_admm_solve`` C interface)."""
+    built from ``source`` (the ``qp_admm_solve`` C interface, with or
+    without the per-env ``rho_env``, ``sigma_env``, ``alpha_env`` pointers;
+    this launcher passes scalars only)."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    per_env = [ptr] * 3 if "rho_env" in source.read_text() else []
     lib = build.load(source, {
-        "qp_admm_solve": ([ptr] * 11 + [i32] * 3 + [f32] * 3 + [i32] * 4 + [i32, ptr], i32),
+        "qp_admm_solve": ([ptr] * 11 + [i32] * 3 + [f32] * 3 + per_env + [i32] * 4
+                          + [i32, ptr], i32),
     })
 
     def solve(P, Ah, q, l, u, x0, z0, y0, *, rho, n_iters, n_phases, ns_iters, sigma,
@@ -93,8 +97,8 @@ def launcher(source: Path):
         x, z, y = torch.empty_like(q), torch.empty_like(l), torch.empty_like(l)
         rc = lib.qp_admm_solve(
             *[t.data_ptr() for t in (P, Ah, q, l, u, x0, z0, y0, x, z, y)],
-            n_env, h, m, float(rho), float(sigma), float(alpha), int(n_iters),
-            int(n_phases), int(ns_iters), int(bool(polish)), P.device.index,
+            n_env, h, m, float(rho), float(sigma), float(alpha), *[None] * len(per_env),
+            int(n_iters), int(n_phases), int(ns_iters), int(bool(polish)), P.device.index,
             torch.cuda.current_stream(P.device).cuda_stream)
         if rc:
             raise RuntimeError(f"{source.name}: qp_admm_solve failed ({rc})")

@@ -37,11 +37,20 @@ once per tick and the substep kernel never. Both kernels also run a batch
 whose even envs are pressed deep into the ground and whose odd envs hang in
 the air, so that a lane that read its neighbour's env would show.
 
-The sweep (``parallel/sweep.py``) runs the plain chain with per-env gains:
-8 envs x 2 ticks on the card against the CPU within ``CHAIN_BOUNDS`` of
-``tests/test_torch_rollout_art.py`` (pos 1e-4, quat 1e-4, v_base 2e-3, q
-1e-3, qd 2e-2), one QP launch per tick and no physics launch; the tick
-kernel refuses per-env values before it launches. The N = 1 loops
+The QP kernel with per-env ``rho``, ``sigma`` and ``alpha`` (four value
+groups): within 0.05 N per env of the plain version with the same per-env
+values at the bench budget, and bit-equal per env to one scalar launch per
+group (one env per CTA: an env's result does not depend on the others'
+values); per-env values all equal to the config's are bit-equal to the
+scalar launch; a per-env tensor of the wrong shape, dtype, device or
+stride raises before any launch.
+
+The sweep (``parallel/sweep.py``) runs the plain chain with per-env gains,
+and with per-env MPC fields (``dt``, weights, Raibert gains, the ADMM
+numerics): 8 envs x 2 ticks on the card against the CPU within
+``CHAIN_BOUNDS`` of ``tests/test_torch_rollout_art.py`` (pos 1e-4, quat
+1e-4, v_base 2e-3, q 1e-3, qd 2e-2), one QP launch per tick and no physics
+launch; the tick kernel refuses per-env values before it launches. The N = 1 loops
 (``RealtimeLoop``, and ``run_mujoco_closed_loop`` where MuJoCo is
 installed) with the controller on the card against the CPU, 5 ticks at the
 bench budget: feedback attitude and position 1e-4, velocities 2e-3 (the
@@ -170,6 +179,62 @@ def test_kernel_rejects_misaligned_P(cuda):
     before = tk.fused_qp_solve.launches
     with pytest.raises(ValueError, match="16-byte aligned"):
         tk.fused_qp_solve(*args, **tqp.solver_args(mpc))
+    assert tk.fused_qp_solve.launches == before
+
+
+def _numerics_groups(n, device):
+    """Per-env (rho, sigma, alpha): four value groups of n // 4 envs."""
+    values = torch.tensor([[0.1, 1e-6, 1.6], [0.3, 1e-5, 1.4], [1.0, 1e-4, 1.8],
+                           [3.0, 1e-6, 1.2]])
+    per_env = values.repeat_interleave(n // 4, 0).to(device)
+    return values, {k: per_env[:, i].contiguous() for i, k in
+                    enumerate(("rho", "sigma", "alpha"))}
+
+
+@pytest.mark.parametrize("budget", ["bench", "default"])
+def test_kernel_per_env_numerics(cuda, budget):
+    mpc = QP_CASES[budget]
+    n = 256
+    qp = _mpc_qps(n, cuda, mpc)
+    Ph, qh, Ah, lh, uh, D, E, c = tqp.ruiz_equilibrate(qp, mpc.ruiz_iters)
+    args = (Ph, Ah, qh, lh, uh, *tqp.scaled_warm_start(None, D, E, c, Ph.shape[-1]))
+    kw = tqp.solver_args(mpc)
+    values, per_env = _numerics_groups(n, cuda)
+    before = tk.fused_qp_solve.launches
+    out = tk.fused_qp_solve(*args, **{**kw, **per_env})
+    torch.cuda.synchronize()
+    assert tk.fused_qp_solve.launches == before + 1
+    g = n // 4
+    for i, (rho, sigma, alpha) in enumerate(values.tolist()):
+        rows = slice(i * g, (i + 1) * g)
+        part = tk.fused_qp_solve(*[a[rows] for a in args],
+                                 **{**kw, "rho": rho, "sigma": sigma, "alpha": alpha})
+        for u, v in zip(out, part):
+            assert torch.equal(u[rows], v), i
+    same = {k: torch.full((n,), kw[k], device=cuda) for k in per_env}
+    for u, v in zip(tk.fused_qp_solve(*args, **kw), tk.fused_qp_solve(*args, **{**kw, **same})):
+        assert torch.equal(u, v)
+    if budget == "bench":
+        ref = tk.fused_qp_solve_reference(*args, **{**kw, **per_env})
+        du = (tqp.recover_solution(qp, *out, D, E, c).controls
+              - tqp.recover_solution(qp, *ref, D, E, c).controls).abs()
+        assert float(du.max()) < 0.05
+
+
+@pytest.mark.parametrize("fault", ["shape", "dtype", "device", "strided"])
+def test_kernel_rejects_bad_per_env_numerics(cuda, fault):
+    mpc = fast_mpc_config()
+    n = 8
+    qp = _mpc_qps(n, cuda, mpc)
+    Ph, qh, Ah, lh, uh, D, E, c = tqp.ruiz_equilibrate(qp, mpc.ruiz_iters)
+    args = (Ph, Ah, qh, lh, uh, *tqp.scaled_warm_start(None, D, E, c, Ph.shape[-1]))
+    bad = {"shape": torch.full((n + 1,), 0.3, device=cuda),
+           "dtype": torch.full((n,), 0.3, dtype=torch.float64, device=cuda),
+           "device": torch.full((n,), 0.3),
+           "strided": torch.full((2 * n,), 0.3, device=cuda)[::2]}[fault]
+    before = tk.fused_qp_solve.launches
+    with pytest.raises((ValueError, TypeError), match="rho"):
+        tk.fused_qp_solve(*args, **{**tqp.solver_args(mpc), "rho": bad})
     assert tk.fused_qp_solve.launches == before
 
 
@@ -432,6 +497,35 @@ def test_sweep_card_matches_cpu(cuda):
     assert float((out.sim.q[0] - out.sim.q[2]).abs().max()) > 1e-5  # the gains were felt
 
 
+def test_sweep_numerics_card_matches_cpu(cuda):
+    """Per-env dt, weights, Raibert gains and ADMM numerics."""
+    from biped_mpc_py_torch.parallel.sweep import art_sweep, perturbed_worlds, stack_configs
+
+    mpc, gait = _bench_art_config()
+    configs = [dataclasses.replace(mpc, dt=dt, admm_rho=rho, raibert_pitch_place=pp,
+                                   raibert_pitch_nom=0.12, cmd_leak_yaw=leak,
+                                   Q=tuple(w * q for q in mpc.Q))
+               for dt, rho, pp, leak, w in ((0.04, 0.3, 0.0, 0.05, 1.0),
+                                            (0.035, 0.1, 0.1, 0.08, 1.5),
+                                            (0.045, 1.0, 0.2, 0.03, 0.7),
+                                            (0.03, 3.0, 0.25, 0.05, 1.2))]
+    mpc_s, per_env = stack_configs([c for c in configs for _ in range(2)], device="cpu")
+    worlds = perturbed_worlds(mpc, 2, torch.Generator().manual_seed(0), device="cpu")
+    worlds = worlds.map(lambda t: t.repeat((4,) + (1,) * (t.dim() - 1)))
+    bipeds = BipedParams().expand(8)
+    kw = dict(n_substeps=5, minv_ll_hold=8)
+    out_cpu = art_sweep(worlds, bipeds, 2, mpc_s, gait, per_env, **kw)
+    before = _counts()
+    out = art_sweep(worlds.to(cuda), bipeds.to(cuda), 2, mpc_s, gait,
+                    {k: v.to(cuda) for k, v in per_env.items()}, **kw)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_counts(), before)] == [2, 0, 0]
+    for name, tol in CHAIN_BOUNDS.items():
+        err = float((getattr(out.sim, name).cpu() - getattr(out_cpu.sim, name)).abs().max())
+        assert err < tol, (name, err)
+    assert torch.equal(out.sim.t.cpu(), out_cpu.sim.t)
+
+
 def test_fused_tick_raises_on_per_env_values(cuda):
     mpc, gait = _bench_art_config()
     n = 16
@@ -446,6 +540,11 @@ def test_fused_tick_raises_on_per_env_values(cuda):
         tick.fused_tick(*args, per_env={"kp_hipyaw": torch.zeros(n, device=cuda)})
     with pytest.raises(ValueError, match="per-env"):
         tick.fused_tick(*args, x_cmd=torch.zeros(n, 12, device=cuda))
+    with pytest.raises(ValueError, match="per-env"):
+        tick.fused_tick(*args, per_env={"dt": torch.full((n,), 0.035, device=cuda)})
+    with pytest.raises(ValueError, match="one dt"):
+        sk.fused_substeps(model, state, torch.zeros(n, 10, device=cuda), Minv,
+                          torch.full((n,), 0.005, device=cuda), 5)
     assert _counts() == before
 
 

@@ -11,8 +11,8 @@ Inputs come from numpy with a seed. Tolerances:
   1.1e-5);
 - no per-env argument, or an empty dict: bit-equal to the call without;
 - ``stack_configs``: the same fields batched as JAX's ``in_axes``, equal
-  values, and ``ValueError`` on a static field, on a float field the port
-  takes from the config only, and on differing gait configs;
+  values, for every dynamic field of the config, and ``ValueError`` on a
+  static field and on differing gait configs;
 - ``art_sweep``, 3 configs x 2 ticks at the bench budget and physics (5
   substeps, the mass-matrix inverse held all tick) from perturbed worlds
   carried to JAX: ``CHAIN_BOUNDS`` of ``tests/test_torch_rollout_art.py``
@@ -194,11 +194,27 @@ def test_stack_configs_batches_only_differing_fields():
     assert tm.kd_hipyaw == float(np.asarray(jm.kd_hipyaw))
 
 
+@pytest.mark.parametrize("field", tcfg.MPC_PER_ENV_FIELDS)
+def test_stack_configs_batches_every_dynamic_field(field):
+    """A difference in any of the MPC-stage, clock and solver fields lands
+    in ``per_env`` with JAX's values, and JAX's ``in_axes`` batches the same
+    field."""
+    base = jra.art_mpc_config()
+    v = np.asarray(getattr(base, field), np.float32)
+    cfgs = [base, dataclasses.replace(base, **{field: jnp.asarray(v * 1.5 + 0.01)
+                                               if v.ndim else float(v * 1.5 + 0.01)})]
+    jm, axes = jsweep.stack_configs(cfgs)
+    tm, per_env = tsweep.stack_configs([_port(tcfg.MpcConfig, c) for c in cfgs], device="cpu")
+    batched = {p[0].name for p, _ in jax.tree_util.tree_flatten_with_path(axes)[0]}
+    assert batched == set(per_env) == {field}
+    assert per_env[field].dtype == torch.float32
+    np.testing.assert_array_equal(per_env[field].numpy(), np.asarray(getattr(jm, field)))
+    assert tm == _port(tcfg.MpcConfig, base)
+
+
 @pytest.mark.parametrize("field,value", [
     ("cmd_body_frame", True),  # static in JAX: one program per value
     ("n_admm_iters", 20),
-    ("kv", 0.02),  # a float the port reads from the config only
-    ("dt", 0.05),
 ])
 def test_stack_configs_rejects_mismatch(field, value):
     base = tra.art_mpc_config()
