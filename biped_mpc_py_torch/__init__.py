@@ -43,7 +43,14 @@ Layer map:
                           parallel.rollout_art, parallel.sweep
   L8 deployment        -> sim.mjcf, sim.mj_driver, sim.replay,
                           runtime.realtime, runtime.native, demo
+  L9 multi-device      -> parallel.sharding (one process per device, a
+                          DeviceMesh of DTensor-sharded envs)
   utilities            -> utils.checkpoint, utils.logging, utils.profiling
+
+The names of ``parallel.sharding`` are imported on first use:
+``torch.distributed.tensor`` adds most of a second to the package's import,
+and ``python -m biped_mpc_py_torch.parallel.sharding`` must not find its
+module imported before it runs.
 """
 
 from biped_mpc_py_torch.config import (
@@ -85,7 +92,32 @@ from biped_mpc_py_torch.runtime.realtime import LoopStats, Plant, RealtimeLoop
 from biped_mpc_py_torch.sim.contact import Terrain
 from biped_mpc_py_torch.sim.mj_driver import run_mujoco_closed_loop
 from biped_mpc_py_torch.sim.replay import export_rollout, rollout_qpos_track
-from biped_mpc_py_torch.utils.checkpoint import load_pytree, save_pytree
+from biped_mpc_py_torch.utils.checkpoint import (
+    load_pytree,
+    load_pytree_dcp,
+    save_pytree,
+    save_pytree_dcp,
+)
+
+_SHARDING = (
+    "dryrun_multichip",
+    "env_group",
+    "env_mesh",
+    "make_sharded_batch",
+    "shard_world",
+    "sharded_art_rollout",
+    "sharded_rollout",
+    "spawn_env_group",
+)
+
+
+def __getattr__(name):
+    if name in _SHARDING:
+        from biped_mpc_py_torch.parallel import sharding
+
+        return getattr(sharding, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __version__ = "0.1.0"
 
@@ -128,5 +160,8 @@ __all__ = [
     "rollout_qpos_track",
     "load_pytree",
     "save_pytree",
+    "load_pytree_dcp",
+    "save_pytree_dcp",
+    *_SHARDING,
     "__version__",
 ]

@@ -110,7 +110,17 @@ Phases, each printed on its own lines:
    the run straight through;
 20. demo: ``python -m biped_mpc_py_torch.demo --compat --rollout-steps 50
    --device cuda`` in a subprocess: exit code 0, the tick's torques against
-   the golden tick.
+   the golden tick;
+21. sharded (``parallel/sharding.py``): (a) one rank over NCCL on the
+   card, ``sharded_rollout`` of 1024 envs x 50 SRB ticks and
+   ``sharded_art_rollout`` of the articulated worlds x 10 ticks, each
+   bit-equal to its unsharded loop, with its launches, step count and zero
+   falls, ms per tick beside the unsharded loop's in turns; (b) two ranks
+   sharing the card over gloo, 512 of the same worlds each: the all-reduced
+   summary equal to (a)'s and x_fb within 1.5e-3; (c) their DCP shards at
+   tick 25 loaded into the one-rank mesh (a reshard), bit-equal to the world
+   they gathered, and resumed bit-equal to a one-rank save's resume; save
+   and load ms.
 
 The line before the last is a JSON object describing the kernels; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -1887,6 +1897,211 @@ def phase_demo(torch, device):
         raise AssertionError(f"the demo's torques are {err} N m from the golden tick")
 
 
+N_SHARD_ART_TICKS = 10
+SHARD_BOUND = 1.5e-3  # x_fb, two ranks against one: tests/test_rollout.py:273-281
+
+
+def _same(torch, a, b) -> bool:
+    """Every tensor leaf of two nests of TensorStructs bit-equal."""
+    import dataclasses
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if torch.is_tensor(x) and not torch.equal(x, y):
+            return False
+        if dataclasses.is_dataclass(x) and not _same(torch, x, y):
+            return False
+    return True
+
+
+def _rows(w):
+    """This rank's rows of a sharded world."""
+    return w.map(lambda t: t.to_local())
+
+
+def _synced(torch, fn):
+    """fn() -> (its result, host seconds between two synchronizations)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _two_rank_srb(mesh, mpc, gait, ckpt):
+    """One of two ranks on the card: its 512 of the 1024 SRB worlds (the
+    smoke's robots) for 50 ticks, the world saved at tick 25 (its shards by
+    ``save_pytree_dcp``, gathered whole by ``save_pytree``), after its
+    robots' shards (the first save, which sets DCP up, untimed)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from biped_mpc_py_torch.ops.cuda import qp_kernel
+    from biped_mpc_py_torch.parallel import sharding
+    from biped_mpc_py_torch.parallel.rollout import randomize_params
+    from biped_mpc_py_torch.utils.checkpoint import save_pytree, save_pytree_dcp
+
+    bipeds = randomize_params(torch.Generator().manual_seed(SEED), N_ENVS, device="cuda")
+    ws = sharding.make_sharded_batch(mpc, N_ENVS, mesh)
+    bs = sharding.shard_world(bipeds, mesh)
+    sharding.sharded_rollout(ws, bs, 2, mpc, gait, mesh)  # warm-up: library load, first reduce
+    dist.barrier()
+    (w25, _), sec_a = _synced(torch, lambda: sharding.sharded_rollout(
+        ws, bs, N_TICKS // 2, mpc, gait, mesh))
+    save_pytree_dcp(os.path.join(ckpt, "robots"), bs)  # the first save sets DCP up: untimed
+    dist.barrier()
+    _, sec_save = _synced(torch, lambda: save_pytree_dcp(os.path.join(ckpt, "two"), w25))
+    save_pytree(os.path.join(ckpt, "w25.npz"), w25)
+    dist.barrier()
+    (w50, summary), sec_b = _synced(torch, lambda: sharding.sharded_rollout(
+        w25, bs, N_TICKS - N_TICKS // 2, mpc, gait, mesh))
+    return dict(x_fb=w50.sim.x_fb, summary=summary, sec=sec_a + sec_b, save_sec=sec_save,
+                launches=qp_kernel.fused_qp_solve.launches,
+                device=torch.cuda.current_device())
+
+
+def phase_sharded(torch, device):
+    """Phase 21, the multi-device layer on the one card.
+
+    (a) One rank over NCCL on ``cuda:0``: ``sharded_rollout`` of
+    ``make_sharded_batch`` at 1024 envs x 50 SRB ticks and
+    ``sharded_art_rollout`` of the articulated worlds x 10 ticks (5
+    substeps, Minv held all tick), each bit-equal to its unsharded loop on
+    the same worlds, with its launches (one QP a tick, no physics kernel),
+    n_steps and zero falls; ms per tick of both, in turns. (b) Two ranks on
+    the card over gloo (NCCL refuses two ranks on one device), 512 of the
+    same 1024 SRB worlds each: the all-reduced summary equal to (a)'s
+    (height within rtol 1e-5), x_fb within 1.5e-3. (c) Their tick-25 shards
+    (``save_pytree_dcp``) loaded into the one-rank mesh (a reshard),
+    bit-equal to the world they gathered at tick 25 (``save_pytree``);
+    resumed 25 ticks, bit-equal to the run resumed from a one-rank save.
+    (d) ``dryrun_multichip(1, device="cuda")``, the dry run's default
+    path: one NCCL rank in a process of its own, its three phases checked.
+    """
+    import os
+    import tempfile
+
+    from biped_mpc_py_torch import GaitConfig
+    from biped_mpc_py_torch.parallel import sharding
+    from biped_mpc_py_torch.parallel.rollout import (
+        batch_worlds, batched_rollout, randomize_params,
+    )
+    from biped_mpc_py_torch.parallel.rollout_art import batched_art_rollout
+    from biped_mpc_py_torch.utils.checkpoint import load_pytree, load_pytree_dcp, save_pytree_dcp
+
+    mpc, gait = _walk_config(), GaitConfig()
+    with tempfile.TemporaryDirectory() as d, sharding.env_group(os.path.join(d, "store"), "nccl"):
+        mesh = sharding.env_mesh("cuda")
+        bipeds = randomize_params(torch.Generator().manual_seed(SEED), N_ENVS, device=device)
+        bs = sharding.shard_world(bipeds, mesh)
+        ws = sharding.make_sharded_batch(mpc, N_ENVS, mesh)
+        sharding.sharded_rollout(ws, bs, 2, mpc, gait, mesh)  # warm-up: NCCL's first reduce
+
+        # (a) SRB, then the articulated loop: checked runs first, then in turns
+        _reset_counts()
+        (w_s, s), sec_s1 = _synced(torch, lambda: sharding.sharded_rollout(
+            ws, bs, N_TICKS, mpc, gait, mesh))
+        launches = _counts()
+        worlds = batch_worlds(mpc, N_ENVS, device=device)
+        w_u, sec_u1 = _synced(torch, lambda: batched_rollout(worlds, bipeds, N_TICKS, mpc, gait))
+        _, sec_u2 = _synced(torch, lambda: batched_rollout(worlds, bipeds, N_TICKS, mpc, gait))
+        _, sec_s2 = _synced(torch, lambda: sharding.sharded_rollout(
+            ws, bs, N_TICKS, mpc, gait, mesh))
+        srb_equal = _same(torch, _rows(w_s), w_u)
+        ms = [1e3 * t / N_TICKS for t in (sec_s1, sec_u1, sec_u2, sec_s2)]
+        log(f"[sharded] (a) SRB, 1 rank over NCCL, {N_ENVS} envs x {N_TICKS} ticks: summary "
+            f"{json.dumps({k: float(v) for k, v in s.items()})}, launches {json.dumps(launches)}, "
+            f"bit-equal to batched_rollout {srb_equal}; ms per tick sharded {ms[0]:.3f}, "
+            f"unsharded {ms[1]:.3f}, unsharded {ms[2]:.3f}, sharded {ms[3]:.3f}")
+        if not (srb_equal and float(s["n_steps"]) == N_TICKS * N_ENVS and float(s["falls"]) == 0
+                and launches == {"fused_qp_solve": N_TICKS, "fused_tick": 0, "fused_substeps": 0}):
+            raise AssertionError("the one-rank sharded SRB loop failed its checks")
+
+        mpc_a, gait_a = _art_config()
+        aw, ab = art_worlds(torch, device)
+        aws, abs_ = sharding.shard_world(aw, mesh), sharding.shard_world(ab, mesh)
+        kw = dict(n_substeps=5, minv_ll_hold=8)
+        _reset_counts()
+        (a_s, a_sum), asec_s1 = _synced(torch, lambda: sharding.sharded_art_rollout(
+            aws, abs_, N_SHARD_ART_TICKS, mpc_a, gait_a, mesh, **kw))
+        alaunches = _counts()
+        a_u, asec_u1 = _synced(torch, lambda: batched_art_rollout(
+            aw, ab, N_SHARD_ART_TICKS, mpc_a, gait_a, **kw))
+        _, asec_u2 = _synced(torch, lambda: batched_art_rollout(
+            aw, ab, N_SHARD_ART_TICKS, mpc_a, gait_a, **kw))
+        _, asec_s2 = _synced(torch, lambda: sharding.sharded_art_rollout(
+            aws, abs_, N_SHARD_ART_TICKS, mpc_a, gait_a, mesh, **kw))
+        art_equal = _same(torch, _rows(a_s), a_u)
+        ams = [1e3 * t / N_SHARD_ART_TICKS for t in (asec_s1, asec_u1, asec_u2, asec_s2)]
+        log(f"[sharded] (a) articulated, 1 rank over NCCL, {N_ENVS} envs x {N_SHARD_ART_TICKS} "
+            f"ticks (plain chain, 5 substeps, Minv held): summary "
+            f"{json.dumps({k: float(v) for k, v in a_sum.items()})}, launches "
+            f"{json.dumps(alaunches)}, bit-equal to batched_art_rollout {art_equal}; ms per tick "
+            f"sharded {ams[0]:.3f}, unsharded {ams[1]:.3f}, unsharded {ams[2]:.3f}, "
+            f"sharded {ams[3]:.3f}")
+        if not (art_equal and float(a_sum["n_steps"]) == N_SHARD_ART_TICKS * N_ENVS
+                and float(a_sum["falls"]) == 0 and alaunches == {
+                    "fused_qp_solve": N_SHARD_ART_TICKS, "fused_tick": 0, "fused_substeps": 0}):
+            raise AssertionError("the one-rank sharded articulated loop failed its checks")
+
+        # (b) two ranks on the one card
+        ckpt = os.path.join(d, "ckpt")
+        ranks = sharding.spawn_env_group(2, _two_rank_srb, mpc, gait, ckpt, device="cuda",
+                                         timeout=600)
+        sums = [{k: float(v) for k, v in r["summary"].items()} for r in ranks]
+        x_two = torch.cat([r["x_fb"] for r in ranks]).to(device)
+        dx = float((x_two - w_u.sim.x_fb).abs().max())
+        sec_two = max(r["sec"] for r in ranks)
+        log(f"[sharded] (b) 2 ranks on the one card over gloo (cards "
+            f"{[r['device'] for r in ranks]}), {N_ENVS // 2} envs each x {N_TICKS} ticks: summary "
+            f"{json.dumps(sums[0])}, QP launches per rank {[r['launches'] for r in ranks]}; "
+            f"against (a): max|dx_fb| {dx:.3e} (bound {SHARD_BOUND}), bit-equal {dx == 0.0}; "
+            f"{sec_two * 1e3 / N_TICKS:.3f} ms per tick, "
+            f"{N_ENVS * N_TICKS / sec_two:.1f} env-steps/s for the two, "
+            f"{(sec_s1 + sec_s2) / 2 / sec_two:.3f}x one rank's rate in (a)")
+        one = {k: float(v) for k, v in s.items()}
+        if not (sums[0] == sums[1] and sums[0]["n_steps"] == one["n_steps"]
+                and sums[0]["falls"] == one["falls"]
+                and abs(sums[0]["height_rmse_sum"] - one["height_rmse_sum"])
+                <= 1e-5 * abs(one["height_rmse_sum"])
+                and dx <= SHARD_BOUND and all(r["launches"] == N_TICKS + 2 for r in ranks)):
+            raise AssertionError("two ranks on the card disagree with one")
+
+        # (c) the two ranks' checkpoint into the one-rank mesh
+        robots = load_pytree_dcp(os.path.join(ckpt, "robots"), bs)  # the first load: untimed
+        like = sharding.make_sharded_batch(mpc, N_ENVS, mesh)
+        loaded, sec_load = _synced(torch, lambda: load_pytree_dcp(os.path.join(ckpt, "two"), like))
+        gathered = load_pytree(os.path.join(ckpt, "w25.npz"), worlds)
+        reshard_equal = _same(torch, _rows(loaded), gathered)
+        _, sec_save1 = _synced(torch, lambda: save_pytree_dcp(
+            os.path.join(ckpt, "one"), sharding.shard_world(gathered, mesh)))
+        loaded1, sec_load1 = _synced(torch, lambda: load_pytree_dcp(os.path.join(ckpt, "one"),
+                                                                    like))
+        rest = N_TICKS - N_TICKS // 2
+        r_two, _ = sharding.sharded_rollout(loaded, bs, rest, mpc, gait, mesh)
+        r_one, _ = sharding.sharded_rollout(loaded1, bs, rest, mpc, gait, mesh)
+        resume_equal = _same(torch, _rows(r_two), _rows(r_one))
+        dx_resume = float((r_two.sim.x_fb.to_local() - x_two).abs().max())
+        log(f"[sharded] (c) DCP, {N_ENVS}-env world at tick {N_TICKS // 2}: 2-rank save "
+            f"{max(r['save_sec'] for r in ranks) * 1e3:.3f} ms, load into 1 rank (reshard) "
+            f"{sec_load * 1e3:.3f} ms, bit-equal to the ranks' gathered world {reshard_equal}; "
+            f"1-rank save {sec_save1 * 1e3:.3f} ms, load {sec_load1 * 1e3:.3f} ms; resumed "
+            f"{rest} ticks bit-equal to the one-rank save's resume {resume_equal} (against "
+            f"the two ranks' tick {N_TICKS}: max|dx_fb| {dx_resume:.3e})")
+        if not (reshard_equal and resume_equal and _same(torch, _rows(robots), bipeds)):
+            raise AssertionError("the resharded checkpoint differs")
+
+    # (d) the dry run's command-line path: one NCCL rank of its own
+    lines = sharding.dryrun_multichip(1, device="cuda", timeout=600)
+    log(f"[sharded] (d) dryrun_multichip(1, device='cuda'): {len(lines)} lines")
+    if not ("dryrun_multichip SRB OK: 1 ranks on cuda, 2 envs" in lines[0]
+            and "dryrun_multichip ART OK: 1 ranks on cuda, 2 envs, 50 steps" in lines[1]
+            and any(line.strip().startswith("ranks=1 envs=4 steps=50") for line in lines)):
+        raise AssertionError(f"dryrun_multichip on the card failed its checks: {lines}")
+
+
 def time_tick(torch, device):
     """The tick kernel (device time from ``torch.profiler``; the wrapper's
     call by CUDA events beside it) and its plain version at 1024 envs, and
@@ -2045,6 +2260,7 @@ def main() -> int:
         phase_realtime(torch, device)
         phase_replay_checkpoint(torch, device)
         phase_demo(torch, device)
+        phase_sharded(torch, device)
         bounds = {"fused_qp_solve": solve_ms["bench"][2:4],
                   "fused_substeps": bound_substep(torch, device),
                   "fused_tick": bound_tick(torch, device),

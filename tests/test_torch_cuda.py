@@ -606,3 +606,126 @@ def test_new_entry_points_build_on_the_card(cuda):
     qpos, times, falls = rollout_qpos_track(mpc, gait, 2, n_substeps=5, minv_ll_hold=8)
     assert [a - b for a, b in zip(_counts(), before)] == [2, 0, 0]
     assert qpos.shape == (2, 17) and falls == 0.0 and 0.45 < qpos[:, 2].min()
+
+
+SHARD_ENVS, SHARD_TICKS = 1024, 50
+WALK = (0, 0, 0, 0, 0, 0.55, 0, 0, 0, 0.3, 0, 0)
+
+
+def _shard_setup(mesh):
+    """The smoke's SRB walk at the bench budget: 1024 randomized robots
+    (seed 0) from standing, sharded over ``mesh``."""
+    from biped_mpc_py_torch.parallel import sharding
+
+    mpc = fast_mpc_config(x_cmd=WALK)
+    bipeds = randomize_params(torch.Generator().manual_seed(0), SHARD_ENVS, device="cuda")
+    return (mpc, bipeds, sharding.make_sharded_batch(mpc, SHARD_ENVS, mesh),
+            sharding.shard_world(bipeds, mesh))
+
+
+def _two_ranks_on_card(mesh, dcp_dir):
+    """One of two ranks sharing the card: its half of the worlds for 50
+    ticks, its shards saved at tick 25 (and the world gathered whole into
+    an npz file beside them)."""
+    from biped_mpc_py_torch.parallel import sharding
+    from biped_mpc_py_torch.utils.checkpoint import save_pytree, save_pytree_dcp
+
+    mpc, _, ws, bs = _shard_setup(mesh)
+    mid, _ = sharding.sharded_rollout(ws, bs, SHARD_TICKS // 2, mpc, GaitConfig(), mesh)
+    save_pytree_dcp(dcp_dir, mid)
+    save_pytree(dcp_dir + ".npz", mid)
+    out, summary = sharding.sharded_rollout(mid, bs, SHARD_TICKS - SHARD_TICKS // 2, mpc,
+                                            GaitConfig(), mesh)
+    return dict(mid=mid, x_fb=out.sim.x_fb, summary=summary)
+
+
+@pytest.fixture(scope="module")
+def two_ranks_on_card(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc (torch.cuda.is_available() is false)")
+    from biped_mpc_py_torch.parallel import sharding
+
+    dcp_dir = str(tmp_path_factory.mktemp("two_ranks") / "dcp")
+    return dcp_dir, sharding.spawn_env_group(2, _two_ranks_on_card, dcp_dir, device="cuda",
+                                             timeout=600)
+
+
+@pytest.fixture
+def one_nccl_rank(cuda, tmp_path):
+    from biped_mpc_py_torch.parallel import sharding
+
+    with sharding.env_group(str(tmp_path / "store"), "nccl"):
+        yield sharding.env_mesh("cuda")
+
+
+def _same(a, b):
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, y), f.name
+        elif dataclasses.is_dataclass(x):
+            _same(x, y)
+
+
+def test_sharded_rollout_one_nccl_rank_is_the_unsharded_loop(one_nccl_rank):
+    """One rank over NCCL runs ``batched_rollout`` on all 1024 rows: every
+    leaf bit-equal, one QP launch a tick, the summary the local sums."""
+    from biped_mpc_py_torch.parallel import sharding
+
+    mpc, bipeds, ws, bs = _shard_setup(one_nccl_rank)
+    before = tk.fused_qp_solve.launches
+    out, summary = sharding.sharded_rollout(ws, bs, SHARD_TICKS, mpc, GaitConfig(),
+                                            one_nccl_rank)
+    assert tk.fused_qp_solve.launches == before + SHARD_TICKS
+    whole = batched_rollout(batch_worlds(mpc, SHARD_ENVS, device="cuda"), bipeds, SHARD_TICKS,
+                            mpc, GaitConfig())
+    _same(out.map(lambda t: t.to_local()), whole)
+    assert float(summary["n_steps"]) == SHARD_TICKS * SHARD_ENVS
+    assert float(summary["falls"]) == 0
+    assert summary["n_steps"].device.type == "cuda"
+
+
+def test_sharded_rollout_two_ranks_on_one_card(cuda, two_ranks_on_card):
+    """Two gloo ranks of 512 rows on the card against the unsharded loop of
+    1024: x_fb within 1.5e-3 (tests/test_rollout.py:273-281), the
+    all-reduced summary equal (height rtol 1e-5)."""
+    _, ranks = two_ranks_on_card
+    mpc = fast_mpc_config(x_cmd=WALK)
+    bipeds = randomize_params(torch.Generator().manual_seed(0), SHARD_ENVS, device=cuda)
+    whole = batched_rollout(batch_worlds(mpc, SHARD_ENVS, device=cuda), bipeds, SHARD_TICKS,
+                            mpc, GaitConfig())
+    x = torch.cat([r["x_fb"] for r in ranks]).to(cuda)
+    assert float((x - whole.sim.x_fb).abs().max()) <= 1.5e-3
+    s = [{k: float(v) for k, v in r["summary"].items()} for r in ranks]
+    m = whole.metrics
+    assert s[0] == s[1]
+    assert s[0]["n_steps"] == float(m.n_steps.sum()) and s[0]["falls"] == float(m.falls.sum())
+    assert abs(s[0]["height_rmse_sum"] - float(m.height_err_sq.sum())) <= 1e-5 * s[0][
+        "height_rmse_sum"]
+
+
+def test_dcp_two_ranks_reshard_into_one_on_card(two_ranks_on_card, one_nccl_rank):
+    """The two ranks' tick-25 shards loaded into a one-rank NCCL mesh:
+    bit-equal to their rows, as is the world they gathered into npz."""
+    from biped_mpc_py_torch.parallel import sharding
+    from biped_mpc_py_torch.utils.checkpoint import load_pytree, load_pytree_dcp
+
+    dcp_dir, ranks = two_ranks_on_card
+    mpc = fast_mpc_config(x_cmd=WALK)
+    like = sharding.make_sharded_batch(mpc, SHARD_ENVS, one_nccl_rank)
+    loaded = load_pytree_dcp(dcp_dir, like).map(lambda t: t.to_local())
+    rows = _cat_rows([r["mid"] for r in ranks])
+    _same(loaded, rows)
+    _same(load_pytree(dcp_dir + ".npz", batch_worlds(mpc, SHARD_ENVS, device="cuda")), rows)
+
+
+def _cat_rows(structs):
+    """The ranks' rows, in rank order, as one nest on the card."""
+    changes = {}
+    for f in dataclasses.fields(structs[0]):
+        parts = [getattr(x, f.name) for x in structs]
+        if isinstance(parts[0], torch.Tensor):
+            changes[f.name] = torch.cat(parts).cuda()
+        elif dataclasses.is_dataclass(parts[0]):
+            changes[f.name] = _cat_rows(parts)
+    return dataclasses.replace(structs[0], **changes)
