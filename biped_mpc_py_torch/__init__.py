@@ -12,7 +12,12 @@ The main paths are :func:`biped_mpc_py_torch.parallel.rollout.batched_rollout`
 and :func:`~biped_mpc_py_torch.parallel.rollout_art.batched_art_rollout_kernel`
 on flat ground, and
 :func:`~biped_mpc_py_torch.parallel.rollout_art.batched_art_rollout_terrain`
-on per-env height fields (:class:`~biped_mpc_py_torch.sim.contact.Terrain`);
+on per-env height fields (:class:`~biped_mpc_py_torch.sim.contact.Terrain`).
+Their compiled forms, the counterparts of ``jax.jit`` of the JAX package's
+factories, capture one tick as a CUDA graph and replay it
+(:mod:`~biped_mpc_py_torch.utils.graphs`): ``batched_rollout_fn``,
+``batched_cmd_rollout_fn``, ``batched_art_rollout_tick_kernel_fn`` and
+``batched_art_rollout_kernel_fn``;
 :func:`~biped_mpc_py_torch.parallel.sweep.art_sweep` runs a batch of
 configs (per-env gains and commands beside one config). Around one robot:
 :func:`~biped_mpc_py_torch.sim.mj_driver.run_mujoco_closed_loop` (MuJoCo as
@@ -45,7 +50,8 @@ Layer map:
                           runtime.realtime, runtime.native, demo
   L9 multi-device      -> parallel.sharding (one process per device, a
                           DeviceMesh of DTensor-sharded envs)
-  utilities            -> utils.checkpoint, utils.logging, utils.profiling
+  utilities            -> utils.checkpoint, utils.logging, utils.profiling,
+                          utils.graphs (CUDA-graph capture of a tick, L6 and L8)
 
 The names of ``parallel.sharding`` are imported on first use:
 ``torch.distributed.tensor`` adds most of a second to the package's import,
@@ -70,7 +76,9 @@ from biped_mpc_py_torch.parallel.rollout import (
     World,
     batch_worlds,
     batched_cmd_rollout,
+    batched_cmd_rollout_fn,
     batched_rollout,
+    batched_rollout_fn,
     init_world,
     randomize_params,
 )
@@ -82,8 +90,10 @@ from biped_mpc_py_torch.parallel.rollout_art import (
     art_mpc_config,
     batched_art_rollout,
     batched_art_rollout_kernel,
+    batched_art_rollout_kernel_fn,
     batched_art_rollout_terrain,
     batched_art_rollout_tick_kernel,
+    batched_art_rollout_tick_kernel_fn,
     init_art_world,
 )
 from biped_mpc_py_torch.parallel.sweep import art_sweep, perturbed_worlds, stack_configs
@@ -92,6 +102,7 @@ from biped_mpc_py_torch.runtime.realtime import LoopStats, Plant, RealtimeLoop
 from biped_mpc_py_torch.sim.contact import Terrain
 from biped_mpc_py_torch.sim.mj_driver import run_mujoco_closed_loop
 from biped_mpc_py_torch.sim.replay import export_rollout, rollout_qpos_track
+from biped_mpc_py_torch.utils.graphs import TickGraph, graphed
 from biped_mpc_py_torch.utils.checkpoint import (
     load_pytree,
     load_pytree_dcp,
@@ -134,7 +145,9 @@ __all__ = [
     "World",
     "batch_worlds",
     "batched_cmd_rollout",
+    "batched_cmd_rollout_fn",
     "batched_rollout",
+    "batched_rollout_fn",
     "init_world",
     "randomize_params",
     "ArtWorld",
@@ -144,8 +157,10 @@ __all__ = [
     "art_mpc_config",
     "batched_art_rollout",
     "batched_art_rollout_kernel",
+    "batched_art_rollout_kernel_fn",
     "batched_art_rollout_terrain",
     "batched_art_rollout_tick_kernel",
+    "batched_art_rollout_tick_kernel_fn",
     "init_art_world",
     "Terrain",
     "sparse_qp_matrices",
@@ -162,6 +177,8 @@ __all__ = [
     "save_pytree",
     "load_pytree_dcp",
     "save_pytree_dcp",
+    "TickGraph",
+    "graphed",
     *_SHARDING,
     "__version__",
 ]

@@ -250,8 +250,36 @@ def config_vector(mpc: MpcConfig, name: str, per_env: dict | None,
     return v if isinstance(v, torch.Tensor) else config_tensor(v, like)
 
 
+_CONSTANTS: dict = {}  # (values, shape, device, dtype) -> tensor
+
+
 def config_tensor(values, like: torch.Tensor) -> torch.Tensor:
     """A small constant vector (a config's ``x_cmd``, ``Q``, ``R``, ...) as
-    a tensor of ``like``'s dtype on ``like``'s device, through pinned memory
-    to the card (``utils.device.host_to_device``)."""
-    return host_to_device(values, like.device, like.dtype)
+    a tensor of ``like``'s dtype on ``like``'s device
+    (:func:`device_constant`)."""
+    return device_constant(values, like.device, like.dtype)
+
+
+def device_constant(values, device: torch.device, dtype=torch.float32) -> torch.Tensor:
+    """Host values (numbers, nested sequences, a numpy array) as a tensor
+    of ``dtype`` on ``device``.
+
+    Memoized: each distinct ``(values, device, dtype)`` is copied to the
+    device once (through pinned memory, ``utils.device.host_to_device``)
+    and the same tensor is returned ever after. Callers never write into
+    it. A CUDA graph that reads it therefore reads a buffer that lives as
+    long as the process, and a steady tick makes no host-to-device copy.
+    A first use inside a CUDA-graph capture raises: the captured copy would
+    read a temporary host buffer on every replay."""
+    arr = np.asarray(values)
+    device = torch.device(device)
+    key = (tuple(arr.reshape(-1).tolist()), arr.shape, device, dtype)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"device_constant{key[:2]} first made inside a CUDA-graph capture; "
+                "run the step once before capturing it"
+            )
+        t = _CONSTANTS[key] = host_to_device(arr, device, dtype)
+    return t

@@ -197,7 +197,7 @@ def control_tick(
         hold = (ctrl_state.hold_count if ctrl_state is not None
                 else torch.zeros(n, dtype=torch.int32, device=device))
     contact = contact_sequence(t_g, mpc, gait, per_env)
-    foot_yaw = x_fb[:, 2:3] + q[:, [0, 5]] if mpc.foot_frame_wrench else None
+    foot_yaw = x_fb[:, 2:3] + q[:, 0:6:5] if mpc.foot_frame_wrench else None
     sol = solve_mpc(
         x_fb, t_g, pf_w, mpc, biped, contact, warm=warm, gait=gait,
         cmd_ref=cmd_ref, foot_yaw=foot_yaw, v_int=v_int, pitch_ref=p_ref,

@@ -111,7 +111,8 @@ def fused_qp_solve(P, Ah, q, l, u, x0, z0, y0, *, rho, n_iters, n_phases,
         give each env its own (the rho re-pick starts from the env's rho).
 
     CUDA tensors launch the kernel (and count the launch in
-    ``fused_qp_solve.launches``); CPU tensors run
+    ``fused_qp_solve.launches``; a CUDA-graph replay of a captured launch adds to it too,
+    ``utils/graphs.py``); CPU tensors run
     :func:`fused_qp_solve_reference`.
     """
     n_env, h, m, nu = _check(P, Ah, q, l, u, x0, z0, y0)

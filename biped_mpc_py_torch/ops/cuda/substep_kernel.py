@@ -49,7 +49,9 @@ FUNCTIONS = {
 }
 
 _lib = None
-_consts_cache: tuple | None = None  # (model, device, buffer) of the last call
+# (id(model), device) -> (model, buffer): one entry per model object, never
+# evicted, so no buffer that a captured CUDA graph reads is freed
+_consts_cache: dict = {}
 
 
 def _load():
@@ -83,12 +85,12 @@ def model_constants(model: ArticulatedModel, device) -> torch.Tensor:
 
 
 def _constants(model: ArticulatedModel, device) -> torch.Tensor:
-    """:func:`model_constants` on ``device``, reused while the same model
-    object comes back (the rollouts pass one model for every launch)."""
-    global _consts_cache
-    if _consts_cache is None or _consts_cache[0] is not model or _consts_cache[1] != device:
-        _consts_cache = (model, device, model_constants(model, device))
-    return _consts_cache[2]
+    """:func:`model_constants` on ``device``, made once per model object
+    (the rollouts pass one model for every launch) and kept."""
+    key = (id(model), device)
+    if key not in _consts_cache:
+        _consts_cache[key] = (model, model_constants(model, device))
+    return _consts_cache[key][1]
 
 
 def _check(state: ArtState, tau, Minv):
@@ -124,7 +126,8 @@ def fused_substeps(model: ArticulatedModel, state: ArtState, tau: torch.Tensor,
         TPU kernel does; a height field runs ``art_step``'s plain chain.
 
     CUDA tensors launch the kernel (and count the launch in
-    ``fused_substeps.launches``); CPU tensors run
+    ``fused_substeps.launches``; a CUDA-graph replay of a captured launch adds to it too,
+    ``utils/graphs.py``); CPU tensors run
     :func:`fused_substeps_reference`. Raises ValueError on a terrain and on
     a per-env ``dt`` (a tensor): the kernel takes one step per launch, and
     a sweep over ``dt`` runs ``art_step``'s plain chain.

@@ -74,7 +74,10 @@ FUNCTIONS = {
 }
 
 _lib = None
-_consts_cache: tuple | None = None  # (objects, device, buffers) of the last call
+# (ids of model, biped, mpc, gait; device) -> (those objects, buffers): one
+# entry per set of objects, never evicted, so no buffer that a captured CUDA
+# graph reads is freed (and the objects, held here, keep their ids)
+_consts_cache: dict = {}
 
 
 def _load():
@@ -142,15 +145,14 @@ def _flags(mpc: MpcConfig) -> int:
 
 
 def _constants(model, biped, mpc, gait, device):
-    """(model buffer, tick buffer) on ``device``, reused while the same
-    objects come back (the rollout passes the same ones every tick)."""
-    global _consts_cache
+    """(model buffer, tick buffer) on ``device``, made once per set of
+    objects (the rollout passes the same ones every tick) and kept."""
     objs = (model, biped, mpc, gait)
-    if (_consts_cache is None or _consts_cache[1] != device
-            or any(a is not b for a, b in zip(_consts_cache[0], objs))):
-        _consts_cache = (objs, device, (model_constants(model, device),
-                                        tick_constants(model, biped, mpc, gait, device)))
-    return _consts_cache[2]
+    key = tuple(map(id, objs)) + (device,)
+    if key not in _consts_cache:
+        _consts_cache[key] = (objs, (model_constants(model, device),
+                                     tick_constants(model, biped, mpc, gait, device)))
+    return _consts_cache[key][1]
 
 
 def _check(biped, gait, state, u0, c0, t0, cmd_yaw, v_int, Minv, n_lowlevel,
@@ -206,7 +208,8 @@ def fused_tick(model: ArticulatedModel, biped: BipedParams, mpc: MpcConfig,
         command and gains for the whole batch.
 
     CUDA tensors launch the kernel (and count the launch in
-    ``fused_tick.launches``); CPU tensors run :func:`fused_tick_reference`.
+    ``fused_tick.launches``; a CUDA-graph replay of a captured launch adds to it too,
+    ``utils/graphs.py``); CPU tensors run :func:`fused_tick_reference`.
     Raises ValueError on a running gait, a terrain or per-env values.
     """
     n = _check(biped, gait, state, u0, c0, t0, cmd_yaw, v_int, Minv, n_lowlevel,

@@ -7,7 +7,10 @@ kernel launch for the whole batch on the card), the SRB physics step, fall
 reset and metrics. ``lax.scan`` becomes a Python loop over ticks.
 
 :func:`batched_rollout` drives every env with the config's command,
-:func:`batched_cmd_rollout` each env with its own. The JAX package's
+:func:`batched_cmd_rollout` each env with its own. :func:`batched_rollout_fn`
+and :func:`batched_cmd_rollout_fn` are their compiled forms, the
+counterparts of ``jax.jit`` of the JAX factories: one tick captured as a
+CUDA graph and replayed (``utils/graphs.py``). The JAX package's
 single-env ``closed_loop_tick`` and ``rollout_fn`` have no separate port:
 the batched functions at N = 1 are their counterparts.
 """
@@ -30,6 +33,7 @@ from biped_mpc_py_torch.models.biped import BipedParams
 from biped_mpc_py_torch.ops.qp import QpSolution, solve_qp
 from biped_mpc_py_torch.sim.srb_sim import SrbState, srb_step
 from biped_mpc_py_torch.utils.device import DEFAULT_DEVICE, entry_device
+from biped_mpc_py_torch.utils.graphs import graphed
 from biped_mpc_py_torch.utils.metrics import RolloutMetrics
 from biped_mpc_py_torch.utils.precision import f32_precision
 from biped_mpc_py_torch.utils.struct import TensorStruct
@@ -142,14 +146,46 @@ def batched_cmd_rollout(
     ``x_cmd`` (N,12) holds each env's command (its own speed and heading)
     in the layout of ``MpcConfig.x_cmd`` and takes the place of the
     config's everywhere in the tick, the metrics included."""
-    n = worlds.sim.x_fb.shape[0]
-    if x_cmd.shape != (n, 12):
-        raise ValueError(f"x_cmd of shape {tuple(x_cmd.shape)}, expected ({n}, 12)")
-    x_cmd = x_cmd.to(worlds.sim.x_fb.dtype)
+    x_cmd = _check_cmd(worlds, x_cmd)
     w = worlds
     for _ in range(n_steps):
         w = batched_closed_loop_tick(w, mpc, gait, bipeds, x_cmd)
     return w
+
+
+def batched_rollout_fn(n_steps: int, mpc: MpcConfig, gait: GaitConfig):
+    """``fn(worlds, bipeds) -> worlds``: ``n_steps`` ticks of
+    :func:`batched_closed_loop_tick`, the counterpart of
+    ``jax.jit(batched_rollout_fn(n_steps, mpc, gait, backend="pallas"))``
+    (the TPU block sizing has no counterpart). On the card the first call
+    with a shape captures one tick as a CUDA graph and every call replays
+    it ``n_steps`` times (``utils/graphs.py``); on the CPU the same static
+    buffers step eagerly. Bit-equal to :func:`batched_rollout`; the inputs
+    are not modified and the result aliases nothing of the graph's."""
+    return graphed(lambda w, bipeds: batched_closed_loop_tick(w, mpc, gait, bipeds),
+                   n_steps)
+
+
+def _check_cmd(worlds: World, x_cmd: torch.Tensor) -> torch.Tensor:
+    n = worlds.sim.x_fb.shape[0]
+    if x_cmd.shape != (n, 12):
+        raise ValueError(f"x_cmd of shape {tuple(x_cmd.shape)}, expected ({n}, 12)")
+    return x_cmd.to(worlds.sim.x_fb.dtype)
+
+
+def batched_cmd_rollout_fn(n_steps: int, mpc: MpcConfig, gait: GaitConfig):
+    """``fn(worlds, bipeds, x_cmd) -> worlds`` with per-env commands (N,12):
+    the counterpart of ``jax.jit(batched_cmd_rollout_fn(n_steps, mpc,
+    gait))``, captured and replayed as :func:`batched_rollout_fn`;
+    bit-equal to :func:`batched_cmd_rollout`."""
+    run = graphed(lambda w, bipeds, x_cmd: batched_closed_loop_tick(
+        w, mpc, gait, bipeds, x_cmd), n_steps)
+
+    def fn(worlds: World, bipeds: BipedParams, x_cmd: torch.Tensor) -> World:
+        return run(worlds, bipeds, _check_cmd(worlds, x_cmd))
+
+    fn.graphs = run.graphs
+    return fn
 
 
 def randomize_params(generator: torch.Generator, n: int,

@@ -26,7 +26,10 @@ height field under every env; :func:`batched_art_rollout_terrain` runs the
 same chain with a height field per env (the counterpart of
 ``batched_art_rollout_terrain_fn`` and of ``bench.py BENCH_TERRAIN``). The
 two kernels know flat ground only, as the TPU kernels do, so a terrain runs
-the plain chain in both packages. The JAX package's single-env
+the plain chain in both packages. :func:`batched_art_rollout_tick_kernel_fn`
+and :func:`batched_art_rollout_kernel_fn` are the compiled forms of the
+two kernel paths, the counterparts of ``jax.jit`` of the JAX factories:
+one tick captured as a CUDA graph and replayed (``utils/graphs.py``). The JAX package's single-env
 ``art_rollout_fn`` has no separate port: the batched functions at N = 1 are
 its counterpart.
 """
@@ -64,6 +67,7 @@ from biped_mpc_py_torch.sim.engine import (
 )
 from biped_mpc_py_torch.sim.model import ArticulatedModel, hector_model
 from biped_mpc_py_torch.utils.device import DEFAULT_DEVICE, entry_device
+from biped_mpc_py_torch.utils.graphs import graphed
 from biped_mpc_py_torch.utils.metrics import RolloutMetrics
 from biped_mpc_py_torch.utils.precision import f32_precision
 from biped_mpc_py_torch.utils.struct import TensorStruct
@@ -182,7 +186,7 @@ def _art_control_stage(world: ArtWorld, biped: BipedParams, mpc: MpcConfig,
     else:
         t_g, hold = sim.t, world.ctrl.hold_count
     contact = contact_sequence(t_g, mpc, gait, per_env)
-    foot_yaw = x_fb[:, 2:3] + sim.q[:, [0, 5]] if mpc.foot_frame_wrench else None
+    foot_yaw = x_fb[:, 2:3] + sim.q[:, 0:6:5] if mpc.foot_frame_wrench else None
     sol = solve_mpc(
         x_fb, t_g, pf_w, mpc, biped, contact, warm=world.ctrl.qp, gait=gait,
         cmd_ref=world.ctrl.cmd_ref, foot_yaw=foot_yaw, terrain=terrain,
@@ -349,6 +353,47 @@ def batched_art_rollout_terrain(worlds: ArtWorld, bipeds: BipedParams,
     return w
 
 
+_DEFAULTS: dict = {}  # device -> (hector_model, BipedParams()) on it
+
+
+def _defaults(device) -> tuple[ArticulatedModel, BipedParams]:
+    """The default model and low-level robot on ``device``, one pair per
+    device: the kernels' constant buffers are kept per object
+    (``ops/cuda``), so a new default object per call would add a buffer per
+    call."""
+    device = torch.device(device)
+    if device not in _DEFAULTS:
+        _DEFAULTS[device] = (hector_model(device=device), BipedParams().to(device))
+    return _DEFAULTS[device]
+
+
+def _substep_kernel_tick(w: ArtWorld, bipeds: BipedParams, mpc: MpcConfig,
+                         gait: GaitConfig, model: ArticulatedModel, n_lowlevel: int,
+                         n_substeps: int, minv_ll_hold: int) -> ArtWorld:
+    """One tick of the substep-kernel path."""
+
+    def physics(sim, tau, Minv, dt):
+        return fused_substeps(model, sim, tau, Minv, dt, n_substeps)
+
+    return _art_tick(w, bipeds, mpc, gait, model, n_lowlevel, minv_ll_hold, physics)
+
+
+def _tick_kernel_tick(w: ArtWorld, bipeds: BipedParams, mpc: MpcConfig, gait: GaitConfig,
+                      model: ArticulatedModel, biped: BipedParams, n_lowlevel: int,
+                      n_substeps: int) -> ArtWorld:
+    """One tick of the tick-kernel path: the MPC stage, one mass-matrix
+    inverse, one ``fused_tick``, the post stage."""
+    x_fb, t_g, hold, contact, sol = _art_control_stage(w, bipeds, mpc, gait, model)
+    sim = w.sim
+    t0 = t_g if gait.contact_clock else sim.t
+    Minv = mass_matrix_inv(model, sim.q)
+    sim_new, energy = fused_tick(
+        model, biped, mpc, gait, sim, sol.controls[:, 0], contact[:, 0, 0:2], t0,
+        w.ctrl.cmd_ref[:, 2], w.ctrl.v_int, Minv, n_lowlevel, n_substeps,
+    )
+    return _art_post_stage(w, sim_new, energy, x_fb, sol, t_g, hold, mpc)
+
+
 @f32_precision
 @torch.no_grad()
 def batched_art_rollout_kernel(worlds: ArtWorld, bipeds: BipedParams,
@@ -359,17 +404,14 @@ def batched_art_rollout_kernel(worlds: ArtWorld, bipeds: BipedParams,
     """``n_steps`` articulated ticks with each low-level period's substeps
     in one :func:`~biped_mpc_py_torch.ops.cuda.substep_kernel.fused_substeps`
     call (one kernel launch on the card, ``n_lowlevel`` per tick): the
-    counterpart of ``batched_art_rollout_kernel_fn``. Same semantics as
+    eager form of :func:`batched_art_rollout_kernel_fn`. Same semantics as
     :func:`batched_art_rollout` except that ``t`` advances once per period
     (not once per substep), as in JAX. Any number of envs."""
-    model = model or hector_model(device=worlds.sim.q.device)
-
-    def physics(sim, tau, Minv, dt):
-        return fused_substeps(model, sim, tau, Minv, dt, n_substeps)
-
+    model = model or _defaults(worlds.sim.q.device)[0]
     w = worlds
     for _ in range(n_steps):
-        w = _art_tick(w, bipeds, mpc, gait, model, n_lowlevel, minv_ll_hold, physics)
+        w = _substep_kernel_tick(w, bipeds, mpc, gait, model, n_lowlevel, n_substeps,
+                                 minv_ll_hold)
     return w
 
 
@@ -383,8 +425,8 @@ def batched_art_rollout_tick_kernel(worlds: ArtWorld, bipeds: BipedParams,
                                     n_substeps: int = 5) -> ArtWorld:
     """``n_steps`` articulated ticks with everything below the MPC layer in
     one :func:`~biped_mpc_py_torch.ops.cuda.tick_kernel.fused_tick` call per
-    tick (one kernel launch on the card): the counterpart of
-    ``batched_art_rollout_tick_kernel_fn``.
+    tick (one kernel launch on the card): the eager form of
+    :func:`batched_art_rollout_tick_kernel_fn`.
 
     Each tick: the MPC stage, one mass-matrix inverse held all tick, the
     fused tick (``n_lowlevel`` periods of feedback, low-level control and
@@ -394,18 +436,62 @@ def batched_art_rollout_tick_kernel(worlds: ArtWorld, bipeds: BipedParams,
     ``BipedParams()``), as in JAX. Walking gaits on flat ground; any number
     of envs.
     """
-    device = worlds.sim.q.device
-    model = model or hector_model(device=device)
-    biped = biped if biped is not None else BipedParams().to(device)
+    default_model, default_biped = _defaults(worlds.sim.q.device)
+    model = model or default_model
+    biped = biped if biped is not None else default_biped
     w = worlds
     for _ in range(n_steps):
-        x_fb, t_g, hold, contact, sol = _art_control_stage(w, bipeds, mpc, gait, model)
-        sim = w.sim
-        t0 = t_g if gait.contact_clock else sim.t
-        Minv = mass_matrix_inv(model, sim.q)
-        sim_new, energy = fused_tick(
-            model, biped, mpc, gait, sim, sol.controls[:, 0], contact[:, 0, 0:2], t0,
-            w.ctrl.cmd_ref[:, 2], w.ctrl.v_int, Minv, n_lowlevel, n_substeps,
-        )
-        w = _art_post_stage(w, sim_new, energy, x_fb, sol, t_g, hold, mpc)
+        w = _tick_kernel_tick(w, bipeds, mpc, gait, model, biped, n_lowlevel, n_substeps)
     return w
+
+
+def batched_art_rollout_kernel_fn(n_steps: int, mpc: MpcConfig, gait: GaitConfig,
+                                  model: ArticulatedModel | None = None,
+                                  n_lowlevel: int = 8, n_substeps: int = 5,
+                                  minv_ll_hold: int = 8):
+    """``fn(worlds, bipeds) -> worlds``: ``n_steps`` ticks of the
+    substep-kernel path, the counterpart of
+    ``jax.jit(batched_art_rollout_kernel_fn(n_steps, mpc, gait, model,
+    n_lowlevel, n_substeps, minv_ll_hold))``. On the card the first call
+    with a shape captures one tick (the MPC stage, the mass-matrix inverses,
+    the low-level stages and ``n_lowlevel`` ``fused_substeps`` launches) as
+    a CUDA graph and every call replays it ``n_steps`` times
+    (``utils/graphs.py``); on the CPU the same static buffers step eagerly.
+    ``model`` is a factory constant, as in JAX (default: the HECTOR model on
+    the worlds' device). Bit-equal to :func:`batched_art_rollout_kernel`."""
+    if n_lowlevel % minv_ll_hold:
+        raise ValueError(
+            f"n_lowlevel {n_lowlevel} is not a multiple of minv_ll_hold {minv_ll_hold}"
+        )
+
+    def step(w, bipeds):
+        m = model or _defaults(w.sim.q.device)[0]
+        return _substep_kernel_tick(w, bipeds, mpc, gait, m, n_lowlevel, n_substeps,
+                                    minv_ll_hold)
+
+    return graphed(step, n_steps)
+
+
+def batched_art_rollout_tick_kernel_fn(n_steps: int, mpc: MpcConfig, gait: GaitConfig,
+                                       model: ArticulatedModel | None = None,
+                                       biped: BipedParams | None = None,
+                                       n_lowlevel: int = 8, n_substeps: int = 5):
+    """``fn(worlds, bipeds) -> worlds``: ``n_steps`` ticks of the
+    tick-kernel path, the counterpart of
+    ``jax.jit(batched_art_rollout_tick_kernel_fn(n_steps, mpc, gait, model,
+    biped, n_lowlevel, n_substeps))``. On the card the first call with a
+    shape captures one tick (the MPC stage, ``mass_matrix_inv``, one
+    ``fused_tick`` launch, the post stage) as a CUDA graph and every call
+    replays it ``n_steps`` times (``utils/graphs.py``); on the CPU the same
+    static buffers step eagerly. ``model`` and the low-level robot
+    ``biped`` are factory constants, as in JAX (defaults: the HECTOR model
+    and ``BipedParams()`` on the worlds' device). Bit-equal to
+    :func:`batched_art_rollout_tick_kernel`."""
+
+    def step(w, bipeds):
+        default_model, default_biped = _defaults(w.sim.q.device)
+        return _tick_kernel_tick(w, bipeds, mpc, gait, model or default_model,
+                                 biped if biped is not None else default_biped,
+                                 n_lowlevel, n_substeps)
+
+    return graphed(step, n_steps)

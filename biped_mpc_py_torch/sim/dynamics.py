@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from biped_mpc_py_torch.config import device_constant
 from biped_mpc_py_torch.ops.rotations import quat_to_rotm, skew
 from biped_mpc_py_torch.sim.model import (
     JOINT_AXES,
@@ -37,7 +38,7 @@ GRAVITY = 9.81
 
 
 def _axes(dtype, device) -> torch.Tensor:
-    return torch.as_tensor(JOINT_AXES, dtype=dtype, device=device)
+    return device_constant(JOINT_AXES, device, dtype)
 
 
 def _motion_subspace(dtype, device) -> torch.Tensor:

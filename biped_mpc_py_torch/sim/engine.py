@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from biped_mpc_py_torch.config import config_tensor
 from biped_mpc_py_torch.ops.qp import ns_inverse
 from biped_mpc_py_torch.ops.rotations import quat_integrate, quat_to_eul, quat_to_rotm
 from biped_mpc_py_torch.sim.contact import contact_force_world
@@ -53,13 +54,13 @@ class ArtState(TensorStruct):
         def zeros(*shape):
             return torch.zeros((n,) + shape, dtype=dtype, device=device)
 
-        q = torch.tensor([0, 0, -math.pi / 4, math.pi / 2, -math.pi / 4] * 2,
-                         dtype=dtype)
         pos, quat = zeros(3), zeros(4)
         pos[:, 2] = z0
         quat[:, 0] = 1.0
+        # the memoized constant: no host-to-device copy after the first call
+        q = config_tensor([0, 0, -math.pi / 4, math.pi / 2, -math.pi / 4] * 2, pos)
         return cls(pos=pos, quat=quat, v_base=zeros(6),
-                   q=q.to(device).repeat(n, 1), qd=zeros(10), t=zeros())
+                   q=q.repeat(n, 1), qd=zeros(10), t=zeros())
 
     def torso_state(self) -> torch.Tensor:
         """The raw torso-frame state (N,12) in the reference convention

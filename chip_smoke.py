@@ -120,7 +120,22 @@ Phases, each printed on its own lines:
    summary equal to (a)'s and x_fb within 1.5e-3; (c) their DCP shards at
    tick 25 loaded into the one-rank mesh (a reshard), bit-equal to the world
    they gathered, and resumed bit-equal to a one-rank save's resume; save
-   and load ms.
+   and load ms;
+22. graphs: the compiled entry points (``batched_rollout_fn``,
+   ``batched_art_rollout_tick_kernel_fn``, ``batched_art_rollout_kernel_fn``:
+   one tick captured as a CUDA graph and replayed) at 1024 envs and the
+   bench budget, SRB x 50 ticks, the tick path x 50, the substep path x 25
+   (phases 4, 9 and 6's configurations): first one eager tick of each path
+   under ``torch.cuda.set_sync_debug_mode("error")``; then each replay
+   against the eager loop from the same worlds (bit-equal, or within
+   ``CHAIN_BOUNDS`` / ``SRB_GRAPH_BOUND`` with the differing leaves named),
+   the launch counts of a graph call (counts set to 0 just before it), ms
+   per tick in turns (eager, graph, graph, eager), the graph pool's MB; and
+   one ``torch.profiler`` window of 5 graph ticks of the tick path: device
+   kernels, busy ms and the idle share, beside phase 13's eager figures.
+
+Phases 17 and 18 run ``RealtimeLoop``, whose solve and low-level period are
+two CUDA graphs replayed at N = 1 (captured by its ``warmup``).
 
 The line before the last is a JSON object describing the kernels; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -1786,7 +1801,9 @@ def phase_realtime(torch, device):
                 f"{s.latency_max_ms:.3f} ms (plant {plant_ms:.3f} ms per tick), misses "
                 f"{s.deadline_misses}/{s.n_ticks}, realtime_ok {s.realtime_ok(mpc.dt)}")
 
-    log(f"[realtime] plant {type(plant).__name__} on {device.type}, controller on the card: "
+    pools = ", ".join(f"{g.pool_mb:.1f}" for g in loop._graphs)
+    log(f"[realtime] plant {type(plant).__name__} on {device.type}, controller on the card "
+        f"(two CUDA graphs, pools {pools} MB): "
         f"50 ticks as fast as possible: {fmt(fast)}; 25 ticks against the deadlines: "
         f"{fmt(timed)}; torso z {z:.4f} m, launches {json.dumps(launches)}; controller on the "
         f"CPU (a figure): 25 ticks {fmt(host)}")
@@ -2228,6 +2245,159 @@ def profile_tick_path(torch, device, n_ticks=5):
         by_name["tick_kernel"] / n_ticks
 
 
+GRAPH_TICKS = {"srb": N_TICKS, "tick": N_TICKS, "substep": N_COMPARE_TICKS}
+# Replay against eager when a leaf is not bit-equal (the op named in the
+# log): the articulated paths at CHAIN_BOUNDS, the SRB path at the bound of
+# phase 21's two ranks against one.
+SRB_GRAPH_BOUND = 1.5e-3
+
+
+def _graph_paths(torch, device):
+    """{path: (eager rollout, its compiled factory's fn, worlds, bipeds,
+    expected launches per tick)} for phase 22, at phases 4, 9 and 6's
+    configurations."""
+    from biped_mpc_py_torch import GaitConfig
+    from biped_mpc_py_torch.parallel import rollout as r
+    from biped_mpc_py_torch.parallel import rollout_art as ra
+
+    srb = _walk_config()
+    w_srb = r.batch_worlds(srb, N_ENVS, device=device)
+    b_srb = r.randomize_params(torch.Generator().manual_seed(SEED), N_ENVS, device=device)
+    mpc, gait = _art_config()
+    w_art, b_art = art_worlds(torch, device)
+    n = GRAPH_TICKS
+    return {
+        "srb": (lambda w, b, k: r.batched_rollout(w, b, k, srb, GaitConfig()),
+                r.batched_rollout_fn(n["srb"], srb, GaitConfig()), w_srb, b_srb,
+                {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 0}),
+        "tick": (lambda w, b, k: ra.batched_art_rollout_tick_kernel(w, b, k, mpc, gait),
+                 ra.batched_art_rollout_tick_kernel_fn(n["tick"], mpc, gait), w_art, b_art,
+                 {"fused_qp_solve": 1, "fused_tick": 1, "fused_substeps": 0}),
+        "substep": (lambda w, b, k: ra.batched_art_rollout_kernel(w, b, k, mpc, gait),
+                    ra.batched_art_rollout_kernel_fn(n["substep"], mpc, gait), w_art, b_art,
+                    {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 8}),
+    }
+
+
+def _leaf_diffs(a, b) -> dict:
+    """{field path: max |a - b|} over the leaves of two worlds that differ."""
+    import dataclasses
+
+    out = {}
+
+    def walk(x, y, path):
+        if hasattr(x, "__dataclass_fields__"):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name), getattr(y, f.name), path + [f.name])
+        elif x is not None and not bool((x == y).all()):
+            out[".".join(path)] = float((x.double() - y.double()).abs().max())
+
+    walk(a, b, [])
+    return out
+
+
+def sync_check(torch, paths):
+    """One eager tick of each path under ``torch.cuda.set_sync_debug_mode
+    ("error")``, after a tick that makes the constants: any host
+    synchronization in the tick raises here, before a capture would."""
+    for name, (eager, _, w, b, _) in paths.items():
+        eager(w, b, 1)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager(w, b, 1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    log(f"[graphs] one eager tick of each path ({', '.join(paths)}) under "
+        "set_sync_debug_mode('error'): no host synchronization")
+
+
+def profile_graph_ticks(torch, fn, w, b, n_ticks=5):
+    """``torch.profiler`` over ``fn(w, b)`` (a graph of ``n_ticks``
+    replays) -> (device kernels per tick, device busy ms per tick, the
+    window's device span per tick: first kernel's start to last kernel's
+    end; the replays run back to back, so the span is the graph tick under
+    the profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(w, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(w, b)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise AssertionError("the profiler saw no device activity in the graph ticks")
+    spans = [(e.time_range.start, e.time_range.end) for e in dev]
+    span = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3
+    return len(dev) / n_ticks, _union_ms(spans) / n_ticks, span / n_ticks
+
+
+def phase_graphs(torch, device, eager_profile):
+    """22. The compiled entry points (``*_fn``, one tick captured as a CUDA
+    graph and replayed), at 1024 envs and the bench budget: SRB x 50 ticks,
+    the tick path x 50, the substep path x 25. For each path: the replay
+    against the eager loop from the same worlds (bit-equal, or within the
+    stated bound with the differing leaves named), the launch counts of a
+    graph call (counts set to 0 just before it), ms per tick in turns
+    (eager, graph, graph, eager) and the graph pool's MB; then one
+    ``torch.profiler`` window of 5 graph ticks of the tick path: device
+    kernels, busy ms and the idle share, beside phase 13's eager figures."""
+    from biped_mpc_py_torch.parallel import rollout_art as ra
+
+    paths = _graph_paths(torch, device)
+    sync_check(torch, paths)
+    result = {}
+    for name, (eager, fn, w, b, per_tick) in paths.items():
+        n = GRAPH_TICKS[name]
+        e1, sec_e1 = _synced(torch, lambda: eager(w, b, n))
+        g0, sec_capture = _synced(torch, lambda: fn(w, b))
+        _reset_counts()
+        g1, sec_g1 = _synced(torch, lambda: fn(w, b))
+        launches = _counts()
+        g2, sec_g2 = _synced(torch, lambda: fn(w, b))
+        e2, sec_e2 = _synced(torch, lambda: eager(w, b, n))
+        graph = next(iter(fn.graphs.values()))
+        diffs = _leaf_diffs(e1, g0)
+        again = [_leaf_diffs(g0, g) for g in (g1, g2)] + [_leaf_diffs(e1, e2)]
+        want = {k: v * n for k, v in per_tick.items()}
+        ms = [sec * 1e3 / n for sec in (sec_e1, sec_g1, sec_g2, sec_e2)]
+        log(f"[graphs] {name}: {N_ENVS} envs x {n} ticks; replay vs eager: "
+            + ("bit-equal" if not diffs else f"differ in {json.dumps(diffs)}")
+            + f"; graph calls and eager runs repeat bit-equal: {not any(again)}; launches of a "
+            f"graph call {json.dumps(launches)} (want {json.dumps(want)}); ms per tick in turns "
+            f"(eager, graph, graph, eager): {ms[0]:.3f}, {ms[1]:.3f}, {ms[2]:.3f}, {ms[3]:.3f}; "
+            f"first call (capture + {n} ticks) {sec_capture:.3f} s; graph pool "
+            f"{graph.pool_mb:.1f} MB")
+        if launches != want:
+            raise AssertionError(f"graph launch counts {launches}, want {want}")
+        if any(again):
+            raise AssertionError(f"repeated runs differ: {again}")
+        if diffs:
+            sim = _max_diff(e1.sim, g0.sim, CHAIN_BOUNDS) if name != "srb" else \
+                {"x_fb": float((e1.sim.x_fb - g0.sim.x_fb).abs().max())}
+            bounds = CHAIN_BOUNDS if name != "srb" else {"x_fb": SRB_GRAPH_BOUND}
+            if any(sim[k] >= v for k, v in bounds.items()):
+                raise AssertionError(f"{name}: replay and eager differ past {bounds}: {sim}")
+        result[name] = {"ms": ms, "pool_mb": graph.pool_mb, "bit_equal": not diffs}
+
+    _, fn, w, b, _ = paths["tick"]
+    mpc, gait = _art_config()
+    fn5 = ra.batched_art_rollout_tick_kernel_fn(5, mpc, gait)
+    kernels, busy, span = profile_graph_ticks(torch, fn5, w, b)
+    graph_ms = sum(result["tick"]["ms"][1:3]) / 2
+    e_kernels, e_busy, e_tick_ms = eager_profile
+    log(f"[graphs] profile, tick path, 5 graph ticks: {kernels:.1f} device kernels per tick, "
+        f"device busy {busy:.3f} ms of a {span:.3f} ms profiled tick: the card idles "
+        f"{1 - busy / span:.3f} of it (against the unprofiled graph tick of {graph_ms:.3f} ms: "
+        f"{1 - busy / graph_ms:.3f}; the profiler stretches the kernels); eager, phase 13: "
+        f"{e_kernels:.1f} kernels, busy {e_busy:.3f} of {e_tick_ms:.3f} ms, idle "
+        f"{1 - e_busy / e_tick_ms:.3f}")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2261,6 +2431,7 @@ def main() -> int:
         phase_replay_checkpoint(torch, device)
         phase_demo(torch, device)
         phase_sharded(torch, device)
+        phase_graphs(torch, device, (events, busy_ms, sec_tick * 1e3 / N_ART_TICKS))
         bounds = {"fused_qp_solve": solve_ms["bench"][2:4],
                   "fused_substeps": bound_substep(torch, device),
                   "fused_tick": bound_tick(torch, device),

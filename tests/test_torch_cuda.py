@@ -63,6 +63,13 @@ same rollout on the CPU (pos 1e-3, q 1e-2, qd 1.0: the QP kernel and its
 plain version differ by up to 0.05 N per solve, and stiff contact grows
 that), 2 QP launches and no other; both physics wrappers raise on a terrain
 before they launch.
+
+The compiled entry points (``*_fn``, one tick captured as a CUDA graph): at
+1024 envs and the bench budget, a replay bit-equal to the eager loop on
+every leaf (SRB and the tick path 10 ticks, the substep path 5), with the
+launch counters reading the replays' launches; ``RealtimeLoop`` on its two
+graphs walks ``chip_smoke.EnginePlant`` for 50 ticks; a step that
+synchronizes the host raises at capture and runs no eager fallback.
 """
 
 import dataclasses
@@ -81,6 +88,7 @@ from biped_mpc_py_torch.parallel import rollout_art as ra
 from biped_mpc_py_torch.parallel.rollout import (
     batch_worlds,
     batched_rollout,
+    batched_rollout_fn,
     randomize_params,
 )
 from biped_mpc_py_torch.sim.contact import Terrain
@@ -569,6 +577,7 @@ def test_realtime_loop_card_matches_cpu(cuda):
     for device in (cuda, torch.device("cpu")):
         plant = EnginePlant(torch, torch.device("cpu"))
         loop = RealtimeLoop(_bench_oracle(), GaitConfig(), BipedParams(), device=device)
+        loop.warmup(plant)  # captures the graphs (their warm-up launches the QP kernel)
         before = _counts()
         loop.run(plant, 5, realtime=False)
         launched.append([a - b for a, b in zip(_counts(), before)])
@@ -729,3 +738,89 @@ def _cat_rows(structs):
         elif dataclasses.is_dataclass(parts[0]):
             changes[f.name] = _cat_rows(parts)
     return dataclasses.replace(structs[0], **changes)
+
+
+# --- the compiled entry points: one tick captured as a CUDA graph -----------
+
+GRAPH_TICKS = {"srb": 10, "tick": 10, "substep": 5}
+
+
+def _graph_case(path, device):
+    """(eager(k), factory(k), worlds, bipeds, launches per tick as
+    ``_counts()``) at 1024 envs, the bench budget (chip_smoke phase 22)."""
+    if path == "srb":
+        mpc = fast_mpc_config(x_cmd=WALK)
+        w = batch_worlds(mpc, 1024, device=device)
+        b = randomize_params(torch.Generator().manual_seed(0), 1024, device=device)
+        return (lambda k: batched_rollout(w, b, k, mpc, GaitConfig()),
+                lambda k: batched_rollout_fn(k, mpc, GaitConfig()), w, b, (1, 0, 0))
+    mpc, gait = _bench_art_config()
+    w = ra.init_art_world(mpc, 1024, device=device)
+    gen = torch.Generator().manual_seed(0)
+    qd = w.sim.qd + (0.01 * torch.randn(1024, 10, generator=gen)).to(device)
+    w = dataclasses.replace(w, sim=dataclasses.replace(w.sim, qd=qd))
+    b = BipedParams().expand(1024).to(device)
+    if path == "tick":
+        return (lambda k: ra.batched_art_rollout_tick_kernel(w, b, k, mpc, gait),
+                lambda k: ra.batched_art_rollout_tick_kernel_fn(k, mpc, gait), w, b, (1, 1, 0))
+    return (lambda k: ra.batched_art_rollout_kernel(w, b, k, mpc, gait),
+            lambda k: ra.batched_art_rollout_kernel_fn(k, mpc, gait), w, b, (1, 0, 8))
+
+
+@pytest.mark.parametrize("path", list(GRAPH_TICKS))
+def test_graph_replay_is_bit_equal_to_eager(cuda, path):
+    """1024 envs: a replayed ``*_fn`` gives every leaf of the eager loop bit
+    for bit, and its call counts the launches its replays made."""
+    from biped_mpc_py_torch.utils.graphs import _leaves
+
+    k = GRAPH_TICKS[path]
+    eager, factory, w, b, per_tick = _graph_case(path, cuda)
+    want = eager(k)
+    fn = factory(k)
+    fn(w, b)  # captures
+    (graph,) = fn.graphs.values()
+    assert graph.graph is not None
+    before = _counts()
+    out = fn(w, b)
+    torch.cuda.synchronize()
+    assert [a - c for a, c in zip(_counts(), before)] == [k * p for p in per_tick]
+    assert all(torch.equal(x, y) for x, y in zip(_leaves(out), _leaves(want), strict=True))
+
+
+def test_realtime_loop_on_graphs_walks_engine_plant(cuda):
+    """``RealtimeLoop`` replays its solve and low-level graphs at N = 1
+    against ``chip_smoke.EnginePlant`` on the card for 50 ticks: the robot
+    stays up, one QP launch a tick (the plant's own 8 substep launches a
+    tick beside it)."""
+    from chip_smoke import EnginePlant
+    from biped_mpc_py_torch.runtime.realtime import RealtimeLoop
+
+    plant = EnginePlant(torch, cuda)
+    loop = RealtimeLoop(ra.art_mpc_config(), GaitConfig(), BipedParams())
+    loop.warmup(plant)
+    assert all(g.graph is not None for g in loop._graphs)
+    before = _counts()
+    stats = loop.run(plant, 50, realtime=False)
+    assert [a - c for a, c in zip(_counts(), before)] == [50, 0, 400]
+    assert stats.n_ticks == 50 and plant.z() > 0.4
+
+
+def test_capture_raises_on_a_host_sync(cuda):
+    """A step that synchronizes (``.item()``) raises at capture; nothing
+    runs it eagerly instead, and the input is left as it was. (Last in the
+    file: a failed capture must leave the card usable, which the check
+    after it shows.)"""
+    from biped_mpc_py_torch.utils.graphs import graphed
+
+    calls = []
+
+    def step(c):
+        calls.append(1)
+        return c * c.sum().item()
+
+    x = torch.ones(4, device=cuda)
+    with pytest.raises(RuntimeError):
+        graphed(step, 3)(x)
+    assert len(calls) == 2  # the warm-up on a scratch copy, then the capture
+    assert torch.equal(x, torch.ones(4, device=cuda))
+    assert float((x + 1).sum()) == 8.0

@@ -189,8 +189,10 @@ def test_tick_kernel_entry_point_contact_clock_matches_jax():
     _entry_point_against_jax(contact_clock=True)
 
 
-def _entry_point_against_jax(contact_clock):
-    n, ticks = 8, 3
+def _entry_point_against_jax(contact_clock, rollout=tra.batched_art_rollout_tick_kernel, n=8):
+    """``rollout(worlds, bipeds, ticks, mpc, gait)`` on the CPU against the
+    JAX composition of the tick (``n`` envs x 3 ticks)."""
+    ticks = 3
     jm, jg = jra.art_config_for_speed(
         0.3, n_admm_iters=40, admm_rho_phases=1, admm_polish=False, kinv_ns_iters=10)
     jg = dataclasses.replace(jg, contact_clock=contact_clock)
@@ -216,7 +218,7 @@ def _entry_point_against_jax(contact_clock):
         w = post(w, sim_new, energy, x_fb, sol, t_g, hold)
 
     before = tk.fused_tick.launches
-    out = tra.batched_art_rollout_tick_kernel(tw, tb, ticks, tm, tg)
+    out = rollout(tw, tb, ticks, tm, tg)
     assert tk.fused_tick.launches == before  # CPU: no launch
     j, t = _fields(w), to_numpy(out)
     assert float(t["metrics"]["falls"].sum()) == 0 and float(j["metrics"]["falls"].sum()) == 0
