@@ -16,8 +16,10 @@ on per-env height fields (:class:`~biped_mpc_py_torch.sim.contact.Terrain`).
 Their compiled forms, the counterparts of ``jax.jit`` of the JAX package's
 factories, capture one tick as a CUDA graph and replay it
 (:mod:`~biped_mpc_py_torch.utils.graphs`): ``batched_rollout_fn``,
-``batched_cmd_rollout_fn``, ``batched_art_rollout_tick_kernel_fn`` and
-``batched_art_rollout_kernel_fn``;
+``batched_cmd_rollout_fn``, ``batched_art_rollout_tick_kernel_fn``,
+``batched_art_rollout_kernel_fn``, ``batched_art_rollout_fn`` (the plain
+chain), ``batched_art_rollout_terrain_fn``, ``art_sweep_fn``,
+``sharded_rollout_fn`` and ``sharded_art_rollout_fn``;
 :func:`~biped_mpc_py_torch.parallel.sweep.art_sweep` runs a batch of
 configs (per-env gains and commands beside one config). Around one robot:
 :func:`~biped_mpc_py_torch.sim.mj_driver.run_mujoco_closed_loop` (MuJoCo as
@@ -89,14 +91,21 @@ from biped_mpc_py_torch.parallel.rollout_art import (
     art_config_for_turn,
     art_mpc_config,
     batched_art_rollout,
+    batched_art_rollout_fn,
     batched_art_rollout_kernel,
     batched_art_rollout_kernel_fn,
     batched_art_rollout_terrain,
+    batched_art_rollout_terrain_fn,
     batched_art_rollout_tick_kernel,
     batched_art_rollout_tick_kernel_fn,
     init_art_world,
 )
-from biped_mpc_py_torch.parallel.sweep import art_sweep, perturbed_worlds, stack_configs
+from biped_mpc_py_torch.parallel.sweep import (
+    art_sweep,
+    art_sweep_fn,
+    perturbed_worlds,
+    stack_configs,
+)
 from biped_mpc_py_torch.ops.qp import sparse_qp_matrices
 from biped_mpc_py_torch.runtime.realtime import LoopStats, Plant, RealtimeLoop
 from biped_mpc_py_torch.sim.contact import Terrain
@@ -117,7 +126,9 @@ _SHARDING = (
     "make_sharded_batch",
     "shard_world",
     "sharded_art_rollout",
+    "sharded_art_rollout_fn",
     "sharded_rollout",
+    "sharded_rollout_fn",
     "spawn_env_group",
 )
 
@@ -156,15 +167,18 @@ __all__ = [
     "art_config_for_turn",
     "art_mpc_config",
     "batched_art_rollout",
+    "batched_art_rollout_fn",
     "batched_art_rollout_kernel",
     "batched_art_rollout_kernel_fn",
     "batched_art_rollout_terrain",
+    "batched_art_rollout_terrain_fn",
     "batched_art_rollout_tick_kernel",
     "batched_art_rollout_tick_kernel_fn",
     "init_art_world",
     "Terrain",
     "sparse_qp_matrices",
     "art_sweep",
+    "art_sweep_fn",
     "perturbed_worlds",
     "stack_configs",
     "LoopStats",

@@ -115,7 +115,7 @@ def measured_contact(pf_w: torch.Tensor, terrain, gait: GaitConfig) -> torch.Ten
     the ``terrain`` field."""
     pz = torch.stack([pf_w[:, 2], pf_w[:, 5]], -1)
     if terrain is not None:
-        pz = pz - terrain.height(pf_w[:, [0, 3]], pf_w[:, [1, 4]])
+        pz = pz - terrain.height(pf_w[:, 0::3], pf_w[:, 1::3])
     return pz < gait.clock_z_tol
 
 

@@ -43,7 +43,7 @@ def build_mpc_qp(
     if terrain is None:
         z_ground = 0.0
     else:
-        z_ground = 0.5 * torch.sum(terrain.height(foot[:, [0, 3]], foot[:, [1, 4]]), -1)
+        z_ground = 0.5 * torch.sum(terrain.height(foot[:, 0::3], foot[:, 1::3]), -1)
     x_ref = com_reference(x_fb, mpc, cmd_ref, z_ground=z_ground, v_int=v_int,
                           pitch_ref=pitch_ref, x_cmd=x_cmd, per_env=per_env)
     foot_ref = foot_reference(x_fb, t, foot, mpc, contact, gait, terrain, v_int=v_int,

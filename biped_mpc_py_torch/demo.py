@@ -4,7 +4,11 @@
 module: FK -> contact schedule -> MPC solve -> low-level torques, printing
 the state reference, contact sequence, foot reference, predicted states and
 controls, the tick's time and the joint torques, then a closed-loop SRB
-walking rollout of one robot (``batched_rollout`` at N = 1).
+walking rollout of one robot. Both run compiled, as the JAX demo jits them:
+the tick is ``control_tick`` captured once as a CUDA graph
+(``utils/graphs.py::TickGraph``) and timed on a replay, the rollout is
+``batched_rollout_fn`` at N = 1, timed on its second call (on the CPU the
+same buffers step eagerly).
 
 Flags: ``--gait {walking,standing}``, ``--compat`` (the reference's
 defects), ``--rollout-steps N``, ``--device`` (default ``cuda``; the run
@@ -27,6 +31,28 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def compiled_tick(x_fb, q, qd, t, mpc, gait, biped):
+    """``control_tick(x_fb, q, qd, t, mpc, gait, biped)`` (a cold
+    controller) on a :class:`~biped_mpc_py_torch.utils.graphs.TickGraph`
+    over the buffers ``(x_fb, q, qd, t, tau, states, controls)``: the
+    counterpart of the JAX demo's ``jax.jit`` of the tick. ``t`` is a (N,)
+    tensor (a Python float would be copied from the host inside the
+    capture). After each ``replay()`` the graph's ``carry[4:]`` holds the
+    torques and the solution's states and controls."""
+    from biped_mpc_py_torch.control.controller import control_tick
+    from biped_mpc_py_torch.utils.graphs import TickGraph
+
+    def step(c):
+        x, q_, qd_, t_ = c[:4]
+        tau, _, sol = control_tick(x, q_, qd_, t_, mpc, gait, biped)
+        return (x, q_, qd_, t_, tau, sol.states, sol.controls)
+
+    n, device = x_fb.shape[0], x_fb.device
+    return TickGraph(step, (x_fb, q, qd, t, torch.zeros(n, 10, device=device),
+                            torch.zeros(n, mpc.h, 13, device=device),
+                            torch.zeros(n, mpc.h, 12, device=device)))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--gait", choices=["walking", "standing"], default="walking")
@@ -37,13 +63,11 @@ def main() -> None:
     args = ap.parse_args()
 
     from biped_mpc_py_torch.config import GaitConfig, MpcConfig
-    from biped_mpc_py_torch.control.controller import control_tick
     from biped_mpc_py_torch.control.gait import contact_sequence
     from biped_mpc_py_torch.control.reference import com_reference, foot_reference
     from biped_mpc_py_torch.models.biped import BipedParams, HECTOR_LEG_FK, HECTOR_LEG_JAC
     from biped_mpc_py_torch.models.kinematics import foot_positions_world
     from biped_mpc_py_torch.utils.device import entry_device
-    from biped_mpc_py_torch.utils.precision import f32_precision
 
     device = entry_device(args.device)
     np.set_printoptions(suppress=True, precision=2)
@@ -72,25 +96,26 @@ def main() -> None:
         print("foot reference:\n",
               foot_reference(x_fb, t0, pf_w, mpc, contact)[0].cpu().numpy())
 
-        tick = f32_precision(lambda x, q, qd: control_tick(x, q, qd, 0.0, mpc, gait, biped))
-        tick(x_fb, q, qd)  # the first call on the card loads the QP kernel
+        # the first call on the card loads the QP kernel and captures the tick
+        tick = compiled_tick(x_fb, q, qd, t0, mpc, gait, biped)
         _sync(device)
         t_start = time.perf_counter()
-        tau, _, sol = tick(x_fb, q, qd)
+        tick.replay()
         _sync(device)
         print(f"MPC tick execution time: {time.perf_counter() - t_start:.6f} seconds")
-        print("States:\n", sol.states[0].cpu().numpy())
-        print("Controls:\n", sol.controls[0].cpu().numpy())
+        tau, states, controls = tick.carry[4:]
+        print("States:\n", states[0].cpu().numpy())
+        print("Controls:\n", controls[0].cpu().numpy())
         print("Torques:\n", tau[0].cpu().numpy())
 
     if args.rollout_steps:
-        from biped_mpc_py_torch.parallel.rollout import batched_rollout, init_world
+        from biped_mpc_py_torch.parallel.rollout import batched_rollout_fn, init_world
 
-        batched_rollout(init_world(mpc, 1, device=device), biped, 1, mpc, gait)  # warm-up
+        roll = batched_rollout_fn(args.rollout_steps, mpc, gait)
+        roll(init_world(mpc, 1, device=device), biped)  # capture
         _sync(device)
         t_start = time.perf_counter()
-        w = batched_rollout(init_world(mpc, 1, device=device), biped, args.rollout_steps,
-                            mpc, gait)
+        w = roll(init_world(mpc, 1, device=device), biped)
         _sync(device)
         dts = time.perf_counter() - t_start
         x = w.sim.x_fb[0].cpu().numpy()

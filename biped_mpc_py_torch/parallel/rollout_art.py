@@ -28,10 +28,13 @@ same chain with a height field per env (the counterpart of
 two kernels know flat ground only, as the TPU kernels do, so a terrain runs
 the plain chain in both packages. :func:`batched_art_rollout_tick_kernel_fn`
 and :func:`batched_art_rollout_kernel_fn` are the compiled forms of the
-two kernel paths, the counterparts of ``jax.jit`` of the JAX factories:
-one tick captured as a CUDA graph and replayed (``utils/graphs.py``). The JAX package's single-env
+two kernel paths, :func:`batched_art_rollout_fn` and
+:func:`batched_art_rollout_terrain_fn` those of the plain chain: the
+counterparts of ``jax.jit`` of the JAX factories, one tick captured as a
+CUDA graph and replayed (``utils/graphs.py``). The JAX package's single-env
 ``art_rollout_fn`` has no separate port: the batched functions at N = 1 are
-its counterpart.
+its counterpart (``sim/replay.py`` replays the plain chain's graph at N =
+1).
 """
 
 from __future__ import annotations
@@ -316,11 +319,10 @@ def batched_art_rollout(worlds: ArtWorld, bipeds: BipedParams, n_steps: int,
     ``art_rollout_fn``. ``worlds`` and ``bipeds`` share the env axis and
     the device. ``terrain``: one height field under every env (None = the
     plane z = 0); :func:`batched_art_rollout_terrain` takes one per env."""
-    model = model or hector_model(device=worlds.sim.q.device)
+    step = _plain_step(mpc, gait, model, n_lowlevel, n_substeps, minv_ll_hold, terrain)
     w = worlds
     for _ in range(n_steps):
-        w = art_closed_loop_tick(w, mpc, gait, bipeds, model, n_lowlevel,
-                                 n_substeps, terrain, minv_ll_hold)
+        w = step(w, bipeds)
     return w
 
 
@@ -339,18 +341,83 @@ def batched_art_rollout_terrain(worlds: ArtWorld, bipeds: BipedParams,
     ``terrains.heights`` is (N, H, W) with the worlds' env axis
     (``Terrain.rough_batch``). Runs the plain substep chain, as in JAX: the
     physics kernels know flat ground only."""
+    _check_terrains(worlds, terrains)
+    step = _plain_step(mpc, gait, model, n_lowlevel, n_substeps, minv_ll_hold)
+    w = worlds
+    for _ in range(n_steps):
+        w = step(w, bipeds, terrains)
+    return w
+
+
+def _check_terrains(worlds: ArtWorld, terrains: Terrain) -> None:
     n = worlds.sim.q.shape[0]
     if not terrains.batched or terrains.heights.shape[0] != n:
         raise ValueError(
             f"terrains.heights of shape {tuple(terrains.heights.shape)} has no "
             f"env axis of the worlds' size {n}"
         )
-    model = model or hector_model(device=worlds.sim.q.device)
-    w = worlds
-    for _ in range(n_steps):
-        w = art_closed_loop_tick(w, mpc, gait, bipeds, model, n_lowlevel,
-                                 n_substeps, terrains, minv_ll_hold)
-    return w
+
+
+def _plain_step(mpc: MpcConfig, gait: GaitConfig, model: ArticulatedModel | None = None,
+                n_lowlevel: int = 8, n_substeps: int = 10, minv_ll_hold: int = 1,
+                terrain: Terrain | None = None):
+    """``step(worlds, bipeds, terrains=None, per_env=None) -> worlds``: one
+    tick of the plain chain, the body of its eager loops and of their
+    compiled forms. ``terrain`` (a shared field) is a constant; ``terrains``
+    (a field per env) and ``per_env`` (:func:`~biped_mpc_py_torch.parallel.
+    sweep.stack_configs`'s, ``x_cmd`` included) are inputs."""
+
+    def step(w, bipeds, terrains=None, per_env=None):
+        m = model or _defaults(w.sim.q.device)[0]
+        fields = x_cmd = None
+        if per_env is not None:
+            fields = {k: v for k, v in per_env.items() if k != "x_cmd"}
+            x_cmd = per_env.get("x_cmd")
+        return art_closed_loop_tick(w, mpc, gait, bipeds, m, n_lowlevel, n_substeps,
+                                    terrain if terrains is None else terrains, minv_ll_hold,
+                                    x_cmd=x_cmd, per_env=fields)
+
+    return step
+
+
+def batched_art_rollout_fn(n_steps: int, mpc: MpcConfig, gait: GaitConfig,
+                           model: ArticulatedModel | None = None, n_lowlevel: int = 8,
+                           n_substeps: int = 10, minv_ll_hold: int = 1,
+                           terrain: Terrain | None = None):
+    """``fn(worlds, bipeds) -> worlds``: ``n_steps`` ticks of the plain
+    chain, the counterpart of ``jax.jit(batched_art_rollout_fn(n_steps,
+    mpc, gait, model, n_lowlevel=, n_substeps=, minv_ll_hold=, terrain=))``.
+    On the card the first call with a shape captures one tick (the MPC
+    stage with its QP-kernel launch, the mass-matrix inverses, ``n_lowlevel``
+    low-level stages of ``n_substeps`` plain substeps each, the post stage)
+    as a CUDA graph and every call replays it ``n_steps`` times
+    (``utils/graphs.py``); on the CPU the same static buffers step eagerly.
+    ``model`` and the shared field ``terrain`` are factory constants, as in
+    JAX. Bit-equal to :func:`batched_art_rollout`."""
+    return graphed(_plain_step(mpc, gait, model, n_lowlevel, n_substeps, minv_ll_hold,
+                               terrain), n_steps)
+
+
+def batched_art_rollout_terrain_fn(n_steps: int, mpc: MpcConfig, gait: GaitConfig,
+                                   model: ArticulatedModel | None = None,
+                                   n_lowlevel: int = 8, n_substeps: int = 10,
+                                   minv_ll_hold: int = 1):
+    """``fn(worlds, bipeds, terrains) -> worlds``: ``n_steps`` ticks of the
+    plain chain with a height field per env, the counterpart of
+    ``jax.jit(batched_art_rollout_terrain_fn(n_steps, mpc, gait, model,
+    n_lowlevel, n_substeps, minv_ll_hold))``. ``terrains`` (N, H, W) is an
+    input of the graph, as the JAX function's argument: new fields of the
+    same shape and ``extent`` replay the same graph, another ``extent``
+    captures another. Bit-equal to :func:`batched_art_rollout_terrain`."""
+    run = graphed(_plain_step(mpc, gait, model, n_lowlevel, n_substeps, minv_ll_hold),
+                  n_steps)
+
+    def fn(worlds: ArtWorld, bipeds: BipedParams, terrains: Terrain) -> ArtWorld:
+        _check_terrains(worlds, terrains)
+        return run(worlds, bipeds, terrains)
+
+    fn.graphs = run.graphs
+    return fn
 
 
 _DEFAULTS: dict = {}  # device -> (hector_model, BipedParams()) on it

@@ -11,6 +11,10 @@ of ``NamedSharding(mesh, P("env"))``). Each rank runs the port's batched loop
 on its own rows, as ``shard_map`` runs the vmapped scan on each device, so
 rollouts stay embarrassingly parallel: the only collectives are one
 all-reduce of the metric sums and one of their maxima at the end.
+:func:`sharded_rollout_fn` and :func:`sharded_art_rollout_fn` are the
+compiled forms, the counterparts of ``jax.jit`` of the JAX factories: each
+rank replays one CUDA graph of a tick over its rows
+(``utils/graphs.py``), with the collectives outside the graph.
 
 On CUDA the backend is NCCL, one rank per card; ``gloo`` runs the same
 program on the CPU, or with several ranks sharing one card, which NCCL
@@ -39,10 +43,16 @@ from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 
 from biped_mpc_py_torch.config import GaitConfig, MpcConfig, fast_mpc_config
 from biped_mpc_py_torch.models.biped import BipedParams
-from biped_mpc_py_torch.parallel.rollout import World, batch_worlds, batched_rollout
+from biped_mpc_py_torch.parallel.rollout import (
+    World,
+    batch_worlds,
+    batched_rollout,
+    batched_rollout_fn,
+)
 from biped_mpc_py_torch.parallel.rollout_art import (
     art_mpc_config,
     batched_art_rollout,
+    batched_art_rollout_fn,
     init_art_world,
 )
 from biped_mpc_py_torch.utils.device import entry_device
@@ -162,6 +172,44 @@ def sharded_art_rollout(worlds, bipeds: BipedParams, n_steps: int, mpc: MpcConfi
     w = batched_art_rollout(_local(worlds), _local(bipeds), n_steps, mpc, gait,
                             model=model, **kw)
     return _sharded(w, mesh), _summary(w.metrics, mesh, axis, with_max=False)
+
+
+def sharded_rollout_fn(n_steps: int, mpc: MpcConfig, gait: GaitConfig, mesh: DeviceMesh,
+                       axis: str = "env"):
+    """``fn(worlds, bipeds) -> (worlds, summary)``: the compiled form of
+    :func:`sharded_rollout`, the counterpart of ``jax.jit`` of
+    ``sharded_rollout_fn(n_steps, mpc, gait, mesh, axis)``
+    (``sharding.py:45``). Each rank replays one ``batched_rollout_fn``
+    graph over its local rows; the ``DTensor`` unwrap and rewrap and the
+    summary's two all-reduces stay outside the graph, as JAX's ``psum`` and
+    ``pmax`` come after the scan. Bit-equal to :func:`sharded_rollout`."""
+    run = batched_rollout_fn(n_steps, mpc, gait)
+
+    def fn(worlds: World, bipeds: BipedParams):
+        w = run(_local(worlds), _local(bipeds))
+        return _sharded(w, mesh), _summary(w.metrics, mesh, axis, with_max=True)
+
+    fn.graphs = run.graphs
+    return fn
+
+
+def sharded_art_rollout_fn(n_steps: int, mpc: MpcConfig, gait: GaitConfig,
+                           mesh: DeviceMesh, model=None, axis: str = "env", **kw):
+    """``fn(worlds, bipeds) -> (worlds, summary)``: the compiled form of
+    :func:`sharded_art_rollout`, the counterpart of ``jax.jit`` of
+    ``sharded_art_rollout_fn(n_steps, mpc, gait, mesh, model, axis, **kw)``
+    (``sharding.py:92``). Each rank replays one ``batched_art_rollout_fn``
+    graph (``kw``: ``n_lowlevel``, ``n_substeps``, ``minv_ll_hold``,
+    ``terrain``) over its local rows; the all-reduce of the summary stays
+    outside it. Bit-equal to :func:`sharded_art_rollout`."""
+    run = batched_art_rollout_fn(n_steps, mpc, gait, model, **kw)
+
+    def fn(worlds, bipeds: BipedParams):
+        w = run(_local(worlds), _local(bipeds))
+        return _sharded(w, mesh), _summary(w.metrics, mesh, axis, with_max=False)
+
+    fn.graphs = run.graphs
+    return fn
 
 
 @contextlib.contextmanager

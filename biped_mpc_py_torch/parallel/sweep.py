@@ -13,6 +13,9 @@ list of configs, :func:`perturbed_worlds` the perturbed initial worlds, and
 (``art_closed_loop_tick``) over them, with one launch of the QP kernel a
 tick that takes each env's ADMM numerics. The physics kernels are not
 used: their constant buffers and step hold one config per batch.
+:func:`art_sweep_fn` is its compiled form, the counterpart of ``jax.jit``
+of the JAX factory: one tick captured as a CUDA graph with the per-env
+values as its input, and replayed (``utils/graphs.py``).
 """
 
 from __future__ import annotations
@@ -24,13 +27,10 @@ import torch
 from biped_mpc_py_torch.config import STATIC_FIELDS, GaitConfig, MpcConfig
 from biped_mpc_py_torch.utils.device import host_to_device
 from biped_mpc_py_torch.models.biped import BipedParams
-from biped_mpc_py_torch.parallel.rollout_art import (
-    ArtWorld,
-    art_closed_loop_tick,
-    init_art_world,
-)
-from biped_mpc_py_torch.sim.model import ArticulatedModel, hector_model
+from biped_mpc_py_torch.parallel.rollout_art import ArtWorld, _plain_step, init_art_world
+from biped_mpc_py_torch.sim.model import ArticulatedModel
 from biped_mpc_py_torch.utils.device import DEFAULT_DEVICE, entry_device
+from biped_mpc_py_torch.utils.graphs import graphed
 from biped_mpc_py_torch.utils.precision import f32_precision
 
 
@@ -92,11 +92,29 @@ def art_sweep(worlds: ArtWorld, bipeds: BipedParams, n_steps: int, mpc: MpcConfi
     ``mpc`` and ``per_env`` come from :func:`stack_configs`; ``tick_kw``
     goes to the tick (``n_lowlevel``, ``n_substeps``, ``minv_ll_hold``,
     ``terrain``)."""
-    model = model or hector_model(device=worlds.sim.q.device)
-    fields = {k: v for k, v in per_env.items() if k != "x_cmd"}
-    x_cmd = per_env.get("x_cmd")
+    step = _plain_step(mpc, gait, model, **tick_kw)
     w = worlds
     for _ in range(n_steps):
-        w = art_closed_loop_tick(w, mpc, gait, bipeds, model, x_cmd=x_cmd, per_env=fields,
-                                 **tick_kw)
+        w = step(w, bipeds, None, per_env)
     return w
+
+
+def art_sweep_fn(n_steps: int, mpc: MpcConfig, gait: GaitConfig,
+                 model: ArticulatedModel | None = None, **tick_kw):
+    """``fn(worlds, bipeds, per_env) -> worlds``: ``n_steps`` ticks of the
+    sweep, the counterpart of ``jax.jit(art_sweep_fn(n_steps, gait,
+    in_axes, model, **tick_kw))(worlds, biped, mpc_batch)``
+    (``sweep.py:92``). ``mpc`` and ``per_env`` come from
+    :func:`stack_configs`: ``mpc`` is a factory constant, as JAX's static
+    fields are, and ``per_env`` (``x_cmd`` included) an input of the graph,
+    as ``mpc_batch`` is traced in JAX: new values of the same shapes replay
+    the same graph, and the QP kernel reads each env's (rho, sigma, alpha)
+    from its buffers on every replay. On the CPU the same static buffers
+    step eagerly. Bit-equal to :func:`art_sweep`."""
+    run = graphed(_plain_step(mpc, gait, model, **tick_kw), n_steps)
+
+    def fn(worlds: ArtWorld, bipeds: BipedParams, per_env: dict) -> ArtWorld:
+        return run(worlds, bipeds, None, per_env)
+
+    fn.graphs = run.graphs
+    return fn

@@ -12,6 +12,10 @@ qpos track, so that any MuJoCo viewer replays it without this package:
     for q in t["qpos"]:
         d.qpos[:] = q; mujoco.mj_forward(m, d)  # -> render
 
+The rollout of :func:`rollout_qpos_track` is the compiled plain chain at
+N = 1: one tick captured as a CUDA graph and replayed (the counterpart of
+the JAX function's jitted scan), its frames gathered on the device.
+
 qpos layout (17,): free joint [pos (3), quat wxyz (4)] + 10 joint angles,
 the same in :class:`~biped_mpc_py_torch.sim.engine.ArtState` and in the
 exported MJCF (``sim/mj_driver.py::state_from_mj`` is the inverse map).
@@ -27,6 +31,7 @@ from biped_mpc_py_torch.models.biped import BipedParams
 from biped_mpc_py_torch.sim.mjcf import set_hfield_data, to_mjcf
 from biped_mpc_py_torch.sim.model import ArticulatedModel, hector_model
 from biped_mpc_py_torch.utils.device import DEFAULT_DEVICE, entry_device
+from biped_mpc_py_torch.utils.graphs import TickGraph
 from biped_mpc_py_torch.utils.precision import f32_precision
 
 
@@ -44,26 +49,31 @@ def rollout_qpos_track(
 ):
     """An articulated closed-loop rollout of one robot from standing on
     ``device`` (the card unless named; raises without one) through the plain
-    chain (``art_closed_loop_tick`` at N = 1), and its qpos track
-    (``replay.py:33``).
+    chain at N = 1, and its qpos track (``replay.py:33``): the tick of
+    ``batched_art_rollout_fn`` (``art_closed_loop_tick``; ``tick_kw``:
+    ``n_lowlevel``, ``n_substeps``, ``minv_ll_hold``) captured once as a CUDA
+    graph and replayed, as JAX jits the scan (on the CPU the same buffers
+    step eagerly). The frames stay on the device until one copy to the host
+    at the end.
 
     Returns ``(qpos (n_ticks, 17), times (n_ticks,), falls)``: one frame per
     40 ms MPC tick (25 fps, real-time playback at the control rate).
     """
-    from biped_mpc_py_torch.parallel.rollout_art import art_closed_loop_tick, init_art_world
+    from biped_mpc_py_torch.parallel.rollout_art import _plain_step, init_art_world
 
     device = entry_device(device)
     model = model or hector_model(device=device)
     biped = (biped or BipedParams()).to(device)
     w = init_art_world(mpc, 1, device=device)
-    frames, times = [], []
-    for _ in range(n_ticks):
-        w = art_closed_loop_tick(w, mpc, gait, biped, model, terrain=terrain, **tick_kw)
+    tick = TickGraph(_plain_step(mpc, gait, model, terrain=terrain, **tick_kw), w, biped)
+    frames = torch.empty(n_ticks, 17, device=device)
+    times = torch.empty(n_ticks, device=device)
+    for k in range(n_ticks):
+        tick.replay()
         s = w.sim
-        frames.append(torch.cat([s.pos, s.quat, s.q], -1)[0])
-        times.append(s.t[0])
-    return (torch.stack(frames).cpu().numpy(), torch.stack(times).cpu().numpy(),
-            float(w.metrics.falls[0]))
+        torch.cat([s.pos, s.quat, s.q], -1, out=frames[k:k + 1])
+        times[k:k + 1].copy_(s.t)
+    return frames.cpu().numpy(), times.cpu().numpy(), float(w.metrics.falls[0])
 
 
 def export_rollout(

@@ -8,11 +8,12 @@ per tick instead of every op's launch.
 
 :class:`TickGraph` captures a pure ``step(carry, *consts) -> carry`` over a
 tree of tensors (a :class:`~biped_mpc_py_torch.utils.struct.TensorStruct`,
-a tuple, a tensor) on static buffers, as ``carry.copy_(step(carry,
+a tuple, a dict, a tensor) on static buffers, as ``carry.copy_(step(carry,
 *consts))``, and replays it in place. :func:`graphed` is the functional
-form a rollout factory returns: one ``TickGraph`` per shape key (device
-and every leaf's shape and dtype), re-captured on a new key as ``jax.jit``
-retraces; each call copies its inputs in, replays ``n_steps`` times and
+form a rollout factory returns: one ``TickGraph`` per key (device, the
+tree's structure, every tensor leaf's shape and dtype and every other
+leaf's value, such as a ``Terrain``'s ``extent``), re-captured on a new key
+as ``jax.jit`` retraces; each call copies its inputs in, replays ``n_steps`` times and
 returns a clone of the carry.
 
 On the card a capture warms the step up once on a side stream, on a
@@ -41,13 +42,16 @@ from biped_mpc_py_torch.utils.struct import TensorStruct
 
 
 def _leaves(tree) -> list:
-    """The tensor leaves of a tree, in a fixed order."""
+    """The tensor leaves of a tree, in a fixed order (a dict's by sorted
+    key)."""
     if isinstance(tree, torch.Tensor):
         return [tree]
     if isinstance(tree, TensorStruct):
         return [t for f in dataclasses.fields(tree) for t in _leaves(getattr(tree, f.name))]
     if isinstance(tree, (tuple, list)):
         return [t for v in tree for t in _leaves(v)]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
     return []
 
 
@@ -58,6 +62,25 @@ def _clone(tree):
         return tree.map(torch.clone)
     if isinstance(tree, (tuple, list)):
         return type(tree)(_clone(v) for v in tree)
+    if isinstance(tree, dict):
+        return {k: _clone(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def _signature(tree):
+    """The tree's structure, every tensor leaf's shape and dtype, and every
+    other leaf's value (a ``Terrain``'s ``extent``): what a capture bakes
+    in, as the static arguments and shapes that ``jax.jit`` keys its
+    traces on."""
+    if isinstance(tree, torch.Tensor):
+        return tuple(tree.shape), tree.dtype
+    if isinstance(tree, TensorStruct):
+        return (type(tree),) + tuple(_signature(getattr(tree, f.name))
+                                     for f in dataclasses.fields(tree))
+    if isinstance(tree, (tuple, list)):
+        return (type(tree),) + tuple(_signature(v) for v in tree)
+    if isinstance(tree, dict):
+        return (dict,) + tuple((k, _signature(tree[k])) for k in sorted(tree))
     return tree
 
 
@@ -152,14 +175,13 @@ class TickGraph:
 
 
 def _key(trees) -> tuple:
-    leaves = _leaves(trees)
-    return (leaves[0].device,) + tuple((tuple(t.shape), t.dtype) for t in leaves)
+    return (_leaves(trees)[0].device, _signature(trees))
 
 
 def graphed(step, n_steps: int):
     """``fn(carry, *consts) -> carry``: ``n_steps`` steps of ``step``
-    replayed from one :class:`TickGraph` per shape key (made at the first
-    call with that key). Each call copies ``carry`` and ``consts`` into the
+    replayed from one :class:`TickGraph` per key (made at the first call
+    with that key). Each call copies ``carry`` and ``consts`` into the
     graph's buffers, replays, and returns a clone of the carry: the inputs
     are not modified and the result aliases no buffer. ``fn.graphs`` maps
     each key to its ``TickGraph``."""

@@ -94,48 +94,61 @@ Phases, each printed on its own lines:
    each env's clock bit-equal to its config run alone;
 17. one robot (N = 1) walking in place for 100 ticks under the controller
    on the card at ``tests/test_mj_contact.py``'s ``ORACLE_MPC``: through
-   ``run_mujoco_closed_loop`` where MuJoCo is installed, else through
-   ``RealtimeLoop`` against ``EnginePlant`` (the port's engine on the card
-   as the plant). No fall, the mean total stance force after tick 10 within
-   10% of m g, duty factors 0.5 +- 0.1, 100 QP launches, ms per tick; 5
-   ticks with the controller on the card against the CPU within
-   ``MJ_BOUNDS``;
+   ``run_mujoco_closed_loop`` where MuJoCo is installed, else through its
+   controller, ``sim/mj_driver.py::MjController`` (the loop's feedback,
+   solve and low-level calls on three CUDA graphs), against ``EnginePlant``
+   (the port's engine on the card as the plant). No fall, the mean total
+   stance force after tick 10 within 10% of m g, duty factors 0.5 +- 0.1,
+   100 QP launches, ms per tick; 5 ticks with the controller on the card
+   against the CPU within ``MJ_BOUNDS``;
 18. real-time loop: ``RealtimeLoop`` on the card, 50 ticks as fast as
    possible, then 25 against the 40 ms deadlines: the plant stays up, the
    statistics are coherent, the latencies, misses and ``realtime_ok``
    reported; the same loop on the CPU for 25 ticks as a figure;
-19. replay and checkpoint: ``export_rollout`` of 25 ticks (torso at walking
-   height; reloaded in MuJoCo where it is installed), and 1024 envs on the
-   tick-kernel path saved at tick 10 and resumed, bit-equal at tick 20 to
-   the run straight through;
+19. replay and checkpoint: ``export_rollout`` of 25 ticks (the plain
+   chain's graph replayed at N = 1; torso at walking height; its frames
+   against an eager loop of ``art_closed_loop_tick`` within
+   ``CHAIN_BOUNDS``; reloaded in MuJoCo where it is installed), and 1024
+   envs on the tick-kernel path saved at tick 10 and resumed, bit-equal at
+   tick 20 to the run straight through;
 20. demo: ``python -m biped_mpc_py_torch.demo --compat --rollout-steps 50
    --device cuda`` in a subprocess: exit code 0, the tick's torques against
-   the golden tick;
+   the golden tick, the graphed tick's ms and the graphed rollout's
+   real-time factor;
 21. sharded (``parallel/sharding.py``): (a) one rank over NCCL on the
    card, ``sharded_rollout`` of 1024 envs x 50 SRB ticks and
    ``sharded_art_rollout`` of the articulated worlds x 10 ticks, each
    bit-equal to its unsharded loop, with its launches, step count and zero
-   falls, ms per tick beside the unsharded loop's in turns; (b) two ranks
+   falls, ms per tick beside the unsharded loop's in turns, then
+   ``sharded_rollout_fn`` and ``sharded_art_rollout_fn`` (one graph on the
+   rank) bit-equal to the eager sharded loops and to the unsharded
+   ``*_fn``; (b) two ranks
    sharing the card over gloo, 512 of the same worlds each: the all-reduced
    summary equal to (a)'s and x_fb within 1.5e-3; (c) their DCP shards at
    tick 25 loaded into the one-rank mesh (a reshard), bit-equal to the world
    they gathered, and resumed bit-equal to a one-rank save's resume; save
    and load ms;
 22. graphs: the compiled entry points (``batched_rollout_fn``,
-   ``batched_art_rollout_tick_kernel_fn``, ``batched_art_rollout_kernel_fn``:
-   one tick captured as a CUDA graph and replayed) at 1024 envs and the
-   bench budget, SRB x 50 ticks, the tick path x 50, the substep path x 25
-   (phases 4, 9 and 6's configurations): first one eager tick of each path
+   ``batched_art_rollout_tick_kernel_fn``, ``batched_art_rollout_kernel_fn``,
+   and on the plain chain ``batched_art_rollout_fn``,
+   ``batched_art_rollout_terrain_fn`` and ``art_sweep_fn``: one tick captured
+   as a CUDA graph and replayed) at 1024 envs and the bench budget, SRB x 50
+   ticks, the tick path x 50, the substep path x 25, the flat plain chain,
+   the terrain walk and the 4 x 4 x 64 sweep x 10 each (phases 4, 9, 6, 10
+   and 15's configurations): first one eager tick of each path
    under ``torch.cuda.set_sync_debug_mode("error")``; then each replay
    against the eager loop from the same worlds (bit-equal, or within
    ``CHAIN_BOUNDS`` / ``SRB_GRAPH_BOUND`` with the differing leaves named),
    the launch counts of a graph call (counts set to 0 just before it), ms
-   per tick in turns (eager, graph, graph, eager), the graph pool's MB; and
-   one ``torch.profiler`` window of 5 graph ticks of the tick path: device
-   kernels, busy ms and the idle share, beside phase 13's eager figures.
+   per tick in turns (eager, graph, graph, eager), the capture's seconds and
+   the graph pool's MB; and one ``torch.profiler`` window of 5 graph ticks
+   of the tick path (device kernels, busy ms and the idle share, beside
+   phase 13's eager figures) and of 2 graph ticks of each plain-chain path.
 
-Phases 17 and 18 run ``RealtimeLoop``, whose solve and low-level period are
-two CUDA graphs replayed at N = 1 (captured by its ``warmup``).
+Phase 18 runs ``RealtimeLoop``, whose solve and low-level period are two
+CUDA graphs replayed at N = 1 (captured by its ``warmup``); phase 17 the
+MuJoCo loop's controller on its three graphs, phase 19 the plain chain's
+graph at N = 1, phase 20 the demo's graphed tick and rollout.
 
 The line before the last is a JSON object describing the kernels; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -1603,6 +1616,20 @@ class EnginePlant:
         v = self._host()
         return v[0:12], v[12:22], v[22:32]
 
+    def qpos_qvel(self):
+        """MuJoCo's qpos (17,) and qvel (16,) of the robot (the free joint's
+        linear velocity in the world frame, its angular in the body frame),
+        in one copy to the host: what ``MjController`` reads."""
+        from biped_mpc_py_torch.ops.rotations import quat_to_rotm
+
+        t0 = time.perf_counter()
+        s = self.s
+        v_world = (quat_to_rotm(s.quat) @ s.v_base[:, 3:6, None])[..., 0]
+        v = self.torch.cat([s.pos, s.quat, s.q, v_world, s.v_base[:, 0:3], s.qd], -1)
+        v = v[0].cpu().numpy()
+        self.sec += time.perf_counter() - t0
+        return v[0:17], v[17:33]
+
     def foot_positions(self):
         return self._host()[32:38]
 
@@ -1695,13 +1722,33 @@ def _contact_stats(forces):
     return float(forces[10:].sum(1).mean()), [float((forces[:, i] > 20).mean()) for i in (0, 1)]
 
 
+def _mj_controller_run(torch, mpc, gait, n_ticks, device, plant_device):
+    """``n_ticks`` of ``MjController`` (the MuJoCo loop's three graphs) on
+    ``device`` against an ``EnginePlant`` on ``plant_device``, walking in
+    place, the graphs captured first -> (plant, controller seconds and
+    plant seconds of the run, the run's launch counts)."""
+    from biped_mpc_py_torch.sim.mj_driver import N_LL, MjController
+
+    plant = EnginePlant(torch, plant_device)
+    ctl = MjController(mpc, gait, device=device)
+    ctl.warmup(plant.qpos_qvel)
+    ll_dt = mpc.dt / N_LL
+    _reset_counts()
+    plant.sec = 0.0
+    t0 = time.perf_counter()
+    for k in range(n_ticks):
+        ctl.tick(plant.qpos_qvel, lambda tau: plant.apply(tau, ll_dt), k * mpc.dt)
+    sec = time.perf_counter() - t0
+    return plant, sec, _counts()
+
+
 def phase_mujoco(torch, device):
     """One robot walking in place for 100 ticks under the N = 1 controller
     on the card: through ``run_mujoco_closed_loop`` where MuJoCo is
-    installed, else through ``RealtimeLoop`` against ``EnginePlant``; then 5
-    ticks with the controller on the card against the same on the CPU.
-    Returns ms per tick."""
-    from biped_mpc_py_torch import BipedParams, GaitConfig, RealtimeLoop
+    installed, else through its controller, ``MjController`` (three CUDA
+    graphs), against ``EnginePlant``; then 5 ticks with the controller on
+    the card against the same on the CPU. Returns ms per tick."""
+    from biped_mpc_py_torch import GaitConfig
     from biped_mpc_py_torch.parallel.rollout_art import art_mpc_config
     from biped_mpc_py_torch.sim.mj_driver import run_mujoco_closed_loop
 
@@ -1717,27 +1764,17 @@ def phase_mujoco(torch, device):
         forces, _, fell = run_mujoco_closed_loop(mpc, gait, N_MJ_TICKS, device=device)
         sec = time.perf_counter() - t0
         launches = _counts()
+        want_qp = N_MJ_TICKS + 1  # and the solve graph's capture warms up once
         runs = [run_mujoco_closed_loop(bench, gait, 5, device=d) for d in (device, cpu)]
         (f_c, x_c, _), (f_h, x_h, _) = runs
     else:
-        plant_name = ("the port's engine (EnginePlant, RealtimeLoop; mujoco is not "
-                      "installed here)")
-        plant = EnginePlant(torch, device)
-        loop = RealtimeLoop(mpc, gait, BipedParams(), device=device)
-        loop.warmup(plant)
-        _reset_counts()
-        plant.sec = 0.0
-        t0 = time.perf_counter()
-        loop.run(plant, N_MJ_TICKS, realtime=False)
-        sec = time.perf_counter() - t0
-        launches = _counts()
+        plant_name = ("the port's engine (EnginePlant) under MjController, the MuJoCo loop's "
+                      "three graphs (mujoco is not installed here)")
+        plant, sec, launches = _mj_controller_run(torch, mpc, gait, N_MJ_TICKS, device, device)
+        want_qp = N_MJ_TICKS
         plant_name += f", the plant {plant.sec * 1e3 / N_MJ_TICKS:.3f} ms of the tick"
         forces, fell = plant.tick_forces(), plant.z() < 0.25
-        plants = []
-        for d in (device, cpu):
-            p = EnginePlant(torch, cpu)
-            RealtimeLoop(bench, gait, BipedParams(), device=d).run(p, 5, realtime=False)
-            plants.append(p)
+        plants = [_mj_controller_run(torch, bench, gait, 5, d, cpu)[0] for d in (device, cpu)]
         (x_c, x_h) = (p.read_state()[0] for p in plants)
         f_c, f_h = (p.tick_forces() for p in plants)
     total, duty = _contact_stats(forces)
@@ -1749,7 +1786,7 @@ def phase_mujoco(torch, device):
         f"fell {fell}, mean total stance force after tick 10 {total:.2f} N (m g {MG:.2f}), duty "
         f"factors {duty[0]:.3f} {duty[1]:.3f}; 5 ticks, controller on the card vs the CPU "
         f"(bench budget): {json.dumps(diffs)} (bounds {json.dumps(MJ_BOUNDS)})")
-    if launches["fused_qp_solve"] != N_MJ_TICKS or launches["fused_tick"]:
+    if launches["fused_qp_solve"] != want_qp or launches["fused_tick"]:
         raise AssertionError(f"N = 1 loop launch counts {launches} in {N_MJ_TICKS} ticks")
     if fell or abs(total - MG) > 0.1 * MG or any(abs(x - 0.5) > 0.1 for x in duty):
         raise AssertionError("the N = 1 walking loop failed its contact checks")
@@ -1815,6 +1852,27 @@ def phase_realtime(torch, device):
     return fast, timed, host
 
 
+def replay_against_eager(torch, device, mpc, qpos):
+    """Max |diff| of the exported frames ``qpos`` (n, 17) against an eager
+    loop of ``art_closed_loop_tick`` at N = 1 from standing (the same
+    physics: 5 substeps, Minv held all tick), for the frame's pos, quat and
+    q."""
+    from biped_mpc_py_torch import BipedParams, GaitConfig
+    from biped_mpc_py_torch.parallel.rollout_art import art_closed_loop_tick, init_art_world
+    from biped_mpc_py_torch.sim.model import hector_model
+
+    w = init_art_world(mpc, 1, device=device)
+    model, biped = hector_model(device=device), BipedParams().to(device)
+    frames = []
+    for _ in range(len(qpos)):
+        w = art_closed_loop_tick(w, mpc, GaitConfig(), biped, model, n_substeps=5,
+                                 minv_ll_hold=8)
+        frames.append(torch.cat([w.sim.pos, w.sim.quat, w.sim.q], -1)[0])
+    d = np.abs(torch.stack(frames).cpu().numpy() - qpos)
+    return {"pos": float(d[:, 0:3].max()), "quat": float(d[:, 3:7].max()),
+            "q": float(d[:, 7:17].max())}
+
+
 def phase_replay_checkpoint(torch, device):
     """``export_rollout`` of 25 ticks of one robot on the card, reloaded
     (in MuJoCo where it is installed); then a tick-path world of 1024 envs
@@ -1838,6 +1896,7 @@ def phase_replay_checkpoint(torch, device):
                               minv_ll_hold=8)
         launches = _counts()
         qpos = np.load(prefix + "_traj.npz")["qpos"]
+        frames_diff = replay_against_eager(torch, device, mpc, qpos)
         root = ET.parse(prefix + "_model.xml").getroot()
         n_bodies = len(root.findall(".//body"))
         feet = []
@@ -1871,12 +1930,17 @@ def phase_replay_checkpoint(torch, device):
         f"{z.max():.4f}] m, {n_bodies} bodies in the MJCF"
         + (f", lowest toe per frame max {max(feet):.4f} m (MuJoCo)" if feet else
            " (mujoco is not installed here: the frames are not reloaded in it)")
+        + f"; its frames (the plain chain's graph replayed at N = 1) against an eager loop "
+        f"of art_closed_loop_tick: max |diff| {json.dumps(frames_diff)}"
         + f"; checkpoint: {N_ENVS} envs on the tick-kernel path saved at tick {N_CKPT_TICKS}, "
         f"resumed to tick {2 * N_CKPT_TICKS}: bit-equal to the run straight through {equal}")
-    if not (info["frames"] == 25 and info["falls"] == 0 and launches["fused_qp_solve"] == 25
+    # 25 replays of the graph, and the capture's warm-up tick (it ran)
+    if not (info["frames"] == 25 and info["falls"] == 0 and launches["fused_qp_solve"] == 26
             and 0.45 < z.min() and z.max() < 0.65 and n_bodies == 11
             and (not feet or max(feet) < 0.08)):
         raise AssertionError("the exported rollout failed its checks")
+    if any(frames_diff[k] >= CHAIN_BOUNDS[k] for k in frames_diff):
+        raise AssertionError(f"the replayed frames differ from the eager loop's: {frames_diff}")
     if not equal:
         raise AssertionError("a resumed checkpoint differs from the run straight through")
 
@@ -1885,7 +1949,8 @@ def phase_demo(torch, device):
     """``python -m biped_mpc_py_torch.demo --compat --rollout-steps 50
     --device cuda`` in a subprocess: exit code 0 and the tick's torques
     against the golden tick (tests/golden/tick_t0_walking.npz, 0.02 N m plus
-    the printout's 0.005)."""
+    the printout's 0.005); the graphed tick's time (under a second) and the
+    graphed rollout's real-time factor, as the demo prints them."""
     import os
     import re
     from pathlib import Path
@@ -1908,10 +1973,15 @@ def phase_demo(torch, device):
     err = float(np.abs(tau - golden).max()) if tau.shape == golden.shape else float("inf")
     lines = [ln for ln in out.stdout.splitlines()
              if "execution time" in ln or "rollout" in ln or "final state" in ln]
+    tick_s = float(re.search(r"execution time: ([0-9.]+) seconds", out.stdout).group(1))
+    realtime = float(re.search(r"\(([0-9.]+)x real-time\)", out.stdout).group(1))
     log(f"[demo] rc 0 in {sec:.1f} s (process included), torques vs golden max|d| {err:.4f} "
-        f"N m (bound 0.025): " + " | ".join(ln.strip() for ln in lines))
+        f"N m (bound 0.025); the graphed tick {tick_s * 1e3:.3f} ms, the graphed rollout "
+        f"{realtime:.0f}x real-time: " + " | ".join(ln.strip() for ln in lines))
     if not err < 0.025:
         raise AssertionError(f"the demo's torques are {err} N m from the golden tick")
+    if not 0 < tick_s < 1.0:
+        raise AssertionError(f"the demo's graphed tick took {tick_s} s")
 
 
 N_SHARD_ART_TICKS = 10
@@ -1979,6 +2049,47 @@ def _two_rank_srb(mesh, mpc, gait, ckpt):
                 device=torch.cuda.current_device())
 
 
+def sharded_fns(torch, mesh, srb, art):
+    """Phase 21 (a), the compiled forms: ``sharded_rollout_fn`` (50 SRB
+    ticks) and ``sharded_art_rollout_fn`` (10 ticks of the plain chain) on
+    the one NCCL rank, each bit-equal to its eager sharded loop and to the
+    unsharded ``*_fn`` on the same worlds, with the eager loop's summary,
+    one QP launch a tick and no physics launch; ms per tick of the graph
+    call beside the eager sharded loop's (``srb`` and ``art``: sharded
+    worlds and robots, config, gait, the eager loop's world and summary, and
+    the unsharded worlds and robots)."""
+    from biped_mpc_py_torch.parallel import sharding
+    from biped_mpc_py_torch.parallel.rollout import batched_rollout_fn
+    from biped_mpc_py_torch.parallel.rollout_art import batched_art_rollout_fn
+
+    kw = dict(n_substeps=5, minv_ll_hold=8)
+    cases = {
+        "SRB": (sharding.sharded_rollout_fn(N_TICKS, srb[2], srb[3], mesh),
+                batched_rollout_fn(N_TICKS, srb[2], srb[3]), N_TICKS, srb),
+        "articulated": (sharding.sharded_art_rollout_fn(N_SHARD_ART_TICKS, art[2], art[3], mesh,
+                                                        **kw),
+                        batched_art_rollout_fn(N_SHARD_ART_TICKS, art[2], art[3], **kw),
+                        N_SHARD_ART_TICKS, art),
+    }
+    for name, (fn, unsharded, n, (ws, bs, _, _, w_eager, s_eager, w, b)) in cases.items():
+        _, sec_capture = _synced(torch, lambda: fn(ws, bs))
+        _reset_counts()
+        (w_g, s_g), sec = _synced(torch, lambda: fn(ws, bs))
+        launches = _counts()
+        w_u = unsharded(w, b)
+        equal = _same(torch, _rows(w_g), _rows(w_eager)), _same(torch, _rows(w_g), w_u)
+        same_summary = ({k: float(v) for k, v in s_g.items()}
+                        == {k: float(v) for k, v in s_eager.items()})
+        log(f"[sharded] (a) {name} on the graph (sharded_*_fn), 1 rank over NCCL, {N_ENVS} "
+            f"envs x {n} ticks: bit-equal to the eager sharded loop {equal[0]}, to the "
+            f"unsharded *_fn {equal[1]}, the same summary {same_summary}; launches "
+            f"{json.dumps(launches)}; {sec * 1e3 / n:.3f} ms per tick (first call, capture "
+            f"included, {sec_capture:.3f} s)")
+        if not (all(equal) and same_summary and launches == {
+                "fused_qp_solve": n, "fused_tick": 0, "fused_substeps": 0}):
+            raise AssertionError(f"the one-rank sharded {name} graph failed its checks")
+
+
 def phase_sharded(torch, device):
     """Phase 21, the multi-device layer on the one card.
 
@@ -1987,7 +2098,8 @@ def phase_sharded(torch, device):
     ``sharded_art_rollout`` of the articulated worlds x 10 ticks (5
     substeps, Minv held all tick), each bit-equal to its unsharded loop on
     the same worlds, with its launches (one QP a tick, no physics kernel),
-    n_steps and zero falls; ms per tick of both, in turns. (b) Two ranks on
+    n_steps and zero falls; ms per tick of both, in turns; then their
+    compiled forms (:func:`sharded_fns`). (b) Two ranks on
     the card over gloo (NCCL refuses two ranks on one device), 512 of the
     same 1024 SRB worlds each: the all-reduced summary equal to (a)'s
     (height within rtol 1e-5), x_fb within 1.5e-3. (c) Their tick-25 shards
@@ -2062,6 +2174,10 @@ def phase_sharded(torch, device):
                 and float(a_sum["falls"]) == 0 and alaunches == {
                     "fused_qp_solve": N_SHARD_ART_TICKS, "fused_tick": 0, "fused_substeps": 0}):
             raise AssertionError("the one-rank sharded articulated loop failed its checks")
+
+        # (a) the compiled forms on the same rank: one graph over its rows
+        sharded_fns(torch, mesh, (ws, bs, mpc, gait, w_s, s, worlds, bipeds),
+                    (aws, abs_, mpc_a, gait_a, a_s, a_sum, aw, ab))
 
         # (b) two ranks on the one card
         ckpt = os.path.join(d, "ckpt")
@@ -2245,7 +2361,8 @@ def profile_tick_path(torch, device, n_ticks=5):
         by_name["tick_kernel"] / n_ticks
 
 
-GRAPH_TICKS = {"srb": N_TICKS, "tick": N_TICKS, "substep": N_COMPARE_TICKS}
+GRAPH_TICKS = {"srb": N_TICKS, "tick": N_TICKS, "substep": N_COMPARE_TICKS, "plain": 10,
+               "terrain": 10, "sweep": 10}
 # Replay against eager when a leaf is not bit-equal (the op named in the
 # log): the articulated paths at CHAIN_BOUNDS, the SRB path at the bound of
 # phase 21's two ranks against one.
@@ -2253,29 +2370,45 @@ SRB_GRAPH_BOUND = 1.5e-3
 
 
 def _graph_paths(torch, device):
-    """{path: (eager rollout, its compiled factory's fn, worlds, bipeds,
-    expected launches per tick)} for phase 22, at phases 4, 9 and 6's
-    configurations."""
+    """{path: (eager(k): k ticks of the eager rollout, its compiled
+    factory's fn, the fn's inputs, expected launches per tick)} for phase
+    22, at phases 4, 9, 6, 10 and 15's configurations: the plain chain
+    (flat, 5 substeps, Minv held all tick), the terrain walk (randomized
+    robots on per-env 0.03 m 64 x 64 fields) and the 4 x 4 x 64 sweep."""
     from biped_mpc_py_torch import GaitConfig
     from biped_mpc_py_torch.parallel import rollout as r
     from biped_mpc_py_torch.parallel import rollout_art as ra
+    from biped_mpc_py_torch.parallel import sweep as sw
 
     srb = _walk_config()
     w_srb = r.batch_worlds(srb, N_ENVS, device=device)
     b_srb = r.randomize_params(torch.Generator().manual_seed(SEED), N_ENVS, device=device)
     mpc, gait = _art_config()
     w_art, b_art = art_worlds(torch, device)
+    w_ter, b_ter, fields = terrain_setup(torch, device)
+    mpc_s, gait_s, per_env, w_sw, b_sw, _ = sweep_setup(torch, device)
+    kw = dict(n_substeps=5, minv_ll_hold=8)
     n = GRAPH_TICKS
+    qp_only = {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 0}
     return {
-        "srb": (lambda w, b, k: r.batched_rollout(w, b, k, srb, GaitConfig()),
-                r.batched_rollout_fn(n["srb"], srb, GaitConfig()), w_srb, b_srb,
-                {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 0}),
-        "tick": (lambda w, b, k: ra.batched_art_rollout_tick_kernel(w, b, k, mpc, gait),
-                 ra.batched_art_rollout_tick_kernel_fn(n["tick"], mpc, gait), w_art, b_art,
+        "srb": (lambda k: r.batched_rollout(w_srb, b_srb, k, srb, GaitConfig()),
+                r.batched_rollout_fn(n["srb"], srb, GaitConfig()), (w_srb, b_srb), qp_only),
+        "tick": (lambda k: ra.batched_art_rollout_tick_kernel(w_art, b_art, k, mpc, gait),
+                 ra.batched_art_rollout_tick_kernel_fn(n["tick"], mpc, gait), (w_art, b_art),
                  {"fused_qp_solve": 1, "fused_tick": 1, "fused_substeps": 0}),
-        "substep": (lambda w, b, k: ra.batched_art_rollout_kernel(w, b, k, mpc, gait),
-                    ra.batched_art_rollout_kernel_fn(n["substep"], mpc, gait), w_art, b_art,
+        "substep": (lambda k: ra.batched_art_rollout_kernel(w_art, b_art, k, mpc, gait),
+                    ra.batched_art_rollout_kernel_fn(n["substep"], mpc, gait), (w_art, b_art),
                     {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 8}),
+        "plain": (lambda k: ra.batched_art_rollout(w_art, b_art, k, mpc, gait, **kw),
+                  ra.batched_art_rollout_fn(n["plain"], mpc, gait, **kw), (w_art, b_art),
+                  qp_only),
+        "terrain": (lambda k: ra.batched_art_rollout_terrain(w_ter, b_ter, fields, k, mpc, gait,
+                                                             **kw),
+                    ra.batched_art_rollout_terrain_fn(n["terrain"], mpc, gait, **kw),
+                    (w_ter, b_ter, fields), qp_only),
+        "sweep": (lambda k: sw.art_sweep(w_sw, b_sw, k, mpc_s, gait_s, per_env, **kw),
+                  sw.art_sweep_fn(n["sweep"], mpc_s, gait_s, **kw), (w_sw, b_sw, per_env),
+                  qp_only),
     }
 
 
@@ -2300,12 +2433,12 @@ def sync_check(torch, paths):
     """One eager tick of each path under ``torch.cuda.set_sync_debug_mode
     ("error")``, after a tick that makes the constants: any host
     synchronization in the tick raises here, before a capture would."""
-    for name, (eager, _, w, b, _) in paths.items():
-        eager(w, b, 1)
+    for name, (eager, _, _, _) in paths.items():
+        eager(1)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            eager(w, b, 1)
+            eager(1)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
@@ -2313,8 +2446,8 @@ def sync_check(torch, paths):
         "set_sync_debug_mode('error'): no host synchronization")
 
 
-def profile_graph_ticks(torch, fn, w, b, n_ticks=5):
-    """``torch.profiler`` over ``fn(w, b)`` (a graph of ``n_ticks``
+def profile_graph_ticks(torch, fn, inputs, n_ticks=5):
+    """``torch.profiler`` over ``fn(*inputs)`` (a graph of ``n_ticks``
     replays) -> (device kernels per tick, device busy ms per tick, the
     window's device span per tick: first kernel's start to last kernel's
     end; the replays run back to back, so the span is the graph tick under
@@ -2322,10 +2455,10 @@ def profile_graph_ticks(torch, fn, w, b, n_ticks=5):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn(w, b)
+    fn(*inputs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn(w, b)
+        fn(*inputs)
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
@@ -2333,6 +2466,10 @@ def profile_graph_ticks(torch, fn, w, b, n_ticks=5):
     spans = [(e.time_range.start, e.time_range.end) for e in dev]
     span = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3
     return len(dev) / n_ticks, _union_ms(spans) / n_ticks, span / n_ticks
+
+
+# the plain-chain paths' profiled windows: 2 graph ticks (~25k kernels each)
+PROFILE_PLAIN_TICKS = 2
 
 
 def phase_graphs(torch, device, eager_profile):
@@ -2350,27 +2487,28 @@ def phase_graphs(torch, device, eager_profile):
     paths = _graph_paths(torch, device)
     sync_check(torch, paths)
     result = {}
-    for name, (eager, fn, w, b, per_tick) in paths.items():
+    for name, (eager, fn, inputs, per_tick) in paths.items():
         n = GRAPH_TICKS[name]
-        e1, sec_e1 = _synced(torch, lambda: eager(w, b, n))
-        g0, sec_capture = _synced(torch, lambda: fn(w, b))
+        e1, sec_e1 = _synced(torch, lambda: eager(n))
+        g0, sec_capture = _synced(torch, lambda: fn(*inputs))
         _reset_counts()
-        g1, sec_g1 = _synced(torch, lambda: fn(w, b))
+        g1, sec_g1 = _synced(torch, lambda: fn(*inputs))
         launches = _counts()
-        g2, sec_g2 = _synced(torch, lambda: fn(w, b))
-        e2, sec_e2 = _synced(torch, lambda: eager(w, b, n))
+        g2, sec_g2 = _synced(torch, lambda: fn(*inputs))
+        e2, sec_e2 = _synced(torch, lambda: eager(n))
         graph = next(iter(fn.graphs.values()))
         diffs = _leaf_diffs(e1, g0)
         again = [_leaf_diffs(g0, g) for g in (g1, g2)] + [_leaf_diffs(e1, e2)]
         want = {k: v * n for k, v in per_tick.items()}
         ms = [sec * 1e3 / n for sec in (sec_e1, sec_g1, sec_g2, sec_e2)]
+        capture_s = sec_capture - (sec_g1 + sec_g2) / 2
         log(f"[graphs] {name}: {N_ENVS} envs x {n} ticks; replay vs eager: "
             + ("bit-equal" if not diffs else f"differ in {json.dumps(diffs)}")
             + f"; graph calls and eager runs repeat bit-equal: {not any(again)}; launches of a "
             f"graph call {json.dumps(launches)} (want {json.dumps(want)}); ms per tick in turns "
             f"(eager, graph, graph, eager): {ms[0]:.3f}, {ms[1]:.3f}, {ms[2]:.3f}, {ms[3]:.3f}; "
-            f"first call (capture + {n} ticks) {sec_capture:.3f} s; graph pool "
-            f"{graph.pool_mb:.1f} MB")
+            f"first call (capture + {n} ticks) {sec_capture:.3f} s, the capture about "
+            f"{capture_s:.3f} s; graph pool {graph.pool_mb:.1f} MB")
         if launches != want:
             raise AssertionError(f"graph launch counts {launches}, want {want}")
         if any(again):
@@ -2381,12 +2519,13 @@ def phase_graphs(torch, device, eager_profile):
             bounds = CHAIN_BOUNDS if name != "srb" else {"x_fb": SRB_GRAPH_BOUND}
             if any(sim[k] >= v for k, v in bounds.items()):
                 raise AssertionError(f"{name}: replay and eager differ past {bounds}: {sim}")
-        result[name] = {"ms": ms, "pool_mb": graph.pool_mb, "bit_equal": not diffs}
+        result[name] = {"ms": ms, "pool_mb": graph.pool_mb, "bit_equal": not diffs,
+                        "capture_s": capture_s}
 
-    _, fn, w, b, _ = paths["tick"]
+    w, b = paths["tick"][2]
     mpc, gait = _art_config()
     fn5 = ra.batched_art_rollout_tick_kernel_fn(5, mpc, gait)
-    kernels, busy, span = profile_graph_ticks(torch, fn5, w, b)
+    kernels, busy, span = profile_graph_ticks(torch, fn5, (w, b))
     graph_ms = sum(result["tick"]["ms"][1:3]) / 2
     e_kernels, e_busy, e_tick_ms = eager_profile
     log(f"[graphs] profile, tick path, 5 graph ticks: {kernels:.1f} device kernels per tick, "
@@ -2395,6 +2534,22 @@ def phase_graphs(torch, device, eager_profile):
         f"{1 - busy / graph_ms:.3f}; the profiler stretches the kernels); eager, phase 13: "
         f"{e_kernels:.1f} kernels, busy {e_busy:.3f} of {e_tick_ms:.3f} ms, idle "
         f"{1 - e_busy / e_tick_ms:.3f}")
+    from biped_mpc_py_torch.parallel import sweep as sw
+
+    kw = dict(n_substeps=5, minv_ll_hold=8)
+    mpc_s, gait_s = sweep_setup(torch, device)[0:2]
+    short = {"plain": ra.batched_art_rollout_fn(PROFILE_PLAIN_TICKS, mpc, gait, **kw),
+             "terrain": ra.batched_art_rollout_terrain_fn(PROFILE_PLAIN_TICKS, mpc, gait, **kw),
+             "sweep": sw.art_sweep_fn(PROFILE_PLAIN_TICKS, mpc_s, gait_s, **kw)}
+    for name, fn in short.items():
+        kernels, busy, span = profile_graph_ticks(torch, fn, paths[name][2],
+                                                  PROFILE_PLAIN_TICKS)
+        graph_ms = sum(result[name]["ms"][1:3]) / 2
+        result[name]["idle"] = 1 - busy / graph_ms
+        log(f"[graphs] profile, {name}, {PROFILE_PLAIN_TICKS} graph ticks: {kernels:.1f} device "
+            f"kernels per tick, device busy {busy:.3f} ms of a {span:.3f} ms profiled tick (idle "
+            f"{1 - busy / span:.3f}); against the unprofiled graph tick of {graph_ms:.3f} ms the "
+            f"card idles {1 - busy / graph_ms:.3f}")
     return result
 
 

@@ -67,9 +67,14 @@ before they launch.
 The compiled entry points (``*_fn``, one tick captured as a CUDA graph): at
 1024 envs and the bench budget, a replay bit-equal to the eager loop on
 every leaf (SRB and the tick path 10 ticks, the substep path 5), with the
-launch counters reading the replays' launches; ``RealtimeLoop`` on its two
-graphs walks ``chip_smoke.EnginePlant`` for 50 ticks; a step that
-synchronizes the host raises at capture and runs no eager fallback.
+launch counters reading the replays' launches (the plain chain, the
+per-env terrain walk and the 4 x 4 x 64 sweep 3 ticks each, the physics
+kernels launched no time); the sharded ``*_fn`` on one NCCL rank bit-equal
+to the eager sharded loops; ``RealtimeLoop`` on its two graphs, and the
+MuJoCo loop's ``MjController`` on its three, walk
+``chip_smoke.EnginePlant``; replay's graphed frames and the demo's graphed
+tick equal their eager forms; a step that synchronizes the host raises at
+capture and runs no eager fallback.
 """
 
 import dataclasses
@@ -592,7 +597,8 @@ def test_mujoco_loop_card_matches_cpu(cuda):
 
     before = _counts()
     f_c, x_c, fell_c = run_mujoco_closed_loop(_bench_oracle(), GaitConfig(), 5, device=cuda)
-    assert [a - b for a, b in zip(_counts(), before)] == [5, 0, 0]
+    # 5 replays of the solve graph, and its capture's warm-up solve
+    assert [a - b for a, b in zip(_counts(), before)] == [6, 0, 0]
     f_h, x_h, fell_h = run_mujoco_closed_loop(_bench_oracle(), GaitConfig(), 5, device="cpu")
     assert fell_c == fell_h
     _assert_feedback_close(x_c, x_h)
@@ -613,7 +619,8 @@ def test_new_entry_points_build_on_the_card(cuda):
     assert loop.ctrl.qp.controls.device.type == "cuda"
     before = _counts()
     qpos, times, falls = rollout_qpos_track(mpc, gait, 2, n_substeps=5, minv_ll_hold=8)
-    assert [a - b for a, b in zip(_counts(), before)] == [2, 0, 0]
+    # 2 replays of the plain chain's graph, and the capture's warm-up tick
+    assert [a - b for a, b in zip(_counts(), before)] == [3, 0, 0]
     assert qpos.shape == (2, 17) and falls == 0.0 and 0.45 < qpos[:, 2].min()
 
 
@@ -742,29 +749,49 @@ def _cat_rows(structs):
 
 # --- the compiled entry points: one tick captured as a CUDA graph -----------
 
-GRAPH_TICKS = {"srb": 10, "tick": 10, "substep": 5}
+GRAPH_TICKS = {"srb": 10, "tick": 10, "substep": 5, "plain": 3, "terrain": 3, "sweep": 3}
 
 
 def _graph_case(path, device):
-    """(eager(k), factory(k), worlds, bipeds, launches per tick as
+    """(eager(k), factory(k), the fn's inputs, launches per tick as
     ``_counts()``) at 1024 envs, the bench budget (chip_smoke phase 22)."""
     if path == "srb":
         mpc = fast_mpc_config(x_cmd=WALK)
         w = batch_worlds(mpc, 1024, device=device)
         b = randomize_params(torch.Generator().manual_seed(0), 1024, device=device)
         return (lambda k: batched_rollout(w, b, k, mpc, GaitConfig()),
-                lambda k: batched_rollout_fn(k, mpc, GaitConfig()), w, b, (1, 0, 0))
+                lambda k: batched_rollout_fn(k, mpc, GaitConfig()), (w, b), (1, 0, 0))
     mpc, gait = _bench_art_config()
     w = ra.init_art_world(mpc, 1024, device=device)
     gen = torch.Generator().manual_seed(0)
     qd = w.sim.qd + (0.01 * torch.randn(1024, 10, generator=gen)).to(device)
     w = dataclasses.replace(w, sim=dataclasses.replace(w.sim, qd=qd))
     b = BipedParams().expand(1024).to(device)
+    kw = dict(n_substeps=5, minv_ll_hold=8)
     if path == "tick":
         return (lambda k: ra.batched_art_rollout_tick_kernel(w, b, k, mpc, gait),
-                lambda k: ra.batched_art_rollout_tick_kernel_fn(k, mpc, gait), w, b, (1, 1, 0))
-    return (lambda k: ra.batched_art_rollout_kernel(w, b, k, mpc, gait),
-            lambda k: ra.batched_art_rollout_kernel_fn(k, mpc, gait), w, b, (1, 0, 8))
+                lambda k: ra.batched_art_rollout_tick_kernel_fn(k, mpc, gait), (w, b),
+                (1, 1, 0))
+    if path == "substep":
+        return (lambda k: ra.batched_art_rollout_kernel(w, b, k, mpc, gait),
+                lambda k: ra.batched_art_rollout_kernel_fn(k, mpc, gait), (w, b), (1, 0, 8))
+    if path == "plain":
+        return (lambda k: ra.batched_art_rollout(w, b, k, mpc, gait, **kw),
+                lambda k: ra.batched_art_rollout_fn(k, mpc, gait, **kw), (w, b), (1, 0, 0))
+    if path == "terrain":
+        fields = Terrain.rough_batch(torch.Generator().manual_seed(1), 1024, amplitude=0.03,
+                                     device=device)
+        return (lambda k: ra.batched_art_rollout_terrain(w, b, fields, k, mpc, gait, **kw),
+                lambda k: ra.batched_art_rollout_terrain_fn(k, mpc, gait, **kw),
+                (w, b, fields), (1, 0, 0))
+    from biped_mpc_py_torch.parallel.sweep import art_sweep, art_sweep_fn, stack_configs
+
+    configs = [dataclasses.replace(mpc, kp_hipyaw=2.4 * g, kd_hipyaw=0.3 * h, admm_rho=r)
+               for g, r in ((0.0, 0.3), (0.5, 1.0), (1.0, 0.1), (1.5, 0.3))
+               for h in (0.0, 0.5, 1.0, 1.5)]
+    mpc_s, per_env = stack_configs([c for c in configs for _ in range(64)], device=device)
+    return (lambda k: art_sweep(w, b, k, mpc_s, gait, per_env, **kw),
+            lambda k: art_sweep_fn(k, mpc_s, gait, **kw), (w, b, per_env), (1, 0, 0))
 
 
 @pytest.mark.parametrize("path", list(GRAPH_TICKS))
@@ -774,17 +801,83 @@ def test_graph_replay_is_bit_equal_to_eager(cuda, path):
     from biped_mpc_py_torch.utils.graphs import _leaves
 
     k = GRAPH_TICKS[path]
-    eager, factory, w, b, per_tick = _graph_case(path, cuda)
+    eager, factory, inputs, per_tick = _graph_case(path, cuda)
     want = eager(k)
     fn = factory(k)
-    fn(w, b)  # captures
+    fn(*inputs)  # captures
     (graph,) = fn.graphs.values()
     assert graph.graph is not None
     before = _counts()
-    out = fn(w, b)
+    out = fn(*inputs)
     torch.cuda.synchronize()
     assert [a - c for a, c in zip(_counts(), before)] == [k * p for p in per_tick]
     assert all(torch.equal(x, y) for x, y in zip(_leaves(out), _leaves(want), strict=True))
+
+
+def test_sharded_fns_one_nccl_rank_are_the_eager_loops(one_nccl_rank):
+    """One NCCL rank: ``sharded_rollout_fn`` and ``sharded_art_rollout_fn``
+    replay one graph over the rank's rows, bit-equal to the eager sharded
+    loops, one QP launch a tick, the same summary."""
+    from biped_mpc_py_torch.parallel import sharding
+
+    mpc, _, ws, bs = _shard_setup(one_nccl_rank)
+    eager, s_eager = sharding.sharded_rollout(ws, bs, 5, mpc, GaitConfig(), one_nccl_rank)
+    fn = sharding.sharded_rollout_fn(5, mpc, GaitConfig(), one_nccl_rank)
+    fn(ws, bs)  # captures
+    before = _counts()
+    out, summary = fn(ws, bs)
+    torch.cuda.synchronize()
+    assert [a - c for a, c in zip(_counts(), before)] == [5, 0, 0]
+    _same(out.map(lambda t: t.to_local()), eager.map(lambda t: t.to_local()))
+    assert {k: float(v) for k, v in summary.items()} == {k: float(v) for k, v in s_eager.items()}
+    amp, gait = _bench_art_config()
+    aw = sharding.shard_world(ra.init_art_world(amp, 256), one_nccl_rank)
+    ab = sharding.shard_world(BipedParams().expand(256).to("cuda"), one_nccl_rank)
+    kw = dict(n_substeps=5, minv_ll_hold=8)
+    a_eager, _ = sharding.sharded_art_rollout(aw, ab, 2, amp, gait, one_nccl_rank, **kw)
+    a_out, a_summary = sharding.sharded_art_rollout_fn(2, amp, gait, one_nccl_rank, **kw)(aw, ab)
+    _same(a_out.map(lambda t: t.to_local()), a_eager.map(lambda t: t.to_local()))
+    assert sorted(a_summary) == ["falls", "height_rmse_sum", "n_steps"]
+
+
+def test_n1_graphs_on_the_card(cuda):
+    """The N = 1 graphs on the card: ``MjController`` walks
+    ``chip_smoke.EnginePlant`` for 25 ticks (one QP launch a tick), replay's
+    frames equal the eager loop's, and the demo's tick equals
+    ``control_tick``."""
+    from chip_smoke import EnginePlant
+    from biped_mpc_py_torch.control.controller import control_tick
+    from biped_mpc_py_torch.demo import compiled_tick
+    from biped_mpc_py_torch.sim.mj_driver import MjController
+    from biped_mpc_py_torch.sim.replay import rollout_qpos_track
+
+    plant = EnginePlant(torch, cuda)
+    ctl = MjController(ra.art_mpc_config(), GaitConfig())
+    ctl.warmup(plant.qpos_qvel)  # the capture's warm-up launches once
+    before = _counts()
+    for k in range(25):
+        ctl.tick(plant.qpos_qvel, lambda tau: plant.apply(tau, 0.005), k * 0.04)
+    assert [a - c for a, c in zip(_counts(), before)] == [25, 0, 200]
+    assert all(g.graph is not None for g in ctl.graphs) and plant.z() > 0.4
+
+    mpc, gait = _bench_art_config()
+    kw = dict(n_substeps=5, minv_ll_hold=8)
+    qpos, times, _ = rollout_qpos_track(mpc, gait, 3, **kw)
+    w = ra.init_art_world(mpc, 1)
+    model, biped = hector_model(device=cuda), BipedParams().to(cuda)
+    for k in range(3):
+        w = ra.art_closed_loop_tick(w, mpc, gait, biped, model, **kw)
+        frame = torch.cat([w.sim.pos, w.sim.quat, w.sim.q], -1)[0].cpu().numpy()
+        assert (frame == qpos[k]).all() and float(w.sim.t[0]) == times[k]
+
+    x = torch.tensor([[0, 0, 0, 0, 0, 0.53, 0, 0, 0, 0, 0, 0]], device=cuda)
+    q = torch.tensor([[0, 0, -0.7853982, 1.5707964, -0.7853982] * 2], device=cuda)
+    qd, t = torch.zeros(1, 10, device=cuda), torch.zeros(1, device=cuda)
+    tau, _, sol = control_tick(x, q, qd, t, MpcConfig(), GaitConfig(), biped)
+    tick_graph = compiled_tick(x, q, qd, t, MpcConfig(), GaitConfig(), biped)
+    tick_graph.replay()
+    assert tick_graph.graph is not None
+    assert torch.equal(tick_graph.carry[4], tau) and torch.equal(tick_graph.carry[6], sol.controls)
 
 
 def test_realtime_loop_on_graphs_walks_engine_plant(cuda):

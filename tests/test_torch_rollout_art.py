@@ -4,7 +4,8 @@ worlds, at the bench solver budget (40 iterations, 1 rho phase, no polish,
 10 Newton-Schulz steps) and walking at 0.3 m/s (p = 3).
 
 Tolerances:
-- the plain chain (``batched_art_rollout``) against the same JAX path:
+- the plain chain (``batched_art_rollout``, and its compiled form
+  ``batched_art_rollout_fn``) against the same JAX path:
   pos 1e-4, quat 1e-4, v_base 2e-3, q 1e-3, qd 2e-2 (f32 roundoff grown
   through 2-3 ticks of stiff contact; measured pos 8e-7, qd 3e-4), the
   clock and the fall counts equal;
@@ -24,6 +25,7 @@ Tolerances:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -68,16 +70,16 @@ def _diff(t, j, key):
     return float(np.abs(np.asarray(t["sim"][key]) - np.asarray(j["sim"][key])).max())
 
 
-@pytest.mark.parametrize("ticks,n_substeps,hold", [(3, 5, 8), (2, 10, 1)])
-def test_plain_chain_matches_jax(ticks, n_substeps, hold):
-    """``batched_art_rollout`` at the bench physics (5 substeps, Minv held
-    all tick) and at the default (10 substeps, Minv every period)."""
+@functools.cache
+def _jax_plain_chain(ticks, n_substeps, hold):
+    """``jax.jit(batched_art_rollout_fn)`` from :func:`_setup`'s worlds, once
+    per module for each physics (the eager and the compiled port use it)."""
     jm, jg, jw, jb = _setup()
-    out_j = jax.jit(jra.batched_art_rollout_fn(
+    return jax.jit(jra.batched_art_rollout_fn(
         ticks, jm, jg, n_substeps=n_substeps, minv_ll_hold=hold))(jw, jb)
-    tm, tg, tw, tb = _port(jm, jg, jw, jb)
-    out_t = tra.batched_art_rollout(tw, tb, ticks, tm, tg, n_substeps=n_substeps,
-                                    minv_ll_hold=hold)
+
+
+def _assert_plain_chain(out_t, out_j):
     j, t = _fields(out_j), to_numpy(out_t)
     for key, tol in CHAIN_BOUNDS.items():
         assert _diff(t, j, key) < tol, (key, _diff(t, j, key))
@@ -87,6 +89,28 @@ def test_plain_chain_matches_jax(ticks, n_substeps, hold):
     np.testing.assert_allclose(t["metrics"]["energy"], j["metrics"]["energy"], rtol=1e-3)
     np.testing.assert_allclose(t["ctrl"]["qp"]["controls"], j["ctrl"]["qp"]["controls"],
                                atol=0.1, rtol=0)
+
+
+@pytest.mark.parametrize("ticks,n_substeps,hold", [(3, 5, 8), (2, 10, 1)])
+def test_plain_chain_matches_jax(ticks, n_substeps, hold):
+    """``batched_art_rollout`` at the bench physics (5 substeps, Minv held
+    all tick) and at the default (10 substeps, Minv every period)."""
+    tm, tg, tw, tb = _port(*_setup())
+    out_t = tra.batched_art_rollout(tw, tb, ticks, tm, tg, n_substeps=n_substeps,
+                                    minv_ll_hold=hold)
+    _assert_plain_chain(out_t, _jax_plain_chain(ticks, n_substeps, hold))
+
+
+def test_plain_chain_fn_matches_jax():
+    """The compiled plain chain, ``batched_art_rollout_fn`` (on the CPU its
+    static buffers step eagerly), 4 envs x 2 ticks at the default physics
+    against ``jax.jit(batched_art_rollout_fn)``: ``CHAIN_BOUNDS``, the clock
+    bit-equal; no physics kernel in the tick."""
+    tm, tg, tw, tb = _port(*_setup())
+    before = substep_kernel.fused_substeps.launches
+    out_t = tra.batched_art_rollout_fn(2, tm, tg, n_substeps=10, minv_ll_hold=1)(tw, tb)
+    assert substep_kernel.fused_substeps.launches == before
+    _assert_plain_chain(out_t, _jax_plain_chain(2, 10, 1))
 
 
 OPERATING_POINTS = {

@@ -19,6 +19,9 @@ Tolerances:
 - articulated, 4 envs x 2 ticks at the bench budget, 5 substeps, Minv held
   all tick: ``CHAIN_BOUNDS`` of ``tests/test_torch_rollout_art.py``, the
   summary as above;
+- the compiled forms (``sharded_rollout_fn``, ``sharded_art_rollout_fn``)
+  on the same ranks: the same bounds against JAX, bit-equal to the eager
+  sharded loops;
 - the port against itself: one rank is the unsharded program, bit-equal;
   two ranks run it on 4 rows each, held at 1.5e-3 on x_fb (the JAX
   package's sharded-against-vmap bound, ``tests/test_rollout.py:273-281``)
@@ -135,12 +138,16 @@ def _ranks(mesh, srb, art, ckpt_dir):
     except ValueError as e:
         refused = str(e)
     aw, ab, am, ag = art
-    art_out, art_summary = sharding.sharded_art_rollout(
-        sharding.shard_world(aw, mesh), sharding.shard_world(ab, mesh), ART_TICKS, am, ag,
-        mesh, **ART_KW)
+    aws, abs_ = sharding.shard_world(aw, mesh), sharding.shard_world(ab, mesh)
+    art_out, art_summary = sharding.sharded_art_rollout(aws, abs_, ART_TICKS, am, ag, mesh,
+                                                        **ART_KW)
+    straight_fn, summary_fn = sharding.sharded_rollout_fn(TICKS, mpc, gait, mesh)(ws, bs)
+    art_fn, art_summary_fn = sharding.sharded_art_rollout_fn(ART_TICKS, am, ag, mesh,
+                                                             **ART_KW)(aws, abs_)
     return dict(straight=straight, summary=summary, mid=mid, loaded=loaded,
                 from_dcp=from_dcp, from_npz=from_npz, refused=refused, art=art_out,
-                art_summary=art_summary)
+                art_summary=art_summary, straight_fn=straight_fn, summary_fn=summary_fn,
+                art_fn=art_fn, art_summary_fn=art_summary_fn)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -210,33 +217,58 @@ def one_rank(tmp_path):
         yield sharding.env_mesh("cpu")
 
 
-def test_srb_matches_jax(spawned):
+def _assert_srb_matches_jax(spawned, world_key, summary_key):
     results = _ranks_result(spawned)
     j_world, j_summary, _, _ = spawned.ref
-    t = _rows(results, "straight")
+    t = _rows(results, world_key)
     np.testing.assert_allclose(t["sim"]["x_fb"], j_world["sim"]["x_fb"], atol=2e-3, rtol=0)
     np.testing.assert_array_equal(t["sim"]["t"], j_world["sim"]["t"])
-    s = {k: float(v) for k, v in results[0]["summary"].items()}
-    assert s == {k: float(v) for k, v in results[1]["summary"].items()}  # all-reduced
+    s = {k: float(v) for k, v in results[0][summary_key].items()}
+    assert s == {k: float(v) for k, v in results[1][summary_key].items()}  # all-reduced
     assert s["n_steps"] == j_summary["n_steps"] == TICKS * 8
     assert s["falls"] == j_summary["falls"]
     np.testing.assert_allclose(s["height_rmse_sum"], j_summary["height_rmse_sum"], rtol=1e-2)
     np.testing.assert_allclose(s["res_prim_max"], j_summary["res_prim_max"], atol=1e-6, rtol=0)
 
 
-def test_art_matches_jax(spawned):
+def _assert_art_matches_jax(spawned, world_key, summary_key):
     results = _ranks_result(spawned)
     _, _, j_world, j_summary = spawned.ref
-    t = _rows(results, "art")
+    t = _rows(results, world_key)
     for key, tol in CHAIN_BOUNDS.items():
         diff = float(np.abs(t["sim"][key] - j_world["sim"][key]).max())
         assert diff < tol, (key, diff)
     np.testing.assert_array_equal(t["metrics"]["falls"], j_world["metrics"]["falls"])
-    s = {k: float(v) for k, v in results[0]["art_summary"].items()}
+    s = {k: float(v) for k, v in results[0][summary_key].items()}
     assert sorted(s) == ["falls", "height_rmse_sum", "n_steps"]
     assert s["n_steps"] == j_summary["n_steps"] == ART_TICKS * 4
     assert s["falls"] == j_summary["falls"]
     np.testing.assert_allclose(s["height_rmse_sum"], j_summary["height_rmse_sum"], rtol=1e-2)
+
+
+def test_srb_matches_jax(spawned):
+    _assert_srb_matches_jax(spawned, "straight", "summary")
+
+
+def test_art_matches_jax(spawned):
+    _assert_art_matches_jax(spawned, "art", "art_summary")
+
+
+@pytest.mark.parametrize("loop", ["srb", "art"])
+def test_sharded_fn_matches_jax_and_the_eager_loop(spawned, loop):
+    """The compiled forms, ``sharded_rollout_fn`` and
+    ``sharded_art_rollout_fn`` (one graph per rank over its rows; on the CPU
+    the graph's buffers step eagerly), on the same two ranks: against JAX's
+    ``sharded_*_fn`` at the eager loops' bounds, and every row and the
+    all-reduced summary bit-equal to the eager sharded loop's."""
+    world, summary = ("straight", "summary") if loop == "srb" else ("art", "art_summary")
+    check = _assert_srb_matches_jax if loop == "srb" else _assert_art_matches_jax
+    check(spawned, world + "_fn", summary + "_fn")
+    results = _ranks_result(spawned)
+    _assert_equal(_rows(results, world + "_fn"), _rows(results, world))
+    for r in results:
+        assert {k: float(v) for k, v in r[summary + "_fn"].items()} == {
+            k: float(v) for k, v in r[summary].items()}
 
 
 def test_two_ranks_match_batched_rollout(spawned, whole):

@@ -23,6 +23,7 @@ Inputs come from numpy with a seed. Tolerances:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -57,6 +58,23 @@ def _fields(tree):
 
 def _port(cls, obj):
     return from_numpy(cls, _fields(obj))
+
+
+def test_art_sweep_fn_matches_jax():
+    """The compiled sweep, ``art_sweep_fn`` (the per-env values an input of
+    its graph; on the CPU its static buffers step eagerly), against the same
+    JAX run at ``CHAIN_BOUNDS``, the clock bit-equal; called again with the
+    configs' rows swapped (the same shapes, other values), it gives the
+    eager sweep of the swapped values."""
+    _, tm, per_env, tg, worlds, out_j = _gain_sweep()
+    bipeds = tbiped.BipedParams().expand(3)
+    fn = tsweep.art_sweep_fn(2, tm, tg, **TICK)
+    _assert_sweep_chain(fn(worlds, bipeds, per_env), out_j)
+    swapped = {k: v.flip(0) for k, v in per_env.items()}
+    again = fn(worlds, bipeds, swapped)
+    assert len(fn.graphs) == 1
+    want = tsweep.art_sweep(worlds, bipeds, 2, tm, tg, swapped, **TICK)
+    assert torch.equal(again.sim.q, want.sim.q) and torch.equal(again.sim.qd, want.sim.qd)
 
 
 def _gait(name):
@@ -263,10 +281,16 @@ def test_perturbed_worlds():
     assert torch.equal(w0.sim.q, nominal.sim.q.expand(3, 10))
 
 
-def test_art_sweep_matches_jax_and_single_runs():
-    """3 configs x 2 ticks: ``tests/test_sweep.py``'s slow case at the bench
-    budget and physics, against ``art_sweep_fn`` from the same perturbed
-    worlds, and each row against its config run alone."""
+TICK = dict(n_substeps=5, minv_ll_hold=8)
+
+
+@functools.cache
+def _gain_sweep():
+    """3 configs x 2 ticks (``tests/test_sweep.py``'s slow case at the bench
+    budget and physics): the port's config, per-env values and gait, the
+    perturbed worlds (rows 0 and 1 equal configs on equal worlds), and
+    ``jax.jit(art_sweep_fn)``'s result from the same worlds, once per
+    module (the eager and the compiled sweep use it)."""
     base, jg = jra.art_config_for_speed(0.3, **BENCH)
     jcfgs = [dataclasses.replace(base, kp_hipyaw=k, kd_hipyaw=d)
              for k, d in ((2.4, 0.3), (2.4, 0.3), (0.0, 0.0))]
@@ -274,23 +298,18 @@ def test_art_sweep_matches_jax_and_single_runs():
     tm, per_env = tsweep.stack_configs(tcfgs, device="cpu")
     tg = _port(tcfg.GaitConfig, jg)
     worlds = tsweep.perturbed_worlds(tm, 3, torch.Generator().manual_seed(1), device="cpu")
-    # rows 0 and 1: equal configs on equal worlds
     worlds = dataclasses.replace(worlds, sim=dataclasses.replace(
         worlds.sim, q=worlds.sim.q[[0, 0, 2]]))
-    bipeds = tbiped.BipedParams().expand(3)
-    tick = dict(n_substeps=5, minv_ll_hold=8)
-    out = tsweep.art_sweep(worlds, bipeds, 2, tm, tg, per_env, **tick)
-    q = out.sim.q.numpy()
-    assert np.isfinite(q).all() and out.metrics.falls.shape == (3,)
-    np.testing.assert_array_equal(q[0], q[1])
-    assert not np.allclose(q[0], q[2], atol=1e-5)
-
     jm, axes = jsweep.stack_configs(jcfgs)
     jw = jax.vmap(lambda _: jra.init_art_world(base))(jnp.arange(3))
     jw = dataclasses.replace(jw, sim=dataclasses.replace(
         jw.sim, q=jnp.asarray(worlds.sim.q.numpy())))
-    out_j = jax.jit(jsweep.art_sweep_fn(2, jg, axes, model=jsweep.hector_model(), **tick))(
+    out_j = jax.jit(jsweep.art_sweep_fn(2, jg, axes, model=jsweep.hector_model(), **TICK))(
         jw, jbiped.BipedParams(), jm)
+    return tcfgs, tm, per_env, tg, worlds, out_j
+
+
+def _assert_sweep_chain(out, out_j):
     j, t = _fields(out_j), to_numpy(out)
     for key, tol in CHAIN_BOUNDS.items():
         err = float(np.abs(t["sim"][key] - j["sim"][key]).max())
@@ -298,11 +317,26 @@ def test_art_sweep_matches_jax_and_single_runs():
     np.testing.assert_array_equal(t["sim"]["t"], j["sim"]["t"])
     np.testing.assert_array_equal(t["metrics"]["falls"], j["metrics"]["falls"])
 
+
+def test_art_sweep_matches_jax_and_single_runs():
+    """3 configs x 2 ticks: ``tests/test_sweep.py``'s slow case at the bench
+    budget and physics, against ``art_sweep_fn`` from the same perturbed
+    worlds, and each row against its config run alone."""
+    tcfgs, tm, per_env, tg, worlds, out_j = _gain_sweep()
+    bipeds = tbiped.BipedParams().expand(3)
+    out = tsweep.art_sweep(worlds, bipeds, 2, tm, tg, per_env, **TICK)
+    q = out.sim.q.numpy()
+    assert np.isfinite(q).all() and out.metrics.falls.shape == (3,)
+    np.testing.assert_array_equal(q[0], q[1])
+    assert not np.allclose(q[0], q[2], atol=1e-5)
+    _assert_sweep_chain(out, out_j)
+    t = to_numpy(out)
+
     model = hector_model(device="cpu")
     for i, cfg in enumerate(tcfgs):
         w = worlds.map(lambda v: v[i:i + 1])
         for _ in range(2):
-            w = tra.art_closed_loop_tick(w, cfg, tg, tbiped.BipedParams(), model, **tick)
+            w = tra.art_closed_loop_tick(w, cfg, tg, tbiped.BipedParams(), model, **TICK)
         for key, tol in CHAIN_BOUNDS.items():
             err = float(np.abs(to_numpy(w.sim)[key][0] - t["sim"][key][i]).max())
             assert err < tol, (i, key, err)

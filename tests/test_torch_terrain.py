@@ -23,6 +23,7 @@ Tolerances:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -368,20 +369,31 @@ def _assert_chain(out_t, out_j):
     np.testing.assert_allclose(t["metrics"]["energy"], j["metrics"]["energy"], rtol=1e-3)
 
 
+@functools.cache
+def _terrain_walk():
+    """The JAX and port inputs of the per-env terrain walk and
+    ``jax.jit(batched_art_rollout_terrain_fn)``'s result, once per module
+    (the eager and the compiled port use it): JAX-drawn rough fields
+    (``Terrain.rough_batch``, res 16) on a 2 m grid, so that the feet see
+    slopes, at the bench physics (5 substeps, Minv held all tick)."""
+    n, ticks = 2, 3
+    (jm, jg, jw, jb), port = _walk_setup(n)
+    jt = jcontact.Terrain.rough_batch(jax.random.PRNGKey(1), n, amplitude=0.06, res=16)
+    jt = dataclasses.replace(jt, extent=jnp.full((n,), 2.0, jnp.float32))
+    tt = from_numpy(tcontact.Terrain, _fields(jt))
+    out_j = jax.jit(jra.batched_art_rollout_terrain_fn(
+        ticks, jm, jg, n_substeps=5, minv_ll_hold=8))(jw, jb, jt)
+    return port, tt, out_j
+
+
 def test_terrain_rollout_matches_jax():
     """2 envs x 3 ticks of ``batched_art_rollout_terrain`` against
     ``batched_art_rollout_terrain_fn`` from the same worlds, robots and
     JAX-drawn rough fields (``Terrain.rough_batch``, res 16), at the bench
     physics (5 substeps, Minv held all tick)."""
     n, ticks = 2, 3
-    (jm, jg, jw, jb), (tm, tg, tw, tb) = _walk_setup(n)
-    jt = jcontact.Terrain.rough_batch(jax.random.PRNGKey(1), n, amplitude=0.06, res=16)
-    # 8 m over 15 cells: shrink the grid so that the feet see slopes
-    jt = dataclasses.replace(jt, extent=jnp.full((n,), 2.0, jnp.float32))
-    tt = from_numpy(tcontact.Terrain, _fields(jt))
+    (tm, tg, tw, tb), tt, out_j = _terrain_walk()
     assert tt.heights.shape == (n, 16, 16) and tt.extent == 2.0
-    out_j = jax.jit(jra.batched_art_rollout_terrain_fn(
-        ticks, jm, jg, n_substeps=5, minv_ll_hold=8))(jw, jb, jt)
     qp_before = (substep_kernel.fused_substeps.launches, tick_kernel.fused_tick.launches)
     out_t = tra.batched_art_rollout_terrain(tw, tb, tt, ticks, tm, tg, n_substeps=5,
                                             minv_ll_hold=8)
@@ -389,6 +401,18 @@ def test_terrain_rollout_matches_jax():
     _assert_chain(out_t, out_j)
     flat = tra.batched_art_rollout(tw, tb, ticks, tm, tg, n_substeps=5, minv_ll_hold=8)
     assert float((out_t.sim.q - flat.sim.q).abs().max()) > 1e-3  # the fields were felt
+
+
+def test_terrain_fn_matches_jax():
+    """The compiled per-env terrain walk, ``batched_art_rollout_terrain_fn``
+    (the fields an input of its graph; on the CPU its static buffers step
+    eagerly), against the same JAX run; it also refuses fields without the
+    worlds' env axis."""
+    (tm, tg, tw, tb), tt, out_j = _terrain_walk()
+    fn = tra.batched_art_rollout_terrain_fn(3, tm, tg, n_substeps=5, minv_ll_hold=8)
+    _assert_chain(fn(tw, tb, tt), out_j)
+    with pytest.raises(ValueError, match="env axis"):
+        fn(tw, tb, tcontact.Terrain.flat(n=3, device="cpu"))
 
 
 def test_shared_ramp_single_env_matches_art_rollout_fn():
