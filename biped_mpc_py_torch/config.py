@@ -118,11 +118,12 @@ class MpcConfig:
     admm_sigma: float = 1e-6
     admm_alpha: float = 1.6
     kinv_ns_iters: int = 14
-    # The three bf16 knobs below exist so that configs carry across from
-    # the JAX package, where they buy cheaper TPU matrix-unit passes
-    # (ops/qp.py:387-400). The port computes in f32 whatever they say: a
-    # reduced-precision path gets added only once it is measured on the
-    # GPU.
+    # The JAX package's three bf16 knobs (ops/qp.py:387-500, 574-590), run
+    # as there, one value per launch: the first kinv_bf16_iters Newton-Schulz
+    # steps of each K^-1 from bf16 operands (on the card one bf16 mma.sync
+    # product per tile, csrc/qp_admm.cu), the ADMM steps' K^-1 product from
+    # bf16 K^-1 and right-hand side, the Ruiz norms of |P| in bf16; f32
+    # accumulation throughout, the polish's K^-1 product in f32.
     kinv_bf16_iters: int = 0
     admm_bf16_matvec: bool = False
     ruiz_bf16_norms: bool = False
@@ -166,8 +167,9 @@ def default_mpc_config(**overrides) -> MpcConfig:
 
 def fast_mpc_config(**overrides) -> MpcConfig:
     """The benched solver budget: 40 ADMM iterations, 1 rho phase, no
-    polish, 10 Newton-Schulz steps (``config.py:507``). The bf16 knobs are
-    set as in the JAX package and ignored by the port (f32 throughout)."""
+    polish, 10 Newton-Schulz steps (``config.py:507``), and the three bf16
+    knobs on as in the JAX package: 8 bf16 NS steps, the bf16 K^-1 product
+    in the ADMM steps, the bf16 Ruiz norms."""
     return dataclasses.replace(
         MpcConfig(), n_admm_iters=40, admm_rho_phases=1, admm_polish=False,
         kinv_ns_iters=10, kinv_bf16_iters=8, admm_bf16_matvec=True,

@@ -11,6 +11,14 @@
 //   optional polish: rho_pol = 1e4 on the detected active rows, a second
 //   NS inverse, 3 augmented-Lagrangian steps, exact-penalty merit accept.
 //
+// Two bf16 knobs of the JAX package's solver (MpcConfig.kinv_bf16_iters and
+// admm_bf16_matvec, one value per launch) change what is computed, as in its
+// ops/qp.py::solve_qp: bf16_iters > 0 forms both products of the first
+// bf16_iters Newton-Schulz steps of every inverse from bf16 operands (rounded
+// to nearest even) with f32 accumulation; bf16_matvec rounds K^-1 (once per
+// rho phase) and each ADMM step's right-hand side to bf16 before the
+// f32-accumulated product. The polish's K^-1 product stays f32.
+//
 // rho, sigma and alpha are one value per launch, or one per env (a config
 // sweep gives each env its own ADMM numerics): a non-null per-env pointer
 // replaces the scalar argument, and each CTA reads its env's three floats
@@ -21,15 +29,17 @@
 // The algorithm is that of the plain version fused_qp_solve_reference in
 // ops/cuda/qp_kernel.py (the scaled core of ops/qp.py::solve_qp in the JAX
 // package); the two differ in f32 summation order, and the Newton-Schulz
-// products here run on the tensor cores in split TF32 (below) where the
-// plain version's are f32.
+// products here run on the tensor cores (below): the bf16 steps in one bf16
+// product, the others in split TF32 where the plain version's are f32.
 //
 // What bounds it on this card: the Newton-Schulz products. Each NS step is
 // two dense 120x120x120 products, 2 * 2 * 120^3 = 6.9 MFLOP, after a first
 // step that is elementwise (X0 is diagonal). At the bench budget (1 phase,
 // NS 10, no polish) that is 62 MFLOP per env per tick; at the default
 // budget (3 phases + polish, NS 14: 4 inverses) 359 MFLOP. The ADMM
-// iterations add ~0.04 MFLOP each: short, latency-bound passes.
+// iterations add ~0.04 MFLOP each: short, latency-bound passes. At the
+// JAX bench budget (bf16_iters 8) steps 2-8 of the 10 are one bf16 product
+// each, steps 9-10 the 3xTF32 split with lo*lo.
 //
 // What the design does about it:
 //  - One CTA of 256 threads (8 warps) per env. K, X and one scratch matrix
@@ -53,12 +63,27 @@
 //        0.1 N of the f32 plain version, one more than the noise floor's
 //        rule allows (chip_smoke.py::phase_kernel).
 //    Both choices are emulated in tests/test_torch_qp_tf32.py. No product
-//    runs in 1xTF32, bf16 or fp16. mma.sync with TF32 operands runs far
-//    below the tensor cores' TF32 peak (chip_smoke.py prints the rate it
-//    reaches over the time the NS products add; PERF.md keeps it), so these
-//    products set the kernel's time; wgmma would need the B operand's hi
-//    and lo planes in shared memory, which does not hold them beside K, X
-//    and T.
+//    runs in 1xTF32 or fp16. mma.sync with TF32 operands runs far below the
+//    tensor cores' TF32 peak (chip_smoke.py prints the rate it reaches over
+//    the time the NS products add; PERF.md keeps it), so these products set
+//    the kernel's time; wgmma would need the B operand's hi and lo planes in
+//    shared memory, which does not hold them beside K, X and T.
+//  - The bf16 steps (the first bf16_iters, when the caller asks for them):
+//    the first step stays elementwise, with Khat, 1/||Khat|| and
+//    T = 2I - Khat X0 rounded to bf16 where the plain version rounds them
+//    (its products are then exact). Steps 2..bf16_iters are one mma.sync
+//    m16n8k16 with bf16 operands per tile and one f32 accumulator, the
+//    operands rounded to nearest even (cvt.rn, not the TF32 split's ties
+//    away) as the fragments load from the f32 tiles: an A register is a
+//    float2 of two neighbouring k of one row (conflict-free at stride 120),
+//    a B register two rows 120 floats apart (2-way bank conflicts: rows
+//    2t and 2t + 1 land on the banks of rows 2t + 4 and 2t + 5). No bf16
+//    copy of a plane is kept: 28.8 KB more does not fit beside the ~203 KB.
+//    k runs in 8 steps of 16 over 128 columns; columns and rows from n on
+//    are zero fragments (at n = 120, columns 120..127 would read the next
+//    row). The tensor cores truncate this accumulation too, as the TPU's
+//    MXU rounds its bf16 passes; the f32-accurate steps after them correct
+//    it (tests/test_torch_qp_bf16.py emulates the scheme).
 //  - The 8 warps tile the 128-row padded product 2 x 4: warp (r, c) owns
 //    rows 64r..64r+63 (4 m-tiles of 16; rows 120..127 are zero fragments,
 //    not storage) and n-tiles 4c..4c+3 of the 15 (2 x 64 accumulators a
@@ -76,7 +101,10 @@
 //    then half a warp per horizon step that sums the halves, updates x, z,
 //    y for the step's variables and rows, and forms the step's rhs for the
 //    next iteration from them (no shuffle reductions, only __syncwarp). The
-//    polish's augmented-Lagrangian steps use the same two passes.
+//    polish's augmented-Lagrangian steps use the same two passes. With
+//    bf16_matvec each of the 60 floats is rounded to bf16 as it moves into
+//    registers after a rho phase's inverse, and each rhs entry as it is
+//    formed; the products of bf16 values are exact, the sums f32.
 //  - A is kept as its h per-step blocks, never as the dense block-diagonal
 //    (the TPU layout); P is read from global memory (through L2) only to
 //    build K and for the rho re-pick and merit products, as float4 loads
@@ -84,6 +112,7 @@
 //    latency).
 //  - All reductions (residual maxima, merit sums) stay inside the CTA.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -165,6 +194,28 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) 
   lo = tf32_rna(v - __uint_as_float(hi));
 }
 
+// v rounded to bf16 (to nearest, ties to even), as an f32 value.
+__device__ __forceinline__ float bf16_rn(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Two f32 rounded to bf16 (to nearest even) in one mma operand register:
+// lo in the low 16 bits (the lower k), hi in the high.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d += a b for one 16x8x16 tile with bf16 operands (a: 16x16 row-major,
+// b: 16x8 column-major), f32 accumulation.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // d += a b for one 16x8x8 tile (a: 16x8 row-major, b: 8x8 column-major).
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -174,13 +225,17 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// How matmul forms its products: bf16 operands (one product a tile), split
+// TF32 (three), split TF32 with lo*lo (four).
+enum Prec { kBf16, kTf32x3, kTf32x4 };
+
 // C = A B (kTwoMinus: C = 2I - A B) for n x n matrices in shared memory with
-// row stride kLd, on the tensor cores in split TF32 (kFour: with the lo*lo
-// product); entries beyond n are zero on input. C may alias A or B: every
-// tile is finished in registers before any is stored. Ends with a CTA
-// barrier.
-template <bool kTwoMinus, bool kFour>
+// row stride kLd, on the tensor cores as kPrec says; entries beyond n are
+// zero on input. C may alias A or B: every tile is finished in registers
+// before any is stored. Ends with a CTA barrier.
+template <bool kTwoMinus, Prec kPrec>
 __device__ void matmul(const float* A, const float* B, float* C, int n) {
+  constexpr bool kFour = kPrec == kTf32x4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;     // mma fragment row group / column
   const int r0 = (warp >> 2) * 16 * kMT;      // this warp's first row
@@ -193,7 +248,38 @@ __device__ void matmul(const float* A, const float* B, float* C, int n) {
     for (int j = 0; j < kNT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[m][j][e] = cor[m][j][e] = 0.f;
-  if (r0 < n && j0 < nt) {
+  if (kPrec == kBf16 && r0 < n && j0 < nt) {
+    const float2 zero2 = make_float2(0.f, 0.f);
+    for (int kb = 0; kb < n; kb += 16) {  // the same trip count in every lane
+      const int k0 = kb + 2 * t4;           // this thread's k (and k + 1, + 8, + 9)
+      const bool k_lo = k0 < n, k_hi = k0 + 8 < n;  // n is even: k + 1 < n with k
+      uint32_t a[kMT][4];
+#pragma unroll
+      for (int m = 0; m < kMT; ++m) {
+        const int ra = r0 + 16 * m + g, rb = ra + 8;
+        const bool on = r0 + 16 * m < n, on_b = on && rb < kNMax;
+        const float2* a_top = reinterpret_cast<const float2*>(A + ra * kLd + k0);
+        const float2* a_bot = reinterpret_cast<const float2*>(A + rb * kLd + k0);
+        const float2 t0 = on && k_lo ? a_top[0] : zero2, t1 = on && k_hi ? a_top[4] : zero2;
+        const float2 b0 = on_b && k_lo ? a_bot[0] : zero2, b1 = on_b && k_hi ? a_bot[4] : zero2;
+        a[m][0] = pack_bf16(t0.x, t0.y);
+        a[m][1] = pack_bf16(b0.x, b0.y);
+        a[m][2] = pack_bf16(t1.x, t1.y);
+        a[m][3] = pack_bf16(b1.x, b1.y);
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        if (j0 + j < nt) {
+          const float* b = B + k0 * kLd + 8 * (j0 + j) + g;
+          const uint32_t b0 = k_lo ? pack_bf16(b[0], b[kLd]) : 0u;
+          const uint32_t b1 = k_hi ? pack_bf16(b[8 * kLd], b[9 * kLd]) : 0u;
+#pragma unroll
+          for (int m = 0; m < kMT; ++m)
+            if (r0 + 16 * m < n) mma_bf16(acc[m][j], a[m], b0, b1);
+        }
+      }
+    }
+  } else if (kPrec != kBf16 && r0 < n && j0 < nt) {
     for (int kt = 0; kt < nt; ++kt) {
       const int k = kt * 8 + t4;
       uint32_t ah[kMT][4], al[kMT][4];
@@ -237,8 +323,12 @@ __device__ void matmul(const float* A, const float* B, float* C, int n) {
       for (int j = 0; j < kNT; ++j) {
         if (r0 + 16 * m < n && j0 + j < nt) {
           const int c = 8 * (j0 + j) + 2 * t4;
-          float2 top = make_float2(acc[m][j][0] + cor[m][j][0], acc[m][j][1] + cor[m][j][1]);
-          float2 bot = make_float2(acc[m][j][2] + cor[m][j][2], acc[m][j][3] + cor[m][j][3]);
+          float2 top = make_float2(acc[m][j][0], acc[m][j][1]);
+          float2 bot = make_float2(acc[m][j][2], acc[m][j][3]);
+          if (kPrec != kBf16) {
+            top = make_float2(top.x + cor[m][j][0], top.y + cor[m][j][1]);
+            bot = make_float2(bot.x + cor[m][j][2], bot.y + cor[m][j][3]);
+          }
           if (kTwoMinus) {
             top = make_float2((ra == c ? 2.f : 0.f) - top.x, (ra == c + 1 ? 2.f : 0.f) - top.y);
             bot = make_float2((rb == c ? 2.f : 0.f) - bot.x, (rb == c + 1 ? 2.f : 0.f) - bot.y);
@@ -357,10 +447,11 @@ __device__ void build_kkt(const float* __restrict__ P, const float* sA,
 // Xhat = Khat^-1 by Jacobi-preconditioned Newton-Schulz: Khat = S K S with
 // S = diag(1/sqrt(diag K)) (diag clamped at 1e-30), X0 = I/||Khat||_inf,
 // X <- X (2I - Khat X), the first step elementwise, the others on the
-// tensor cores. K is overwritten by Khat, X by Xhat, T is scratch; s keeps
-// S's diagonal (K^-1 = S Xhat S, formed by load_kinv).
+// tensor cores; the first bf16_iters steps from bf16 operands. K is
+// overwritten by Khat, X by Xhat, T is scratch; s keeps S's diagonal
+// (K^-1 = S Xhat S, formed by load_kinv).
 __device__ void ns_inverse(float* K, float* X, float* T, float* s, float* red,
-                           int n, int iters) {
+                           int n, int iters, int bf16_iters) {
   const int tid = threadIdx.x;
   for (int i = tid; i < n; i += kThreads) s[i] = rsqrtf(fmaxf(K[i * kLd + i], 1e-30f));
   __syncthreads();
@@ -379,37 +470,50 @@ __device__ void ns_inverse(float* K, float* X, float* T, float* s, float* red,
   // X0 = inv_nrm I, so the first step is elementwise: Khat X0 = inv_nrm Khat
   // and X1 = inv_nrm T1, each entry one f32 product, rounded as a product
   // with the diagonal X0 rounds (the plain version's arithmetic, exactly;
-  // __fmul_rn keeps the compiler from fusing it into the subtraction).
+  // __fmul_rn keeps the compiler from fusing it into the subtraction). A
+  // bf16 first step rounds Khat, inv_nrm and T1 to bf16 first, as the plain
+  // version's bf16 operands are; its two products are then exact.
+  const bool bf16_first = bf16_iters > 0;
+  const float inv_b = bf16_rn(inv_nrm);
   for (int i = w; i < kNMax; i += kWarps) {
     for (int j = lane; j < kLd; j += 32) {
       const int idx = i * kLd + j;
+      const float two = i == j ? 2.f : 0.f;
       if (i >= n || j >= n) X[idx] = 0.f;
       else if (iters == 0) X[idx] = i == j ? inv_nrm : 0.f;
-      else X[idx] = inv_nrm * ((i == j ? 2.f : 0.f) - __fmul_rn(K[idx], inv_nrm));
+      else if (bf16_first)
+        X[idx] = __fmul_rn(inv_b, bf16_rn(two - __fmul_rn(bf16_rn(K[idx]), inv_b)));
+      else X[idx] = inv_nrm * (two - __fmul_rn(K[idx], inv_nrm));
     }
   }
   __syncthreads();
   for (int it = 1; it < iters; ++it) {
-    if (it < iters - kFourLast) {
-      matmul<true, false>(K, X, T, n);   // T = 2I - Khat X
-      matmul<false, false>(X, T, X, n);  // X = X T, in place
+    if (it < bf16_iters) {
+      matmul<true, kBf16>(K, X, T, n);   // T = 2I - Khat X
+      matmul<false, kBf16>(X, T, X, n);  // X = X T, in place
+    } else if (it < iters - kFourLast) {
+      matmul<true, kTf32x3>(K, X, T, n);
+      matmul<false, kTf32x3>(X, T, X, n);
     } else {
-      matmul<true, true>(K, X, T, n);
-      matmul<false, true>(X, T, X, n);
+      matmul<true, kTf32x4>(K, X, T, n);
+      matmul<false, kTf32x4>(X, T, X, n);
     }
   }
 }
 
 // This thread's half row of K^-1 = S Xhat S into registers: thread t < 240
-// holds row t mod 120, columns 60 (t / 120) .. +59; zero beyond n.
+// holds row t mod 120, columns 60 (t / 120) .. +59; zero beyond n; each
+// rounded to bf16 with `round`.
 __device__ __forceinline__ void load_kinv(const float* X, const float* s,
-                                          float (&kinv)[kHalf], int n) {
+                                          float (&kinv)[kHalf], int n, bool round) {
   const int t = threadIdx.x;
   const int r = t % kNMax, c0 = (t / kNMax) * kHalf;
   const bool on = t < 2 * kNMax && r < n;
 #pragma unroll
-  for (int c = 0; c < kHalf; ++c)
-    kinv[c] = (on && c0 + c < n) ? X[r * kLd + c0 + c] * s[r] * s[c0 + c] : 0.f;
+  for (int c = 0; c < kHalf; ++c) {
+    const float v = (on && c0 + c < n) ? X[r * kLd + c0 + c] * s[r] * s[c0 + c] : 0.f;
+    kinv[c] = round ? bf16_rn(v) : v;
+  }
 }
 
 // part[half][r] = sum over this thread's half row of K^-1 times rhs; the
@@ -447,11 +551,11 @@ enum Pass { kAdmmRhs, kAdmmStep, kPolishRhs, kPolishStep };
 // A *Step pass first takes v = K^-1 rhs from the two half-row sums in part
 // (into v) and updates the step's iterates (ADMM: x, z, y; polish: xp,
 // lam); every pass then forms the step's rhs for the next K^-1 product:
-//   ADMM:   rhs = sigma x - q + A'(rho z - y)
+//   ADMM:   rhs = sigma x - q + A'(rho z - y)   (rounded to bf16 with round_rhs)
 //   polish: rhs = -q + A'(wact (rho_pol bact - lam))
 template <Pass kPass>
 __device__ __forceinline__ void step_pass(const Vecs& V, const float* sA, int h, int ms,
-                                          float sigma, float alpha) {
+                                          float sigma, float alpha, bool round_rhs) {
   constexpr bool kStep = kPass == kAdmmStep || kPass == kPolishStep;
   constexpr bool kPolish = kPass == kPolishRhs || kPass == kPolishStep;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -508,7 +612,8 @@ __device__ __forceinline__ void step_pass(const Vecs& V, const float* sA, int h,
       a3 = fmaf(a[(r + 3) * kNu], w[r + 3], a3);
     }
     for (; r < ms; ++r) a0 = fmaf(a[r * kNu], w[r], a0);
-    V.rhs[i] = (kPolish ? -V.q[i] : sigma * V.x[i] - V.q[i]) + ((a0 + a1) + (a2 + a3));
+    const float r_i = (kPolish ? -V.q[i] : sigma * V.x[i] - V.q[i]) + ((a0 + a1) + (a2 + a3));
+    V.rhs[i] = !kPolish && round_rhs ? bf16_rn(r_i) : r_i;
   }
 }
 
@@ -517,13 +622,13 @@ __device__ __forceinline__ void step_pass(const Vecs& V, const float* sA, int h,
 template <Pass kRhs, Pass kStep>
 __device__ __forceinline__ void kinv_iterations(const float (&kinv)[kHalf], const Vecs& V,
                                 const float* sA, int h, int ms, int n, int iters,
-                                float sigma, float alpha) {
-  step_pass<kRhs>(V, sA, h, ms, sigma, alpha);
+                                float sigma, float alpha, bool round_rhs) {
+  step_pass<kRhs>(V, sA, h, ms, sigma, alpha, round_rhs);
   __syncthreads();
   for (int it = 0; it < iters; ++it) {
     kinv_matvec(kinv, V.rhs, V.part, n);
     __syncthreads();
-    step_pass<kStep>(V, sA, h, ms, sigma, alpha);
+    step_pass<kStep>(V, sA, h, ms, sigma, alpha, round_rhs);
     __syncthreads();
   }
 }
@@ -537,7 +642,8 @@ qp_admm_kernel(const float* __restrict__ P_all, const float* __restrict__ Ah_all
                float* __restrict__ y_out, int h, int ms, float rho, float sigma,
                float alpha, const float* __restrict__ rho_env,
                const float* __restrict__ sigma_env, const float* __restrict__ alpha_env,
-               int n_iters, int n_phases, int ns_iters, int polish) {
+               int n_iters, int n_phases, int ns_iters, int polish, int bf16_iters,
+               int bf16_matvec) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* Km = smem;
@@ -602,10 +708,10 @@ qp_admm_kernel(const float* __restrict__ P_all, const float* __restrict__ Ah_all
       rhov[j] = (u[j] - l[j]) < 1e-6f ? rho * kEqBoost : rho;
     __syncthreads();
     build_kkt(P, sA, rhov, Km, n, ms, sigma);
-    ns_inverse(Km, Xm, Tm, V.s, red, n, ns_iters);
-    load_kinv(Xm, V.s, kinv, n);
+    ns_inverse(Km, Xm, Tm, V.s, red, n, ns_iters, bf16_iters);
+    load_kinv(Xm, V.s, kinv, n, bf16_matvec != 0);
     kinv_iterations<kAdmmRhs, kAdmmStep>(kinv, V, sA, h, ms, n, iters_per_phase, sigma,
-                                         alpha);
+                                         alpha, bf16_matvec != 0);
 
     if (p < n_phases - 1) {
       // OSQP rho re-pick from the scaled primal / dual residual ratio
@@ -651,9 +757,9 @@ qp_admm_kernel(const float* __restrict__ P_all, const float* __restrict__ Ah_all
     }
     __syncthreads();
     build_kkt(P, sA, V.wgt, Km, n, ms, sigma);
-    ns_inverse(Km, Xm, Tm, V.s, red, n, ns_iters);
-    load_kinv(Xm, V.s, kinv, n);
-    kinv_iterations<kPolishRhs, kPolishStep>(kinv, V, sA, h, ms, n, 3, sigma, alpha);
+    ns_inverse(Km, Xm, Tm, V.s, red, n, ns_iters, bf16_iters);
+    load_kinv(Xm, V.s, kinv, n, false);  // the polish's K^-1 product stays f32
+    kinv_iterations<kPolishRhs, kPolishStep>(kinv, V, sA, h, ms, n, 3, sigma, alpha, false);
     // exact-penalty merit 0.5 v'Pv + q'v + 1e4 sum|Av - clip(Av)| of x and xp
     matvec_global(P, x, v, n);
     matvec_global(P, xp, rhs, n);
@@ -695,8 +801,10 @@ qp_admm_kernel(const float* __restrict__ P_all, const float* __restrict__ Ah_all
 
 // Launch on `stream` (a cudaStream_t; 0 = the legacy default stream) of
 // device `device`. rho_env, sigma_env, alpha_env: null, or n_env floats on
-// the device that replace rho, sigma, alpha per env. Returns the cudaError_t of the launch (0 = success); the
-// kernel allocates nothing and does not synchronize.
+// the device that replace rho, sigma, alpha per env. bf16_iters >= 0: NS
+// steps, from the first, with bf16 operands; bf16_matvec: the ADMM steps'
+// K^-1 product from bf16 operands. Returns the cudaError_t of the launch (0
+// = success); the kernel allocates nothing and does not synchronize.
 extern "C" int qp_admm_solve(const float* P, const float* Ah, const float* q,
                              const float* l, const float* u, const float* x0,
                              const float* z0, const float* y0, float* x, float* z,
@@ -704,9 +812,9 @@ extern "C" int qp_admm_solve(const float* P, const float* Ah, const float* q,
                              float sigma, float alpha, const float* rho_env,
                              const float* sigma_env, const float* alpha_env,
                              int n_iters, int n_phases, int ns_iters, int polish,
-                             int device, void* stream) {
+                             int bf16_iters, int bf16_matvec, int device, void* stream) {
   if (h < 1 || h > kHMax || ms < 1 || ms > kMsMax || n_phases < 1 || n_iters < 0 ||
-      ns_iters < 0 || n_env < 0)
+      ns_iters < 0 || bf16_iters < 0 || n_env < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_env == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
@@ -717,7 +825,7 @@ extern "C" int qp_admm_solve(const float* P, const float* Ah, const float* q,
   if (err != cudaSuccess) return static_cast<int>(err);
   qp_admm_kernel<<<n_env, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       P, Ah, q, l, u, x0, z0, y0, x, z, y, h, ms, rho, sigma, alpha, rho_env, sigma_env,
-      alpha_env, n_iters, n_phases, ns_iters, polish);
+      alpha_env, n_iters, n_phases, ns_iters, polish, bf16_iters, bf16_matvec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,6 +16,14 @@ accepted by an exact-penalty merit). The ADMM numerics ``rho``, ``sigma``
 and ``alpha`` are each one float for the batch or an (N,) tensor, one value
 per env (a config sweep's); the kernel reads an env's own values.
 
+Two of the JAX package's bf16 knobs act here, one value per launch:
+``bf16_iters`` (``MpcConfig.kinv_bf16_iters``) forms both products of the
+first ``bf16_iters`` Newton-Schulz steps of every inverse from bf16
+operands with f32 accumulation, and ``bf16_matvec``
+(``MpcConfig.admm_bf16_matvec``) rounds K^-1 (once per rho phase) and each
+ADMM step's right-hand side to bf16 before the f32-accumulated product; the
+polish's K^-1 product stays f32, as in JAX (``qp.py:574-590``, ``:648-657``).
+
 Tensors on the card go to the CUDA kernel in ``csrc/qp_admm.cu``, built with
 ``nvcc`` into ``build/torch_kernels/`` at first use and loaded with ctypes
 (``ops/cuda/build.py``). Tensors on the CPU go to
@@ -46,7 +54,7 @@ def _load():
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         _lib = build.load(SOURCE, {
             "qp_admm_solve": (
-                [ptr] * 11 + [i32] * 3 + [f32] * 3 + [ptr] * 3 + [i32] * 4 + [i32, ptr],
+                [ptr] * 11 + [i32] * 3 + [f32] * 3 + [ptr] * 3 + [i32] * 6 + [i32, ptr],
                 i32,
             ),
             "qp_admm_error_string": ([i32], ctypes.c_char_p),
@@ -99,7 +107,7 @@ def _scalar_and_pointer(v):
 
 
 def fused_qp_solve(P, Ah, q, l, u, x0, z0, y0, *, rho, n_iters, n_phases,
-                   ns_iters, sigma, alpha, polish):
+                   ns_iters, sigma, alpha, polish, bf16_iters=0, bf16_matvec=False):
     """Solve a batch of Ruiz-scaled box QPs -> (x (N,n), z (N,h,m),
     y (N,h,m)), all in the scaled space.
 
@@ -109,6 +117,9 @@ def fused_qp_solve(P, Ah, q, l, u, x0, z0, y0, *, rho, n_iters, n_phases,
       q: (N,n); l, u: (N,h,m) scaled bounds; x0, z0, y0: warm start.
       rho, sigma, alpha: floats, or (N,) f32 tensors on P's device that
         give each env its own (the rho re-pick starts from the env's rho).
+      bf16_iters: Newton-Schulz steps, from the first, whose products take
+        bf16 operands (0: none).
+      bf16_matvec: the ADMM steps' K^-1 product from bf16 operands.
 
     CUDA tensors launch the kernel (and count the launch in
     ``fused_qp_solve.launches``; a CUDA-graph replay of a captured launch adds to it too,
@@ -119,11 +130,13 @@ def fused_qp_solve(P, Ah, q, l, u, x0, z0, y0, *, rho, n_iters, n_phases,
     _check_numerics(P, rho=rho, sigma=sigma, alpha=alpha)
     if n_phases < 1:
         raise ValueError("n_phases must be >= 1")
+    if int(bf16_iters) != bf16_iters or bf16_iters < 0:
+        raise ValueError(f"bf16_iters must be an integer >= 0, got {bf16_iters}")
     if P.device.type == "cpu":
         return fused_qp_solve_reference(
             P, Ah, q, l, u, x0, z0, y0, rho=rho, n_iters=n_iters,
             n_phases=n_phases, ns_iters=ns_iters, sigma=sigma, alpha=alpha,
-            polish=polish,
+            polish=polish, bf16_iters=bf16_iters, bf16_matvec=bf16_matvec,
         )
     if P.device.type != "cuda":
         raise ValueError(f"fused_qp_solve runs on cuda or cpu, not {P.device}")
@@ -147,6 +160,7 @@ def fused_qp_solve(P, Ah, q, l, u, x0, z0, y0, *, rho, n_iters, n_phases,
         *[t.data_ptr() for t in (P, Ah, q, l, u, x0, z0, y0, x, z, y)],
         n_env, h, m, rho_f, sigma_f, alpha_f, rho_p, sigma_p, alpha_p,
         int(n_iters), int(n_phases), int(ns_iters), int(bool(polish)),
+        int(bf16_iters), int(bool(bf16_matvec)),
         P.device.index if P.device.index is not None else torch.cuda.current_device(),
         stream,
     )
@@ -183,8 +197,10 @@ def _apply_At(Ah, w):
 
 
 def fused_qp_solve_reference(P, Ah, q, l, u, x0, z0, y0, *, rho, n_iters,
-                             n_phases, ns_iters, sigma, alpha, polish):
-    """Plain PyTorch version of :func:`fused_qp_solve`, in f32.
+                             n_phases, ns_iters, sigma, alpha, polish, bf16_iters=0,
+                             bf16_matvec=False):
+    """Plain PyTorch version of :func:`fused_qp_solve`, in f32 but for the
+    bf16 operands the two knobs ask for (``ops.qp.mm_bf16``).
 
     The scaled core of the JAX ``solve_qp`` (``qp.py:547-680``) on per-step
     blocks; the CPU tests hold it against the JAX package and the card
@@ -214,12 +230,15 @@ def fused_qp_solve_reference(P, Ah, q, l, u, x0, z0, y0, *, rho, n_iters,
     def kinv_apply(Kinv, r):
         return (Kinv @ r.reshape(n_env, n, 1)).reshape(n_env, h, nu)
 
+    def bf16(t):
+        return t.to(torch.bfloat16).float() if bf16_matvec else t
+
     for p in range(n_phases):
         rho_vec = torch.where(is_eq, rho_s * EQ_RHO_BOOST, rho_s)  # (N,h,m)
-        Kinv = ns_inverse(_kkt(P, Ah, rho_vec, sigma), ns_iters)
+        Kinv = bf16(ns_inverse(_kkt(P, Ah, rho_vec, sigma), ns_iters, bf16_iters))
         for _ in range(iters_per_phase):
             rhs = sigma * x - qs + _apply_At(Ah, rho_vec * z - y)
-            v = kinv_apply(Kinv, rhs)
+            v = kinv_apply(Kinv, bf16(rhs))
             x_new = alpha * v + (1 - alpha) * x
             z_t = alpha * _apply_A(Ah, v) + (1 - alpha) * z
             z_new = torch.clamp(z_t + y / rho_vec, l, u)
@@ -246,7 +265,7 @@ def fused_qp_solve_reference(P, Ah, q, l, u, x0, z0, y0, *, rho, n_iters,
         w_act = ((z <= l + tol) | (z >= u - tol)).to(P.dtype)
         b_act = torch.clamp(z, l, u)
         rho_pol = 1e4
-        Kinv_pol = ns_inverse(_kkt(P, Ah, rho_pol * w_act, sigma), ns_iters)
+        Kinv_pol = ns_inverse(_kkt(P, Ah, rho_pol * w_act, sigma), ns_iters, bf16_iters)
         lam = torch.zeros_like(b_act)
         for _ in range(3):
             rhs = -qs + _apply_At(Ah, w_act * (rho_pol * b_act - lam))

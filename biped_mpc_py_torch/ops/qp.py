@@ -343,13 +343,25 @@ def sparse_qp_matrices(
     return H, f, Aeq, beq, G, h_vec
 
 
-def ns_inverse(K: torch.Tensor, n_iters: int = 14) -> torch.Tensor:
+def mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with bf16 operands (rounded to nearest even), f32
+    accumulation and an f32 result (``qp.py:387``, ``_mm_bf16``). A
+    product of two bf16 values is exact in f32, so the f32 product of the
+    rounded operands is that arithmetic."""
+    return a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()
+
+
+def ns_inverse(K: torch.Tensor, n_iters: int = 14, bf16_iters: int = 0) -> torch.Tensor:
     """SPD inverse by Jacobi-preconditioned Newton-Schulz (``qp.py:403``),
-    batched over leading axes, in f32.
+    batched over leading axes.
 
       Khat = S K S   (S = diag(1/sqrt(diag K)))
       X_0  = I / ||Khat||_inf
       X    <- X (2I - Khat X)
+
+    The first ``min(bf16_iters, n_iters)`` steps form both products by
+    :func:`mm_bf16` (``MpcConfig.kinv_bf16_iters``: the climb, which the
+    f32 steps after it correct), the others in f32.
 
     The diagonal is clamped at 1e-30 before the rsqrt, as the TPU kernel
     does (``qp_kernel.py:62``; the JAX plain path does not clamp): the CUDA
@@ -362,12 +374,14 @@ def ns_inverse(K: torch.Tensor, n_iters: int = 14) -> torch.Tensor:
     nrm = torch.amax(torch.sum(torch.abs(Khat), dim=-1), dim=-1)
     X = eye / nrm[..., None, None]
     two_eye = 2.0 * eye
-    for _ in range(n_iters):
+    for _ in range(min(bf16_iters, n_iters)):
+        X = mm_bf16(X, two_eye - mm_bf16(Khat, X))
+    for _ in range(max(n_iters - bf16_iters, 0)):
         X = X @ (two_eye - Khat @ X)
     return X * s[..., :, None] * s[..., None, :]
 
 
-def ruiz_equilibrate(qp: CondensedQp, n_iters: int = 10):
+def ruiz_equilibrate(qp: CondensedQp, n_iters: int = 10, bf16_norms: bool = False):
     """Modified-Ruiz equilibration (``qp.py:445``) of every env's QP.
 
       P̂ = c D P D,  q̂ = c D q,  Â_k = E_k A_step D_k,  l̂ = E l,  û = E u
@@ -375,12 +389,19 @@ def ruiz_equilibrate(qp: CondensedQp, n_iters: int = 10):
     Returns ``(Ph (N,n,n), qh (N,n), Ah (N,h,m,12), lh, uh (N,h,m),
     D (N,h,12), E (N,h,m), c (N,))``. The row scaling is clamped at 1e6:
     an all-zero row would otherwise compound to f32 inf.
+
+    ``bf16_norms`` (``MpcConfig.ruiz_bf16_norms``) takes the column norms
+    of |P| in bf16, as the JAX package does: |P| and the scaling are
+    rounded to bf16 (nearest even), so is each product, and the column
+    maximum comes back to f32. The |A| norms and the scaled outputs stay
+    f32.
     """
     n_env, h, m = qp.l.shape
     nu = 12
     dtype, device = qp.P.dtype, qp.P.device
     P, q = qp.P, qp.q
-    absP = torch.abs(P)
+    norm_dtype = torch.bfloat16 if bf16_norms else dtype
+    absP = torch.abs(P).to(norm_dtype)
     absA = torch.abs(qp.A_step)[:, None]  # (N,1,m,nu)
     D = torch.ones((n_env, h, nu), dtype=dtype, device=device)
     E = torch.ones((n_env, h, m), dtype=dtype, device=device)
@@ -388,7 +409,7 @@ def ruiz_equilibrate(qp: CondensedQp, n_iters: int = 10):
 
     def col_norm_P(Dg):
         # max_i |P_ij| D_i, per column j
-        return torch.amax(absP * Dg[:, :, None], dim=1)
+        return torch.amax(absP * Dg.to(norm_dtype)[:, :, None], dim=1).to(dtype)
 
     for _ in range(n_iters):
         Dg = D.reshape(n_env, -1)
@@ -414,7 +435,8 @@ def ruiz_equilibrate(qp: CondensedQp, n_iters: int = 10):
 def solver_args(mpc: MpcConfig, per_env: dict | None = None) -> dict:
     """The ADMM budget of ``mpc`` as keyword arguments of
     ``fused_qp_solve``: ``rho``, ``sigma`` and ``alpha`` are floats, or the
-    (N,) ``per_env`` tensors where given."""
+    (N,) ``per_env`` tensors where given; the bf16 knobs of the inverse and
+    of the ADMM matvec are one value per launch (``STATIC_FIELDS``)."""
     def numeric(name):
         v = config_value(mpc, name, per_env)
         return v if isinstance(v, torch.Tensor) else float(v)
@@ -423,7 +445,8 @@ def solver_args(mpc: MpcConfig, per_env: dict | None = None) -> dict:
         rho=numeric("admm_rho"), n_iters=mpc.n_admm_iters,
         n_phases=mpc.admm_rho_phases, ns_iters=mpc.kinv_ns_iters,
         sigma=numeric("admm_sigma"), alpha=numeric("admm_alpha"),
-        polish=bool(mpc.admm_polish),
+        polish=bool(mpc.admm_polish), bf16_iters=int(mpc.kinv_bf16_iters),
+        bf16_matvec=bool(mpc.admm_bf16_matvec),
     )
 
 
@@ -480,9 +503,11 @@ def solve_qp(
     one ``fused_qp_solve`` call, unscaling. The device of the tensors picks
     the core (the CUDA kernel on the card, the plain version on the CPU).
     ``per_env``: (N,) ``admm_rho``, ``admm_sigma``, ``admm_alpha``
-    overriding the config's, one value per env in the one launch.
+    overriding the config's, one value per env in the one launch. The
+    config's three bf16 knobs (``ruiz_bf16_norms``, ``kinv_bf16_iters``,
+    ``admm_bf16_matvec``) run as in the JAX ``solve_qp``.
     """
-    Ph, qh, Ah, lh, uh, D, E, c = ruiz_equilibrate(qp, mpc.ruiz_iters)
+    Ph, qh, Ah, lh, uh, D, E, c = ruiz_equilibrate(qp, mpc.ruiz_iters, mpc.ruiz_bf16_norms)
     x0, z0, y0 = scaled_warm_start(warm, D, E, c, Ph.shape[-1])
     x, z, y = fused_qp_solve(Ph, Ah, qh, lh, uh, x0, z0, y0, **solver_args(mpc, per_env))
     return recover_solution(qp, x, z, y, D, E, c)

@@ -22,6 +22,7 @@ import torch
 
 H100_F32_FLOPS = 67e12     # f32 outside the tensor cores
 H100_TF32_FLOPS = 495e12   # TF32 on the tensor cores
+H100_BF16_FLOPS = 989e12   # bf16 on the tensor cores
 H100_BYTES_PER_S = 3.35e12
 
 
@@ -33,19 +34,22 @@ def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
 
 
 def qp_solve_work(n_env: int, h: int, ms: int, *, n_iters: int, n_phases: int,
-                  ns_iters: int, polish: bool, **_) -> dict:
+                  ns_iters: int, polish: bool, bf16_iters: int = 0, **_) -> dict:
     """Operations and bytes of one ``fused_qp_solve`` of ``n_env`` QPs with
     ``h`` steps of 12 variables and ``ms`` rows per step.
 
     Each inverse: K = P + sigma I + blkdiag(A_k' W_k A_k), its Jacobi
     scaling, the first Newton-Schulz step (elementwise: X0 is diagonal),
     ``ns_iters - 1`` steps of two n x n products, and K^-1 = S X S. Returns
-    ``flops`` (all of it), ``ns_flops`` (the products) and ``bytes`` (P, Ah,
-    q, l, u and the warm start read once; x, z, y written once; f32).
+    ``flops`` (all of it), ``ns_flops`` (the products), ``ns_bf16_flops``
+    (those of them in the first ``bf16_iters`` steps, with bf16 operands)
+    and ``bytes`` (P, Ah, q, l, u and the warm start read once; x, z, y
+    written once; f32).
     """
     n, m = 12 * h, h * ms
     inverses = n_phases + int(bool(polish))
     ns = inverses * max(ns_iters - 1, 0) * 2 * 2 * n ** 3
+    ns_bf16 = inverses * max(min(bf16_iters, ns_iters) - 1, 0) * 2 * 2 * n ** 3
     kkt = 12 * m + 2 * 144 * m + 144 * h + n                 # W A, A'(W A), + P, + sigma
     jacobi = 3 * n * n + 2 * n                               # S K S, its |row| sums, S
     first = (n * n + n) if ns_iters > 0 else 0               # X1 = 2 c I - c^2 Khat
@@ -58,16 +62,20 @@ def qp_solve_work(n_env: int, h: int, ms: int, *, n_iters: int, n_phases: int,
                                       + 2 * (2 * n * n + 2 * 12 * m) + 8 * m + 4 * n)
     per_env = ns + inverses * per_inverse + admm + repick + polish_ops
     floats = n * n + 12 * m + 3 * n + 6 * m
-    return {"flops": n_env * per_env, "ns_flops": n_env * ns, "bytes": 4 * n_env * floats}
+    return {"flops": n_env * per_env, "ns_flops": n_env * ns,
+            "ns_bf16_flops": n_env * ns_bf16, "bytes": 4 * n_env * floats}
 
 
 def qp_solve_bound_ms(work: dict) -> tuple[float, str]:
-    """The QP solve's bound: the larger of its bytes' time and its 3xTF32
-    floor, the least time at f32 accuracy with the Newton-Schulz products on
-    the tensor cores (three TF32 products each) and the rest in f32 outside
+    """The QP solve's bound: the larger of its bytes' time and its
+    tensor-core floor, the least time with the Newton-Schulz products on the
+    tensor cores, those of the bf16 steps in one bf16 pass, the others at
+    f32 accuracy (three TF32 products each), and the rest in f32 outside
     them."""
+    bf16 = work.get("ns_bf16_flops", 0)
     rest = work["flops"] - work["ns_flops"]
-    floor = (3 * work["ns_flops"] / H100_TF32_FLOPS + rest / H100_F32_FLOPS) * 1e3
+    floor = (3 * (work["ns_flops"] - bf16) / H100_TF32_FLOPS + bf16 / H100_BF16_FLOPS
+             + rest / H100_F32_FLOPS) * 1e3
     t_bytes = work["bytes"] / H100_BYTES_PER_S * 1e3
     return (floor, "operations") if floor >= t_bytes else (t_bytes, "bytes")
 

@@ -22,7 +22,10 @@ checkout's ``nvcc`` flags, ``-Xptxas -v`` printed; the two versions take
 turns (base, new, new, base).
 
 ``qp``: the other kernel is launched through its own C function and routed
-into the rollouts as ``chip_smoke.py`` routes its plain-core runs, for
+into the rollouts as ``chip_smoke.py`` routes its plain-core runs (at the
+bench budget as the JAX bench runs it, with the bf16 knobs, when both
+sources take them; else both with the knobs off, labelled ``bench-f32``),
+for
 
 1. the solve at 1024 envs, bench and default budgets, also with
    ``ns_iters=0`` and ``n_iters=0`` (CUDA events over repeated launches);
@@ -82,38 +85,61 @@ CLOCK_PHASES = ("feedback", "control", "forward pass", "contact", "backward pass
 def launcher(source: Path):
     """A solve with ``fused_qp_solve``'s signature that launches the kernel
     built from ``source`` (the ``qp_admm_solve`` C interface, with or
-    without the per-env ``rho_env``, ``sigma_env``, ``alpha_env`` pointers;
-    this launcher passes scalars only)."""
+    without the per-env ``rho_env``, ``sigma_env``, ``alpha_env`` pointers
+    and the ``bf16_iters``, ``bf16_matvec`` knobs; this launcher passes
+    scalars only). A source without the knobs refuses them when set; the
+    solve's ``knobs`` attribute says whether it takes them."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    per_env = [ptr] * 3 if "rho_env" in source.read_text() else []
+    text = source.read_text()
+    per_env = [ptr] * 3 if "rho_env" in text else []
+    knobs = "bf16_iters" in text
     lib = build.load(source, {
-        "qp_admm_solve": ([ptr] * 11 + [i32] * 3 + [f32] * 3 + per_env + [i32] * 4
-                          + [i32, ptr], i32),
+        "qp_admm_solve": ([ptr] * 11 + [i32] * 3 + [f32] * 3 + per_env
+                          + [i32] * (6 if knobs else 4) + [i32, ptr], i32),
     })
 
     def solve(P, Ah, q, l, u, x0, z0, y0, *, rho, n_iters, n_phases, ns_iters, sigma,
-              alpha, polish):
+              alpha, polish, bf16_iters=0, bf16_matvec=False):
+        if not knobs and (bf16_iters or bf16_matvec):
+            raise ValueError(f"{source.name} has no bf16 knobs")
         n_env, h, m, _ = Ah.shape
         x, z, y = torch.empty_like(q), torch.empty_like(l), torch.empty_like(l)
         rc = lib.qp_admm_solve(
             *[t.data_ptr() for t in (P, Ah, q, l, u, x0, z0, y0, x, z, y)],
             n_env, h, m, float(rho), float(sigma), float(alpha), *[None] * len(per_env),
-            int(n_iters), int(n_phases), int(ns_iters), int(bool(polish)), P.device.index,
+            int(n_iters), int(n_phases), int(ns_iters), int(bool(polish)),
+            *([int(bf16_iters), int(bool(bf16_matvec))] if knobs else []), P.device.index,
             torch.cuda.current_stream(P.device).cuda_stream)
         if rc:
             raise RuntimeError(f"{source.name}: qp_admm_solve failed ({rc})")
         return x, z, y
 
+    solve.knobs = knobs
     return solve
+
+
+def _budgets(solvers):
+    """(label, SRB config, articulated config) of the bench budget each
+    version can run: as the JAX bench runs it (the bf16 knobs on) when both
+    take the knobs, else with the knobs off."""
+    import dataclasses
+
+    knobs = all(getattr(s, "knobs", True) for s in solvers.values())
+    srb, (art, gait) = cs._walk_config(), cs._art_config()
+    if knobs:
+        return "bench", srb, (art, gait)
+    return ("bench-f32", dataclasses.replace(srb, **cs.KNOBS_OFF),
+            (dataclasses.replace(art, **cs.KNOBS_OFF), gait))
 
 
 def solve_times(solvers, device, emit):
     from biped_mpc_py_torch import MpcConfig
     from biped_mpc_py_torch.ops import qp as tqp
 
-    for budget, mpc in (("bench", cs._walk_config()), ("default", MpcConfig())):
+    label, srb, _ = _budgets(solvers)
+    for budget, mpc in ((label, srb), ("default", MpcConfig())):
         qp = cs.mpc_qps(torch, mpc, cs.N_ENVS, device, cs.SEED)
-        Ph, qh, Ah, lh, uh, D, E, c = tqp.ruiz_equilibrate(qp, mpc.ruiz_iters)
+        Ph, qh, Ah, lh, uh, D, E, c = tqp.ruiz_equilibrate(qp, mpc.ruiz_iters, mpc.ruiz_bf16_norms)
         args = (Ph, Ah, qh, lh, uh, *tqp.scaled_warm_start(None, D, E, c, Ph.shape[-1]))
         kw = tqp.solver_args(mpc)
         for variant, over in (("full", {}), ("ns_iters=0", {"ns_iters": 0}),
@@ -132,12 +158,12 @@ def srb_rollout(device, emit, version, budget="bench", mpc=None):
          ms_per_tick=sec * 1e3 / cs.N_TICKS, falls=float(w.metrics.falls.sum()))
 
 
-def art_rollout(device, emit, version, entry, what, n_ticks):
+def art_rollout(device, emit, version, entry, what, n_ticks, config=None, budget="bench"):
     """``n_ticks`` of one articulated entry point at 1024 envs after a
-    2-tick warm-up."""
+    2-tick warm-up, at ``config`` (default ``chip_smoke._art_config()``)."""
     from biped_mpc_py_torch.sim.model import hector_model
 
-    mpc, gait = cs._art_config()
+    mpc, gait = config or cs._art_config()
     model = hector_model(device=device)
     w0, bipeds = cs.art_worlds(torch, device)
     entry(w0, bipeds, 2, mpc, gait, model=model)
@@ -146,13 +172,13 @@ def art_rollout(device, emit, version, entry, what, n_ticks):
     w = entry(w0, bipeds, n_ticks, mpc, gait, model=model)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    emit(what=what, budget="bench", version=version,
+    emit(what=what, budget=budget, version=version,
          env_steps_per_s=cs.N_ENVS * n_ticks / sec, ms_per_tick=sec * 1e3 / n_ticks,
          falls=float(w.metrics.falls.sum()), x_min=float(w.sim.pos[:, 0].min()))
 
 
-def profiled_ticks(device, emit, version):
-    events, busy, qp, tick = cs.profile_tick_path(torch, device)
+def profiled_ticks(device, emit, version, config=None):
+    events, busy, qp, tick = cs.profile_tick_path(torch, device, config=config)
     emit(what="profiled tick-path ticks", version=version, device_kernels_per_tick=events,
          device_busy_ms_per_tick=busy, qp_kernel_ms_per_tick=qp,
          tick_kernel_ms_per_tick=tick)
@@ -162,17 +188,18 @@ def rollout_rates(solvers, device, emit):
     from biped_mpc_py_torch import MpcConfig
     from biped_mpc_py_torch.parallel.rollout_art import batched_art_rollout_tick_kernel
 
-    for budget, mpc in (("bench", None), ("default", MpcConfig(x_cmd=cs.WALK_CMD))):
+    label, srb, art = _budgets(solvers)
+    for budget, mpc in ((label, srb), ("default", MpcConfig(x_cmd=cs.WALK_CMD))):
         for version in TURNS:
             with cs.solve_via(solvers[version]):
                 srb_rollout(device, emit, version, budget, mpc)
     for version in TURNS:
         with cs.solve_via(solvers[version]):
             art_rollout(device, emit, version, batched_art_rollout_tick_kernel,
-                        "tick-path rollout", cs.N_ART_TICKS)
+                        "tick-path rollout", cs.N_ART_TICKS, art, label)
     for version in ("base", "new"):
         with cs.solve_via(solvers[version]):
-            profiled_ticks(device, emit, version)
+            profiled_ticks(device, emit, version, art)
 
 
 def run_qp(opts, device, emit):

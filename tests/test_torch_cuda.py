@@ -124,15 +124,32 @@ def _mpc_qps(n, device, mpc, seed=0):
     return build_mpc_qp(x, t, foot, mpc, biped, contact, GaitConfig())
 
 
+def _bench(**over):
+    """The bench budget with the bf16 knobs off (every NS step after the
+    first in 3xTF32, f32 elsewhere)."""
+    return dataclasses.replace(fast_mpc_config(**over), kinv_bf16_iters=0,
+                               admm_bf16_matvec=False, ruiz_bf16_norms=False)
+
+
+def _bench_ns(**over):
+    """The bench budget with the bf16 NS steps and Ruiz norms, the K^-1
+    product in f32 (the kernel's bf16 mma.sync path, held per env)."""
+    return dataclasses.replace(fast_mpc_config(**over), admm_bf16_matvec=False)
+
+
 # The kernel's cases: both budgets, the torsional cone (28 rows per step)
-# and short horizons (n = 60 and 84 variables: the mma tiles' ragged edge).
+# and short horizons (n = 60 and 84 variables: the mma tiles' ragged edge),
+# the bench ones also with the bf16 NS steps (k-steps of 16).
 QP_CASES = {
-    "bench": fast_mpc_config(),
+    "bench": _bench(),
     "default": MpcConfig(),
-    "bench-cone": fast_mpc_config(mu_z=0.03),
+    "bench-cone": _bench(mu_z=0.03),
     "default-cone": MpcConfig(mu_z=0.03),
-    "bench-h5": fast_mpc_config(h=5),
-    "bench-h7-cone": fast_mpc_config(h=7, mu_z=0.03),
+    "bench-h5": _bench(h=5),
+    "bench-h7-cone": _bench(h=7, mu_z=0.03),
+    "bench-bf16ns": _bench_ns(),
+    "bench-bf16ns-h5": _bench_ns(h=5),
+    "bench-bf16ns-h7-cone": _bench_ns(h=7, mu_z=0.03),
 }
 
 
@@ -140,7 +157,7 @@ QP_CASES = {
 def test_kernel_matches_plain(cuda, budget):
     mpc = QP_CASES[budget]
     qp = _mpc_qps(256, cuda, mpc)
-    Ph, qh, Ah, lh, uh, D, E, c = tqp.ruiz_equilibrate(qp, mpc.ruiz_iters)
+    Ph, qh, Ah, lh, uh, D, E, c = tqp.ruiz_equilibrate(qp, mpc.ruiz_iters, mpc.ruiz_bf16_norms)
     x0, z0, y0 = tqp.scaled_warm_start(None, D, E, c, Ph.shape[-1])
     kw = tqp.solver_args(mpc)
     before = tk.fused_qp_solve.launches
@@ -165,10 +182,50 @@ def test_kernel_matches_plain(cuda, budget):
     assert int((du > 0.1).sum()) <= 2 * int((noise > 0.1).sum()) + 5
 
 
+def test_kernel_bf16_knobs_match_plain(cuda):
+    """The bench budget as the JAX bench runs it (``fast_mpc_config()``: the
+    bf16 NS steps, K^-1 product and Ruiz norms), kernel against plain on 64
+    QPs. Every ADMM step rounds its right-hand side to bf16, so a last-bit
+    difference can flip a rounding and move the iterates by a bf16 step
+    (chip_smoke.py::phase_kernel measures that noise floor at 1024 QPs):
+    the kernel's median env agrees within a twentieth of the knobs' own
+    effect (the plain version at knobs-on against knobs-off, tens of N),
+    and every env lies nearer to the plain knobs-on solve than half its
+    effect."""
+    mpc = fast_mpc_config()
+    qp = _mpc_qps(64, cuda, mpc)
+    Ph, qh, Ah, lh, uh, D, E, c = tqp.ruiz_equilibrate(qp, mpc.ruiz_iters, mpc.ruiz_bf16_norms)
+    args = (Ph, Ah, qh, lh, uh, *tqp.scaled_warm_start(None, D, E, c, Ph.shape[-1]))
+    kw = tqp.solver_args(mpc)
+    assert kw["bf16_iters"] == 8 and kw["bf16_matvec"]
+    u_k = tqp.recover_solution(qp, *tk.fused_qp_solve(*args, **kw), D, E, c).controls
+    u_p = tqp.recover_solution(qp, *tk.fused_qp_solve_reference(*args, **kw), D, E, c).controls
+    u_off = tqp.solve_qp(qp, _bench()).controls
+    du = (u_k - u_p).abs().flatten(1).amax(1)
+    effect = (u_off - u_p).abs().flatten(1).amax(1)
+    assert torch.isfinite(u_k).all()
+    assert float(du.median()) < 0.05 * float(effect.median())
+    assert bool((du < 0.5 * effect).all()), (du, effect)
+
+
+def test_kernel_knobs_off_is_the_launch_without_them(cuda):
+    """bf16_iters=0 and bf16_matvec=False launch the f32 kernel: bit-equal
+    to a launch that leaves the knob arguments out."""
+    mpc = _bench()
+    qp = _mpc_qps(64, cuda, mpc)
+    Ph, qh, Ah, lh, uh, D, E, c = tqp.ruiz_equilibrate(qp, mpc.ruiz_iters, mpc.ruiz_bf16_norms)
+    args = (Ph, Ah, qh, lh, uh, *tqp.scaled_warm_start(None, D, E, c, Ph.shape[-1]))
+    kw = tqp.solver_args(mpc)
+    assert kw["bf16_iters"] == 0 and not kw["bf16_matvec"]
+    omitted = {k: v for k, v in kw.items() if not k.startswith("bf16")}
+    for a, b in zip(tk.fused_qp_solve(*args, **kw), tk.fused_qp_solve(*args, **omitted)):
+        assert torch.equal(a, b)
+
+
 def test_kernel_launch_count_per_solve(cuda):
     mpc = fast_mpc_config()
     qp = _mpc_qps(32, cuda, mpc)
-    Ph, qh, Ah, lh, uh, D, E, c = tqp.ruiz_equilibrate(qp, mpc.ruiz_iters)
+    Ph, qh, Ah, lh, uh, D, E, c = tqp.ruiz_equilibrate(qp, mpc.ruiz_iters, mpc.ruiz_bf16_norms)
     args = (Ph, Ah, qh, lh, uh, *tqp.scaled_warm_start(None, D, E, c, Ph.shape[-1]))
     before = tk.fused_qp_solve.launches
     for i in range(3):
@@ -185,7 +242,7 @@ def test_kernel_rejects_misaligned_P(cuda):
     raises before any launch."""
     mpc = fast_mpc_config()
     qp = _mpc_qps(4, cuda, mpc)
-    Ph, qh, Ah, lh, uh, D, E, c = tqp.ruiz_equilibrate(qp, mpc.ruiz_iters)
+    Ph, qh, Ah, lh, uh, D, E, c = tqp.ruiz_equilibrate(qp, mpc.ruiz_iters, mpc.ruiz_bf16_norms)
     shifted = torch.empty(Ph.numel() + 1, device=cuda)[1:].view_as(Ph)
     shifted.copy_(Ph)
     args = (shifted, Ah, qh, lh, uh, *tqp.scaled_warm_start(None, D, E, c, Ph.shape[-1]))
@@ -209,7 +266,7 @@ def test_kernel_per_env_numerics(cuda, budget):
     mpc = QP_CASES[budget]
     n = 256
     qp = _mpc_qps(n, cuda, mpc)
-    Ph, qh, Ah, lh, uh, D, E, c = tqp.ruiz_equilibrate(qp, mpc.ruiz_iters)
+    Ph, qh, Ah, lh, uh, D, E, c = tqp.ruiz_equilibrate(qp, mpc.ruiz_iters, mpc.ruiz_bf16_norms)
     args = (Ph, Ah, qh, lh, uh, *tqp.scaled_warm_start(None, D, E, c, Ph.shape[-1]))
     kw = tqp.solver_args(mpc)
     values, per_env = _numerics_groups(n, cuda)
@@ -239,7 +296,7 @@ def test_kernel_rejects_bad_per_env_numerics(cuda, fault):
     mpc = fast_mpc_config()
     n = 8
     qp = _mpc_qps(n, cuda, mpc)
-    Ph, qh, Ah, lh, uh, D, E, c = tqp.ruiz_equilibrate(qp, mpc.ruiz_iters)
+    Ph, qh, Ah, lh, uh, D, E, c = tqp.ruiz_equilibrate(qp, mpc.ruiz_iters, mpc.ruiz_bf16_norms)
     args = (Ph, Ah, qh, lh, uh, *tqp.scaled_warm_start(None, D, E, c, Ph.shape[-1]))
     bad = {"shape": torch.full((n + 1,), 0.3, device=cuda),
            "dtype": torch.full((n,), 0.3, dtype=torch.float64, device=cuda),
@@ -629,11 +686,14 @@ WALK = (0, 0, 0, 0, 0, 0.55, 0, 0, 0, 0.3, 0, 0)
 
 
 def _shard_setup(mesh):
-    """The smoke's SRB walk at the bench budget: 1024 randomized robots
-    (seed 0) from standing, sharded over ``mesh``."""
+    """The smoke's SRB walk at the bench budget, the bf16 knobs off: 1024
+    randomized robots (seed 0) from standing, sharded over ``mesh``. The
+    two ranks' rows are held against one rank's pointwise, which the bf16
+    K^-1 product's rounding flips would not leave (chip_smoke.py::
+    phase_kernel)."""
     from biped_mpc_py_torch.parallel import sharding
 
-    mpc = fast_mpc_config(x_cmd=WALK)
+    mpc = _bench(x_cmd=WALK)
     bipeds = randomize_params(torch.Generator().manual_seed(0), SHARD_ENVS, device="cuda")
     return (mpc, bipeds, sharding.make_sharded_batch(mpc, SHARD_ENVS, mesh),
             sharding.shard_world(bipeds, mesh))
@@ -706,7 +766,7 @@ def test_sharded_rollout_two_ranks_on_one_card(cuda, two_ranks_on_card):
     1024: x_fb within 1.5e-3 (tests/test_rollout.py:273-281), the
     all-reduced summary equal (height rtol 1e-5)."""
     _, ranks = two_ranks_on_card
-    mpc = fast_mpc_config(x_cmd=WALK)
+    mpc = _bench(x_cmd=WALK)
     bipeds = randomize_params(torch.Generator().manual_seed(0), SHARD_ENVS, device=cuda)
     whole = batched_rollout(batch_worlds(mpc, SHARD_ENVS, device=cuda), bipeds, SHARD_TICKS,
                             mpc, GaitConfig())
@@ -727,7 +787,7 @@ def test_dcp_two_ranks_reshard_into_one_on_card(two_ranks_on_card, one_nccl_rank
     from biped_mpc_py_torch.utils.checkpoint import load_pytree, load_pytree_dcp
 
     dcp_dir, ranks = two_ranks_on_card
-    mpc = fast_mpc_config(x_cmd=WALK)
+    mpc = _bench(x_cmd=WALK)
     like = sharding.make_sharded_batch(mpc, SHARD_ENVS, one_nccl_rank)
     loaded = load_pytree_dcp(dcp_dir, like).map(lambda t: t.to_local())
     rows = _cat_rows([r["mid"] for r in ranks])

@@ -10,7 +10,14 @@ step, whose products are with the diagonal X0, is elementwise f32. Here the same
 split is emulated in plain torch (the rounding by integer arithmetic on the
 f32 bit pattern), and the plain NS inverse and the plain solve run with it
 (``ops.qp.ns_inverse`` monkeypatched) on real MPC QPs, built as
-``tests/test_torch_cuda.py::_mpc_qps`` builds them.
+``tests/test_torch_cuda.py::_mpc_qps`` builds them. The solves here run the
+bench budget with the JAX package's bf16 knobs off (``BENCH_F32``), where
+every NS step after the first is a 3xTF32 one.
+
+The kernel's bf16 NS steps (``MpcConfig.kinv_bf16_iters``: one bf16
+m16n8k16 product per tile, operands rounded to nearest even) are emulated
+by :func:`mm_bf16_mma`; ``tests/test_torch_qp_bf16.py`` holds that hybrid
+against the JAX package's.
 
 The tensor cores' f32 accumulation truncates (rounds toward zero) instead of
 rounding to nearest. :func:`mm_tf32` emulates that at each k-step of 8: the
@@ -38,6 +45,7 @@ both budgets; ``--rn`` accumulates to nearest instead):
     python -m tests.test_torch_qp_tf32 1024 --rn
 """
 
+import dataclasses
 import sys
 
 import pytest
@@ -53,6 +61,9 @@ BOUND_CONTROLS = 0.05  # N, the kernel's bench-budget bound (chip_smoke.BOUND_BE
 INVERSE_FACTOR = 2.0
 MEDIAN_FACTOR = 1.15
 FOUR_LAST = 2  # the kernel's kFourLast: NS steps, at the end, that form lo*lo
+# the bench budget with the bf16 knobs off: every NS step after the first in 3xTF32
+BENCH_F32 = dataclasses.replace(fast_mpc_config(), kinv_bf16_iters=0, admm_bf16_matvec=False,
+                                ruiz_bf16_norms=False)
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -112,6 +123,19 @@ def mm_tf32(a: torch.Tensor, b: torch.Tensor, products: int = 3, accumulators: i
     return big.float() + cor.float()
 
 
+def mm_bf16_mma(a: torch.Tensor, b: torch.Tensor, truncate: bool = True) -> torch.Tensor:
+    """a @ b as the kernel's bf16 steps form it: operands rounded to bf16
+    (to nearest even), one product per tile, the f32 accumulator truncated
+    (``truncate``) or rounded to nearest after each k-step of 16."""
+    ab, bb = (t.to(torch.bfloat16).double() for t in (a, b))
+    if not truncate:
+        return tqp.mm_bf16(a, b)
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float64)
+    for k in range(0, a.shape[-1], 16):
+        acc = rz64(acc + ab[..., k:k + 16] @ bb[..., k:k + 16, :])
+    return acc.float()
+
+
 def mm_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return tf32_rna(a) @ tf32_rna(b)
 
@@ -121,12 +145,14 @@ def mm_f64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.double() @ b.double()).float()
 
 
-def ns_inverse_with(mm, mm_last=None, n_last: int = FOUR_LAST, mm_first=None):
-    """``ops.qp.ns_inverse`` with its two products formed by ``mm``, by
-    ``mm_last`` (if given) in the last ``n_last`` steps and by ``mm_first``
-    (if given) in the first."""
+def ns_inverse_with(mm, mm_last=None, n_last: int = FOUR_LAST, mm_first=None,
+                    mm_bf16=tqp.mm_bf16):
+    """``ops.qp.ns_inverse`` (``ns_inverse(K, n_iters, bf16_iters)``) with
+    its two products formed by ``mm_bf16`` in the first ``bf16_iters``
+    steps, and after them by ``mm``, by ``mm_last`` (if given) in the last
+    ``n_last`` steps and by ``mm_first`` (if given) in the first."""
 
-    def ns_inverse(K, n_iters=14):
+    def ns_inverse(K, n_iters=14, bf16_iters=0):
         n = K.shape[-1]
         eye = torch.eye(n, dtype=K.dtype, device=K.device)
         s = torch.rsqrt(torch.clamp(torch.diagonal(K, dim1=-2, dim2=-1), min=1e-30))
@@ -135,6 +161,7 @@ def ns_inverse_with(mm, mm_last=None, n_last: int = FOUR_LAST, mm_first=None):
         for it in range(n_iters):
             f = mm_last if mm_last is not None and it >= n_iters - n_last else mm
             f = mm_first if mm_first is not None and it == 0 else f
+            f = mm_bf16 if it < bf16_iters else f
             X = f(X, 2.0 * eye - f(Khat, X))
         return X * s[..., :, None] * s[..., None, :]
 
@@ -142,18 +169,21 @@ def ns_inverse_with(mm, mm_last=None, n_last: int = FOUR_LAST, mm_first=None):
 
 
 def kernel_ns_inverse(accumulators: int = 2, truncate: bool = True):
-    """The kernel's NS inverse: the first step in f32 (its products are
-    with the diagonal X0, which the kernel forms elementwise), then 3xTF32
-    products, four in the last steps."""
+    """The kernel's NS inverse: the first ``bf16_iters`` steps by
+    :func:`mm_bf16_mma` (the first of them, with the diagonal X0, exact as
+    the kernel's elementwise step is), else the first step in f32 (its
+    products are with the diagonal X0, which the kernel forms
+    elementwise), then 3xTF32 products, four in the last steps."""
     return ns_inverse_with(
         lambda a, b: mm_tf32(a, b, 3, accumulators, truncate),
-        lambda a, b: mm_tf32(a, b, 4, accumulators, truncate), mm_first=torch.matmul)
+        lambda a, b: mm_tf32(a, b, 4, accumulators, truncate), mm_first=torch.matmul,
+        mm_bf16=lambda a, b: mm_bf16_mma(a, b, truncate))
 
 
 def _kkt_of(mpc, n_qps):
     """The first phase's K matrices of ``n_qps`` real MPC QPs."""
     qp = _mpc_qps(n_qps, "cpu", mpc)
-    Ph, _, Ah, lh, uh, *_ = tqp.ruiz_equilibrate(qp, mpc.ruiz_iters)
+    Ph, _, Ah, lh, uh, *_ = tqp.ruiz_equilibrate(qp, mpc.ruiz_iters, mpc.ruiz_bf16_norms)
     rho = torch.where((uh - lh) < 1e-6, mpc.admm_rho * tk.EQ_RHO_BOOST, mpc.admm_rho)
     return tk._kkt(Ph, Ah, rho, mpc.admm_sigma)
 
@@ -198,7 +228,7 @@ def test_truncating_accumulation():
 
 @pytest.mark.parametrize("cone", [False, True])
 def test_bench_controls_within_kernel_bound(cone, monkeypatch):
-    mpc = fast_mpc_config(mu_z=0.03) if cone else fast_mpc_config()
+    mpc = dataclasses.replace(BENCH_F32, mu_z=0.03) if cone else BENCH_F32
     qp = _mpc_qps(N_QPS, "cpu", mpc)
     base = tqp.solve_qp(qp, mpc)
     du = {}
@@ -216,7 +246,7 @@ def test_bench_controls_within_kernel_bound(cone, monkeypatch):
 
 @pytest.mark.parametrize("budget", ["bench", "default"])
 def test_inverse_close_to_f64(budget):
-    mpc = fast_mpc_config() if budget == "bench" else MpcConfig()
+    mpc = BENCH_F32 if budget == "bench" else MpcConfig()
     d = {k: float(v.max()) for k, v in _distances(
         _kkt_of(mpc, N_QPS // 4), mpc.kinv_ns_iters,
         {"f32": tqp.ns_inverse, "kernel": kernel_ns_inverse(),
@@ -257,7 +287,7 @@ def main(n_qps: int, truncate: bool) -> None:
         "kernel, one accumulator": kernel_ns_inverse(1, truncate),
     }
     saved = tqp.ns_inverse
-    for budget, mpc in (("bench", fast_mpc_config()), ("default", MpcConfig())):
+    for budget, mpc in (("bench", BENCH_F32), ("default", MpcConfig())):
         qp = _mpc_qps(n_qps, "cpu", mpc)
         base = tqp.solve_qp(qp, mpc)
         for name, inv in inverses.items():

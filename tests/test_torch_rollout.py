@@ -130,7 +130,10 @@ def test_bench_budget_walking_statistics():
     w_full = jax.jit(jroll.rollout_fn(250, mpc_full, jcfg.GaitConfig()))(
         jroll.init_world(mpc_full), JBipedParams()
     )
-    mpc = tcfg.fast_mpc_config(x_cmd=X_CMD)
+    # the bf16 knobs off: this is the f32 bench budget's walk (the knobs-on
+    # walk against JAX's: tests/test_torch_qp_bf16.py)
+    mpc = dataclasses.replace(tcfg.fast_mpc_config(x_cmd=X_CMD), kinv_bf16_iters=0,
+                              admm_bf16_matvec=False, ruiz_bf16_norms=False)
     w_fast = troll.batched_rollout(
         troll.init_world(mpc, device="cpu"), BipedParams(), 250, mpc, tcfg.GaitConfig()
     )

@@ -385,7 +385,7 @@ def test_plain_solve_per_env_equal_values_bit_equal(budget):
     a = {k: torch.from_numpy(v) for k, v in _mpc_inputs(n, 8).items()}
     qp = tmpc.build_mpc_qp(a["x"], a["t"], a["foot"], tm, BipedParams().expand(n),
                            tgait.contact_sequence(a["t"], tm, tg), tg)
-    Ph, qh, Ah, lh, uh, D, E, c = tqp.ruiz_equilibrate(qp, tm.ruiz_iters)
+    Ph, qh, Ah, lh, uh, D, E, c = tqp.ruiz_equilibrate(qp, tm.ruiz_iters, tm.ruiz_bf16_norms)
     args = (Ph, Ah, qh, lh, uh, *tqp.scaled_warm_start(None, D, E, c, Ph.shape[-1]))
     kw = tqp.solver_args(tm)
     per_env = {k: torch.full((n,), kw[k]) for k in ("rho", "sigma", "alpha")}
