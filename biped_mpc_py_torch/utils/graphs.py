@@ -41,17 +41,17 @@ from biped_mpc_py_torch.utils.precision import f32_matmul
 from biped_mpc_py_torch.utils.struct import TensorStruct
 
 
-def _leaves(tree) -> list:
+def leaves(tree) -> list:
     """The tensor leaves of a tree, in a fixed order (a dict's by sorted
     key)."""
     if isinstance(tree, torch.Tensor):
         return [tree]
     if isinstance(tree, TensorStruct):
-        return [t for f in dataclasses.fields(tree) for t in _leaves(getattr(tree, f.name))]
+        return [t for f in dataclasses.fields(tree) for t in leaves(getattr(tree, f.name))]
     if isinstance(tree, (tuple, list)):
-        return [t for v in tree for t in _leaves(v)]
+        return [t for v in tree for t in leaves(v)]
     if isinstance(tree, dict):
-        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+        return [t for k in sorted(tree) for t in leaves(tree[k])]
     return []
 
 
@@ -84,16 +84,28 @@ def _signature(tree):
     return tree
 
 
-def _counted():
+def kernel_wrappers():
     """The kernel wrappers whose ``launches`` a replay adds to."""
     from biped_mpc_py_torch.ops.cuda import qp_kernel, substep_kernel, tick_kernel
 
     return (qp_kernel.fused_qp_solve, substep_kernel.fused_substeps, tick_kernel.fused_tick)
 
 
+_WARMUP_STREAMS: dict = {}  # device -> the side stream of every warm-up on it
+
+
+def _warmup_stream(device: torch.device) -> torch.cuda.Stream:
+    """The one side stream of the warm-ups on ``device``. cuBLAS keeps a
+    workspace (32 MiB on Hopper) for each stream it has run on, for the
+    life of the process: a new stream per capture held one more each time."""
+    if device not in _WARMUP_STREAMS:
+        _WARMUP_STREAMS[device] = torch.cuda.Stream(device)
+    return _WARMUP_STREAMS[device]
+
+
 def _load(dst, src) -> None:
     """Copy the leaves of ``src`` into the buffers ``dst`` of the same tree."""
-    for d, s in zip(_leaves(dst), _leaves(src), strict=True):
+    for d, s in zip(leaves(dst), leaves(src), strict=True):
         d.copy_(s)
 
 
@@ -113,8 +125,7 @@ class TickGraph:
     def __init__(self, step, carry, *consts):
         self.step, self.carry, self.consts = step, carry, consts
         self.graph, self.launches, self.pool_mb = None, {}, 0.0
-        leaves = _leaves(carry) + _leaves(consts)
-        self.device = leaves[0].device
+        self.device = (leaves(carry) + leaves(consts))[0].device
         if self.device.type == "cuda":
             self._capture()
 
@@ -124,12 +135,12 @@ class TickGraph:
         that passes an input on into another field) is cloned first, so no
         copy reads a buffer that an earlier copy wrote."""
         out = self.step(self.carry, *self.consts)
-        dst, src = _leaves(self.carry), _leaves(out)
+        dst, src = leaves(self.carry), leaves(out)
         if len(dst) != len(src) or any((d.shape, d.dtype) != (s.shape, s.dtype)
                                        for d, s in zip(dst, src)):
             raise ValueError("step must return a carry of its input's structure, shapes "
                              "and dtypes")
-        owned = {t.untyped_storage().data_ptr() for t in dst + _leaves(self.consts)}
+        owned = {t.untyped_storage().data_ptr() for t in dst + leaves(self.consts)}
         src = [s.clone() if s is not d and s.untyped_storage().data_ptr() in owned else s
                for d, s in zip(dst, src)]
         for d, s in zip(dst, src):
@@ -137,10 +148,10 @@ class TickGraph:
                 d.copy_(s)
 
     def _capture(self) -> None:
-        counted = _counted()
+        counted = kernel_wrappers()
         with torch.no_grad(), f32_matmul():
             scratch = _clone((self.carry, self.consts))
-            side = torch.cuda.Stream(self.device)
+            side = _warmup_stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
                 self.step(scratch[0], *scratch[1])
@@ -175,7 +186,7 @@ class TickGraph:
 
 
 def _key(trees) -> tuple:
-    return (_leaves(trees)[0].device, _signature(trees))
+    return (leaves(trees)[0].device, _signature(trees))
 
 
 def graphed(step, n_steps: int):

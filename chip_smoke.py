@@ -163,6 +163,22 @@ Phases, each printed on its own lines:
    the graph pool's MB; and one ``torch.profiler`` window of 5 graph ticks
    of the tick path (device kernels, busy ms and the idle share, beside
    phase 13's eager figures) and of 2 graph ticks of each plain-chain path.
+23. bench: ``python -m biped_mpc_py_torch.bench``'s ``run`` in process, one
+   run each of SRB, SRB with randomized robots, the tick path, the substep
+   path, the plain chain and randomized robots on 0.03 m rough terrain at
+   1024 envs x 50 ticks, and SRB and the tick path again at 256, 4096 and
+   16,384 envs; then the command itself with no variables in a subprocess
+   (exactly one stdout line, the SRB headline); the three articulated flat
+   paths also with the bf16 knobs off. One ``{"bench": ...}`` line per run;
+   each run's launches (per tick: 1 QP solve; the tick path 1 tick, the
+   substep path 8 substep launches) checked and its states finite; no fall
+   on the SRB runs and on the knobs-off articulated ones; the falls of the
+   knobs-on articulated runs (identical robots: one trajectory, and a draw,
+   ``BENCH_RUNS``' note) and on terrain reported. (b) the three knobs-on
+   articulated paths from 1024 starts 1e-6 rad apart: the envs that fell,
+   at most twice the JAX package's count on the same starts plus 10. (c)
+   the knobs-on substep-path run eagerly, each of its substep launches
+   against the plain version on the same inputs.
 
 Phase 18 runs ``RealtimeLoop``, whose solve and low-level period are two
 CUDA graphs replayed at N = 1 (captured by its ``warmup``); phase 17 the
@@ -2790,6 +2806,191 @@ def phase_graphs(torch, device, eager_profile):
     return result
 
 
+# The bench's art configuration (``art_mpc_config()``, walking in place)
+# runs identical robots, so each articulated run is one trajectory, and at
+# the bf16 knobs a solve is discontinuous in roundoff: whether that
+# one walk falls in 50 ticks is a draw. From the bench's robots started 1e-6
+# rad apart the JAX package's own paths drop some of 1024
+# (``JAX_START_FALLS``), so the falls of the knobs-on identical runs are
+# reported, and the knobs-on paths are held on those starts instead
+# (``phase_bench_starts``). Falls are bounded (to none) on the SRB runs and
+# on the articulated paths with the knobs off, the budget that
+# tests/test_rollout_art.py::test_articulated_bench_budget_accuracy
+# validates; on terrain they are reported.
+BENCH_ART = {"BENCH_MODE": "art"}
+BENCH_KNOBS_OFF = {"BENCH_NS_BF16": "0", "BENCH_BF16_MATVEC": "0", "BENCH_RUIZ_BF16": "0"}
+# (label, BENCH_* variables, falls bounded) at 1024 envs x 50 ticks; SRB and
+# the tick path again at BENCH_SIZES
+BENCH_RUNS = (
+    ("srb", {}, True),
+    ("srb randomized", {"BENCH_RANDOMIZE": "1"}, True),
+    ("tick", BENCH_ART, False),
+    ("substep", BENCH_ART | {"BENCH_ART_BACKEND": "kernel"}, False),
+    ("plain", BENCH_ART | {"BENCH_ART_BACKEND": "xla"}, False),
+    ("terrain randomized", BENCH_ART | {"BENCH_TERRAIN": str(TERRAIN_AMPLITUDE),
+                                        "BENCH_RANDOMIZE": "1"}, False),
+    ("tick knobs off", BENCH_ART | BENCH_KNOBS_OFF, True),
+    ("substep knobs off", BENCH_ART | BENCH_KNOBS_OFF | {"BENCH_ART_BACKEND": "kernel"}, True),
+    ("plain knobs off", BENCH_ART | BENCH_KNOBS_OFF | {"BENCH_ART_BACKEND": "xla"}, True),
+)
+BENCH_SIZES = (256, 4096, 16384)
+# launches per tick by the bench's path
+BENCH_LAUNCHES = {
+    "srb": {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 0},
+    "tick": {"fused_qp_solve": 1, "fused_tick": 1, "fused_substeps": 0},
+    "kernel": {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 8},
+    "plain": {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 0},
+    "terrain": {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 0},
+}
+
+
+def _bench_ok(result, name, falls_bounded):
+    """Raise unless the bench result ``result`` launched its path's kernels
+    once (eight times) a tick, ended finite and, where ``falls_bounded``,
+    fell nowhere."""
+    want = {k: v * result["steps"] for k, v in BENCH_LAUNCHES[result["path"]].items()}
+    checks = result["checks"]
+    if result["launches"] != want:
+        raise AssertionError(f"bench {name}: launches {result['launches']}, want {want}")
+    if not checks["finite"]:
+        raise AssertionError(f"bench {name}: non-finite states")
+    if falls_bounded and checks["falls"] != 0:
+        raise AssertionError(f"bench {name}: {checks['falls']} falls")
+
+
+# The falls of the bench's art configuration at the bf16 knobs in the JAX
+# package, 1024 envs x 50 ticks from the bench's identical robots started
+# with seeded numpy noise of START_NOISE_RAD on the joint angles: python -m
+# tests.jax_bench_accuracy art-starts 1024 (the CPU; the Pallas kernels in
+# interpret mode). By the bench's path name.
+JAX_START_FALLS = {"plain": 0, "kernel": 22, "tick": 27}
+START_NOISE_RAD = 1e-6
+
+
+def phase_bench_starts(torch):
+    """23(b). The knobs-on articulated paths from the bench's robots
+    started ``START_NOISE_RAD`` apart, as ``tests/jax_bench_accuracy.py
+    art-starts`` makes them: each path's envs that fell in ``N_TICKS``, held
+    to twice the JAX package's count on the same starts plus 10 (its binomial
+    spread at ~2% is ~5). -> {path: falls}."""
+    import dataclasses
+    import gc
+
+    from biped_mpc_py_torch import bench
+
+    noise = START_NOISE_RAD * np.random.default_rng(0).normal(size=(N_ENVS, 10))
+    out = {}
+    for path, backend in (("tick", "tick"), ("kernel", "kernel"), ("plain", "xla")):
+        plan = bench.resolve(BENCH_ART | {"BENCH_ART_BACKEND": backend, "BENCH_ENVS": str(N_ENVS),
+                                          "BENCH_STEPS": str(N_TICKS)})
+        fn, (worlds, bipeds) = bench.build(plan)
+        q = worlds.sim.q + torch.from_numpy(noise.astype(np.float32)).to(worlds.sim.q.device)
+        world = fn(dataclasses.replace(worlds, sim=dataclasses.replace(worlds.sim, q=q)), bipeds)
+        checks = bench.walk_checks(world, "art")
+        falls = int((world.metrics.falls > 0).sum())
+        del fn, world
+        gc.collect()
+        torch.cuda.empty_cache()
+        bound = 2 * JAX_START_FALLS[path] + 10
+        log(json.dumps({"bench_starts": path, "envs_fell": falls, "bound": bound,
+                        "jax_envs_fell": JAX_START_FALLS[path]} | checks))
+        if not checks["finite"] or falls > bound:
+            raise AssertionError(f"bench starts {path}: {falls} of {N_ENVS} envs fell (bound "
+                                 f"{bound}), finite {checks['finite']}")
+        out[path] = falls
+    return out
+
+
+def phase_bench_shadow(torch):
+    """23(c). The bench's knobs-on substep-path run (its identical robots,
+    ``N_ENVS`` x ``N_TICKS``) eagerly, each substep launch held against its
+    plain version on the same inputs: ``SUBSTEP_BOUNDS`` times the field's
+    largest value where that passes 1 (a falling robot moves fast). Shows
+    whether the kernel, launch by launch, is where the walk's fall comes
+    from. -> (envs that fell, the largest error by field)."""
+    from biped_mpc_py_torch import bench
+    from biped_mpc_py_torch.ops.cuda import substep_kernel
+    from biped_mpc_py_torch.parallel import rollout_art
+
+    plan = bench.resolve(BENCH_ART | {"BENCH_ART_BACKEND": "kernel", "BENCH_ENVS": str(N_ENVS),
+                                      "BENCH_STEPS": str(N_TICKS)})
+    _, (worlds, bipeds) = bench.build(plan)
+    worst = dict.fromkeys(SUBSTEP_BOUNDS, 0.0)
+    bad = []
+
+    def shadow(model, sim, tau, Minv, dt, n):
+        out = substep_kernel.fused_substeps(model, sim, tau, Minv, dt, n)
+        ref = substep_kernel.fused_substeps_reference(model, sim, tau, Minv, dt, n)
+        for k, bound in SUBSTEP_BOUNDS.items():
+            a, b = getattr(out, k), getattr(ref, k)
+            err = float((a - b).abs().max())
+            worst[k] = max(worst[k], err)
+            if not err <= bound * max(1.0, float(b.abs().max())):
+                bad.append((k, err))
+        return out
+
+    rollout_art.fused_substeps = shadow
+    try:
+        world = rollout_art.batched_art_rollout_kernel(
+            worlds, bipeds, N_TICKS, plan.mpc, plan.gait, n_substeps=plan.n_substeps,
+            minv_ll_hold=plan.minv_ll_hold)
+    finally:
+        rollout_art.fused_substeps = substep_kernel.fused_substeps
+    falls = int((world.metrics.falls > 0).sum())
+    log(json.dumps({"bench_shadow": "kernel", "envs_fell": falls, "max_abs_err": worst,
+                    "past_bound": len(bad)} | bench.walk_checks(world, "art")))
+    if bad:
+        raise AssertionError(f"bench shadow: substep kernel vs plain past the bound {bad[:5]}")
+    return falls, worst
+
+
+def phase_bench(torch, device, name):
+    """23. ``biped_mpc_py_torch.bench``, the port's headline entry point:
+    ``run`` in process over ``BENCH_RUNS`` at 1024 envs x 50 ticks, SRB and
+    the tick path at ``BENCH_SIZES``, then the command in a subprocess.
+    -> {label: result}."""
+    import gc
+    import os
+
+    from biped_mpc_py_torch import bench
+
+    runs = [(label, env | {"BENCH_ENVS": str(N_ENVS)}, bounded)
+            for label, env, bounded in BENCH_RUNS]
+    runs += [(f"{label} {n}", env | {"BENCH_ENVS": str(n)}, bounded)
+             for label, env, bounded in BENCH_RUNS if label in ("srb", "tick")
+             for n in BENCH_SIZES]
+    out = {}
+    for label, env, bounded in runs:
+        result = bench.run(env | {"BENCH_STEPS": str(N_TICKS)})
+        gc.collect()  # the run's graphs and their pools
+        torch.cuda.empty_cache()
+        log(json.dumps({"bench": label} | result))
+        _bench_ok(result, label, bounded)
+        out[label] = result
+    root = os.path.dirname(os.path.abspath(__file__))
+    clean = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "biped_mpc_py_torch.bench"], env=clean,
+                         cwd=root, capture_output=True, text=True, timeout=300)
+    sec = time.perf_counter() - t0
+    for line in cli.stderr.splitlines()[-4:]:
+        log(f"[bench] cli stderr: {line}")
+    lines = cli.stdout.splitlines()
+    if cli.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"bench cli: exit {cli.returncode}, stdout {cli.stdout!r}")
+    result = json.loads(lines[0])
+    log(json.dumps({"bench": "cli", "wall_s": sec} | result))
+    want = {"metric": bench.METRIC, "path": "srb", "envs": N_ENVS, "steps": N_TICKS,
+            "device": name}
+    if {k: result.get(k) for k in want} != want:
+        raise AssertionError(f"bench cli: {result}, want {want}")
+    _bench_ok(result, "cli", True)
+    out["cli"] = result
+    out["starts"] = phase_bench_starts(torch)
+    out["shadow"] = phase_bench_shadow(torch)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2824,6 +3025,7 @@ def main() -> int:
         phase_demo(torch, device)
         phase_sharded(torch, device)
         phase_graphs(torch, device, (events, busy_ms, sec_tick * 1e3 / N_ART_TICKS))
+        phase_bench(torch, device, name)
         bounds = {"fused_qp_solve": solve_ms["bench"][2:4],
                   "fused_substeps": bound_substep(torch, device),
                   "fused_tick": bound_tick(torch, device),

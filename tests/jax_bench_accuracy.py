@@ -19,6 +19,23 @@ in the JAX package and in the torch port on the CPU, and prints each
 one's attitude RMS beside the test's bound (1.2x the default budget's
 single walk + 1e-3): the spread of a knobs-on walk over starts that f32
 roundoff could produce. About a minute at 32 starts.
+
+    python -m tests.jax_bench_accuracy art 64
+    python -m tests.jax_bench_accuracy art-starts 1024
+
+The third runs ``bench.py BENCH_MODE=art``'s configuration (its
+``art_mpc_config`` budget, walking in place, 5 substeps, the mass-matrix
+inverse held all tick) with ``randomize_params(PRNGKey(0), n)`` robots for
+50 ticks, the bf16 knobs on and off: the JAX package's plain chain (and,
+at a multiple of 1024 envs, its substep and tick paths, their Pallas
+kernels in interpret mode),
+and the port on the CPU on the same robots (its plain chain, substep path
+and tick path, through ``biped_mpc_py_torch.bench``). It prints each
+run's falls. About a minute at 64 envs. The fourth runs the same with
+the bench's own robots, ``n`` copies of ``BipedParams()``, each started
+from the standing pose with seeded numpy noise of 1e-6 rad on its joint
+angles: how often the bench's one identical-robot walk falls when only
+roundoff moves it. About half an hour at 1024 envs.
 """
 
 import dataclasses
@@ -104,10 +121,67 @@ def starts(n: int, ticks: int = 250) -> None:
               flush=True)
 
 
+def art(n: int, ticks: int = 50, case: str = "randomized") -> None:
+    import torch
+
+    from biped_mpc_py_tpu.models.biped import BipedParams as JBipedParams
+    from biped_mpc_py_tpu.parallel import rollout_art as jra
+    from biped_mpc_py_torch import bench
+    from biped_mpc_py_torch.models.biped import BipedParams
+    from biped_mpc_py_torch.utils.convert import from_numpy
+
+    if case == "randomized":
+        jb = jroll.randomize_params(jax.random.PRNGKey(0), n)
+        tb = from_numpy(BipedParams, dataclasses.asdict(jax.tree.map(np.asarray, jb)),
+                        device="cpu")
+        noise = np.zeros((n, 10), np.float32)
+        robots = f"{n} randomized robots"
+    else:
+        jb = jax.tree.map(lambda x: jnp.broadcast_to(x, (n,) + jnp.shape(x)), JBipedParams())
+        tb = BipedParams().expand(n)
+        noise = (1e-6 * np.random.default_rng(0).normal(size=(n, 10))).astype(np.float32)
+        robots = f"{n} identical robots from starts 1e-6 rad apart"
+    for knobs in (True, False):
+        env = {"BENCH_PLATFORM": "cpu", "BENCH_MODE": "art", "BENCH_ENVS": str(n),
+               "BENCH_STEPS": str(ticks)}
+        if not knobs:
+            env |= {"BENCH_NS_BF16": "0", "BENCH_BF16_MATVEC": "0", "BENCH_RUIZ_BF16": "0"}
+        plan = bench.resolve(env)
+        mpc = jra.art_mpc_config(**{f: getattr(plan.mpc, f) for _, f, _, _ in bench.BUDGET})
+        jw = jax.tree.map(lambda x: jnp.broadcast_to(x, (n,) + jnp.shape(x)),
+                          jra.init_art_world(mpc))
+        jw = jw.replace(sim=jw.sim.replace(q=jw.sim.q + noise))
+        kw = dict(n_substeps=5, minv_ll_hold=8)
+        jfns = {"JAX plain chain": jra.batched_art_rollout_fn(ticks, mpc, jcfg.GaitConfig(), **kw)}
+        if n % 1024 == 0:  # the Pallas kernels' block; interpret mode here
+            jfns["JAX substep path"] = jra.batched_art_rollout_kernel_fn(
+                ticks, mpc, jcfg.GaitConfig(), **kw)
+            jfns["JAX tick path"] = jra.batched_art_rollout_tick_kernel_fn(
+                ticks, mpc, jcfg.GaitConfig(), n_substeps=5)
+        runs = {}
+        for label, f in jfns.items():
+            t0 = time.time()
+            out = jax.jit(f32_precision(f))(jw, jb)
+            runs[label] = (np.asarray(out.metrics.falls), time.time() - t0)
+        for backend in ("xla", "kernel", "tick"):
+            fn, args = bench.build(bench.resolve(env | {"BENCH_ART_BACKEND": backend}))
+            tw = dataclasses.replace(args[0], sim=dataclasses.replace(
+                args[0].sim, q=args[0].sim.q + torch.from_numpy(noise)))
+            t0 = time.time()
+            falls = fn(tw, tb).metrics.falls.numpy()
+            runs[f"port {bench.ART_BACKENDS[backend]} path"] = (falls, time.time() - t0)
+        for label, (falls, secs) in runs.items():
+            print(f"{label}, bf16 knobs {'on' if knobs else 'off'}, {robots} x {ticks} ticks: "
+                  f"{int((falls > 0).sum())} envs fell ({secs:.0f} s)", flush=True)
+
+
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     if len(sys.argv) > 1 and sys.argv[1] == "starts":
         starts(int(sys.argv[2]) if len(sys.argv) > 2 else 32)
+    elif len(sys.argv) > 1 and sys.argv[1] in ("art", "art-starts"):
+        art(int(sys.argv[2]) if len(sys.argv) > 2 else 64,
+            case="randomized" if sys.argv[1] == "art" else "starts")
     else:
         main(int(sys.argv[1]) if len(sys.argv) > 1 else 1024,
              int(sys.argv[2]) if len(sys.argv) > 2 else 50)

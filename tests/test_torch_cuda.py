@@ -858,7 +858,7 @@ def _graph_case(path, device):
 def test_graph_replay_is_bit_equal_to_eager(cuda, path):
     """1024 envs: a replayed ``*_fn`` gives every leaf of the eager loop bit
     for bit, and its call counts the launches its replays made."""
-    from biped_mpc_py_torch.utils.graphs import _leaves
+    from biped_mpc_py_torch.utils.graphs import leaves
 
     k = GRAPH_TICKS[path]
     eager, factory, inputs, per_tick = _graph_case(path, cuda)
@@ -871,7 +871,7 @@ def test_graph_replay_is_bit_equal_to_eager(cuda, path):
     out = fn(*inputs)
     torch.cuda.synchronize()
     assert [a - c for a, c in zip(_counts(), before)] == [k * p for p in per_tick]
-    assert all(torch.equal(x, y) for x, y in zip(_leaves(out), _leaves(want), strict=True))
+    assert all(torch.equal(x, y) for x, y in zip(leaves(out), leaves(want), strict=True))
 
 
 def test_sharded_fns_one_nccl_rank_are_the_eager_loops(one_nccl_rank):
@@ -977,3 +977,29 @@ def test_capture_raises_on_a_host_sync(cuda):
     assert len(calls) == 2  # the warm-up on a scratch copy, then the capture
     assert torch.equal(x, torch.ones(4, device=cuda))
     assert float((x + 1).sum()) == 8.0
+
+
+@pytest.mark.parametrize("env, per_tick", [
+    ({}, {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 0}),
+    ({"BENCH_MODE": "art"}, {"fused_qp_solve": 1, "fused_tick": 1, "fused_substeps": 0}),
+    ({"BENCH_MODE": "art", "BENCH_ART_BACKEND": "kernel"},
+     {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 8}),
+], ids=["srb", "tick", "kernel"])
+def test_bench_runs_on_the_card(cuda, env, per_tick):
+    """``biped_mpc_py_torch.bench`` on the card by default: the card's name,
+    the path's launches a tick in the timed call, finite states, and a
+    repeated run that holds under 1 MiB more afterwards (the kernels'
+    constant buffers of its config objects), where a new warm-up stream
+    per capture held a 32 MiB cuBLAS workspace each."""
+    from biped_mpc_py_torch import bench
+
+    env = env | {"BENCH_ENVS": "64", "BENCH_STEPS": "3"}
+    result = bench.run(env)
+    assert result["device"] == torch.cuda.get_device_name(0)
+    assert result["launches"] == {k: 3 * v for k, v in per_tick.items()}
+    assert result["checks"]["finite"]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    bench.run(env)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - before < 2**20

@@ -53,7 +53,7 @@ from biped_mpc_py_torch.sim.contact import Terrain
 from biped_mpc_py_torch.sim.engine import ArtState
 from biped_mpc_py_torch.sim.model import hector_model
 from biped_mpc_py_torch.utils import device as tdevice
-from biped_mpc_py_torch.utils.graphs import TickGraph, _leaves, graphed
+from biped_mpc_py_torch.utils.graphs import TickGraph, graphed, leaves
 
 N = 4
 CPU = torch.device("cpu")
@@ -124,7 +124,7 @@ TICKS = {"srb": 3, "cmd": 3, "tick": 2, "substep": 2, "plain": 1, "terrain": 1, 
 
 
 def _equal(a, b) -> bool:
-    la, lb = _leaves(a), _leaves(b)
+    la, lb = leaves(a), leaves(b)
     return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
 
 
@@ -132,15 +132,15 @@ def _equal(a, b) -> bool:
 def test_fn_is_bit_equal_to_eager_and_pure(path):
     eager, factory, inputs = _paths()[path]
     k = TICKS[path]
-    before = [t.clone() for t in _leaves(inputs)]
+    before = [t.clone() for t in leaves(inputs)]
     fn = factory(k)
     out = fn(*inputs)
     assert _equal(out, eager(k)), "the fn differs from its eager loop"
     assert _equal(fn(*inputs), out), "a second call differs"
-    assert all(torch.equal(a, b) for a, b in zip(before, _leaves(inputs))), "inputs changed"
+    assert all(torch.equal(a, b) for a, b in zip(before, leaves(inputs))), "inputs changed"
     (graph,) = fn.graphs.values()
-    buffers = {t.untyped_storage().data_ptr() for t in _leaves((graph.carry, graph.consts))}
-    assert not buffers & {t.untyped_storage().data_ptr() for t in _leaves(out)}
+    buffers = {t.untyped_storage().data_ptr() for t in leaves((graph.carry, graph.consts))}
+    assert not buffers & {t.untyped_storage().data_ptr() for t in leaves(out)}
     assert graph.graph is None and graph.launches == {}  # CPU: no capture
 
 
