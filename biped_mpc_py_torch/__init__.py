@@ -68,6 +68,9 @@ from biped_mpc_py_torch.config import (
     fast_mpc_config,
     reference_compat_config,
 )
+from biped_mpc_py_torch.control.controller import control_tick
+from biped_mpc_py_torch.control.gait import gait_for_speed
+from biped_mpc_py_torch.control.mpc import solve_mpc
 from biped_mpc_py_torch.models.biped import (
     HECTOR_LEG_FK,
     HECTOR_LEG_JAC,
@@ -106,7 +109,7 @@ from biped_mpc_py_torch.parallel.sweep import (
     perturbed_worlds,
     stack_configs,
 )
-from biped_mpc_py_torch.ops.qp import sparse_qp_matrices
+from biped_mpc_py_torch.ops.qp import ns_inverse, sparse_qp_matrices
 from biped_mpc_py_torch.runtime.realtime import LoopStats, Plant, RealtimeLoop
 from biped_mpc_py_torch.sim.contact import Terrain
 from biped_mpc_py_torch.sim.mj_driver import run_mujoco_closed_loop
@@ -153,6 +156,10 @@ __all__ = [
     "default_mpc_config",
     "fast_mpc_config",
     "reference_compat_config",
+    "gait_for_speed",
+    "ns_inverse",
+    "solve_mpc",
+    "control_tick",
     "World",
     "batch_worlds",
     "batched_cmd_rollout",

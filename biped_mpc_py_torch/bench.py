@@ -85,7 +85,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import time
 from collections.abc import Mapping
@@ -96,7 +95,7 @@ from biped_mpc_py_torch.config import GaitConfig, MpcConfig
 from biped_mpc_py_torch.models.biped import BipedParams
 from biped_mpc_py_torch.parallel import rollout, rollout_art
 from biped_mpc_py_torch.sim.contact import Terrain
-from biped_mpc_py_torch.utils.device import entry_device
+from biped_mpc_py_torch.utils.device import card_line, entry_device
 from biped_mpc_py_torch.utils.graphs import kernel_wrappers, leaves
 from biped_mpc_py_torch.utils.precision import f32_precision
 
@@ -247,17 +246,6 @@ def _log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def _power_limit() -> str:
-    """The card's name and power limit as ``nvidia-smi`` reads them."""
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True, timeout=60,
-        ).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError, IndexError) as e:
-        return f"not read ({type(e).__name__}: {e})"
-
-
 class FirstCallError(RuntimeError):
     """The first call failed: a kernel's build or launch, or the capture."""
 
@@ -292,7 +280,7 @@ def measure(plan: BenchPlan):
     if device.type == "cuda":
         name = torch.cuda.get_device_name(device)
         peak_mb = torch.cuda.max_memory_allocated(device) / 2**20
-        _log(f"device: {name} | nvidia-smi: {_power_limit()}")
+        _log(f"device: {name} | nvidia-smi: {card_line()}")
     else:
         name, peak_mb = "cpu", None
     result = {

@@ -9,6 +9,8 @@ back to the CPU.
 
 from __future__ import annotations
 
+import subprocess
+
 import numpy as np
 import torch
 
@@ -38,3 +40,16 @@ def host_to_device(values, device: torch.device, dtype=torch.float32) -> torch.T
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` reads them (a card set below its
+    maximum runs slower under load), or why they were not read."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError) as e:
+        return f"not read ({type(e).__name__}: {e})"

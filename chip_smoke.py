@@ -179,6 +179,22 @@ Phases, each printed on its own lines:
    at most twice the JAX package's count on the same starts plus 10. (c)
    the knobs-on substep-path run eagerly, each of its substep launches
    against the plain version on the same inputs.
+24. tools: the stage-timing tools of ``biped_mpc_py_torch/tools/``
+   (``bench_tick_stages``, ``bench_tick_kernel``, ``bench_stages``,
+   ``bench_art_stages``, ``bench_art_probe``, ``bench_cone_kernel``), each
+   one's ``run`` in process at 1024 envs, 25 ticks (or 25 calls captured
+   per stage) and 2 rounds in turns: one ``{"tools": ...}`` line per
+   variant or stage, the tick path's five-line attribution, the time of the
+   phase. Gates: finite states on each base variant, each record's kernel
+   launches per replay (or per stage call) as its tool's ``LAUNCHES``
+   says (``mpc-off``: 0 QP, 1 tick; ``sub1``: 1 tick; the substep path: 1
+   QP, 8 substep), the attribution summing to ``base``, and the cone
+   solve (m = 280) held to its plain version against the floor measured in
+   the same run, the plain solve of the same QPs in float64
+   (``bench_cone_kernel.agreement_faults``: the median env, the envs past
+   0.1 N, the worst objective excess and the worst constraint violation,
+   each within twice the floor's plus a slack). The ablations are
+   timing-only: their falls are reported, not bounded.
 
 Phase 18 runs ``RealtimeLoop``, whose solve and low-level period are two
 CUDA graphs replayed at N = 1 (captured by its ``warmup``); phase 17 the
@@ -430,30 +446,12 @@ def run_rollout(torch, device, n_ticks, mpc=None):
     return out, time.perf_counter() - t0
 
 
-class solve_via:
-    """Route the rollouts' QP solve (the ``fused_qp_solve`` that
-    ``ops/qp.py`` calls) through ``fn`` inside the block."""
-
-    def __init__(self, fn):
-        self.fn = fn
-
-    def __enter__(self):
-        from biped_mpc_py_torch.ops import qp as tqp
-
-        self.saved, tqp.fused_qp_solve = tqp.fused_qp_solve, self.fn
-
-    def __exit__(self, *exc):
-        from biped_mpc_py_torch.ops import qp as tqp
-
-        tqp.fused_qp_solve = self.saved
-
-
 def plain_core():
-    """The rollouts' solve through the plain version on the card (for the
-    comparison runs only)."""
-    from biped_mpc_py_torch.ops.cuda import qp_kernel
+    """Inside the block, the rollouts' QP solve runs through the plain
+    version on the card (for the comparison runs only)."""
+    from biped_mpc_py_torch.tools import _harness
 
-    return solve_via(qp_kernel.fused_qp_solve_reference)
+    return _harness.plain_core()
 
 
 def walk_stats(w):
@@ -2991,6 +2989,62 @@ def phase_bench(torch, device, name):
     return out
 
 
+TOOL_STEPS = 25
+TOOL_REPS = 2
+# each tool's variants whose final world must be finite
+TOOL_BASES = {"bench_tick_stages": ("base",), "bench_tick_kernel": ("tick", "substep"),
+              "bench_art_probe": ("base", "base-knobs-off")}
+
+
+def phase_tools(torch):
+    """24. Each stage-timing tool's ``run`` at ``N_ENVS`` envs,
+    ``TOOL_STEPS`` ticks or calls per stage, ``TOOL_REPS`` rounds in turns;
+    the records printed and gated (the docstring's item 24). -> {tool:
+    records}."""
+    import gc
+
+    from biped_mpc_py_torch.tools import (
+        bench_art_probe,
+        bench_art_stages,
+        bench_cone_kernel,
+        bench_stages,
+        bench_tick_kernel,
+        bench_tick_stages,
+    )
+
+    t0 = time.perf_counter()
+    out = {}
+    for mod in (bench_tick_stages, bench_tick_kernel, bench_stages, bench_art_stages,
+                bench_art_probe, bench_cone_kernel):
+        t_mod = time.perf_counter()
+        records = mod.run(N_ENVS, TOOL_STEPS, TOOL_REPS)
+        gc.collect()  # the tool's graphs and their pools
+        torch.cuda.empty_cache()
+        for r in records:
+            log(json.dumps({"tools": mod.TOOL} | r))
+        by_name = {r["name"]: r for r in records}
+        bad = [(r["name"], r["launches"]) for r in records
+               if "launches" in r and r["launches"] != mod.LAUNCHES[r["name"]]]
+        bad += [(k, "not finite") for k in TOOL_BASES.get(mod.TOOL, ())
+                if not by_name[k]["finite"]]
+        if mod is bench_tick_stages:
+            total = sum(by_name["attribution"]["ms"].values())
+            if abs(total - by_name["base"]["ms"]) > 1e-6 * by_name["base"]["ms"]:
+                bad.append(("attribution", total))
+        if mod is bench_cone_kernel:
+            bad += [("agreement", f) for f in bench_cone_kernel.agreement_faults(
+                by_name["agreement"])]
+        if bad:
+            raise AssertionError(f"tools {mod.TOOL}: {bad}")
+        log(f"[tools] {mod.TOOL}: {len(records)} records in {time.perf_counter() - t_mod:.1f} s")
+        out[mod.TOOL] = records
+    attribution = out["bench_tick_stages"][-1]["ms"]
+    log("[tools] attribution of the tick path's graph tick (ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in attribution.items()))
+    log(f"[tools] phase 24 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3026,6 +3080,7 @@ def main() -> int:
         phase_sharded(torch, device)
         phase_graphs(torch, device, (events, busy_ms, sec_tick * 1e3 / N_ART_TICKS))
         phase_bench(torch, device, name)
+        phase_tools(torch)
         bounds = {"fused_qp_solve": solve_ms["bench"][2:4],
                   "fused_substeps": bound_substep(torch, device),
                   "fused_tick": bound_tick(torch, device),
