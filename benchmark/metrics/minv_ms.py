@@ -1,0 +1,10 @@
+"""Device time of the stage ``art.minv`` (the mass-matrix inverse held all
+tick) in one tick, in ms: the program's marks in its captured tick, read
+after the last tick of the traced run's last call, which runs without
+the profiler (``harness/stages.py``)."""
+
+from benchmark.harness import stages
+
+
+def read(ctx):
+    return stages.stage_ms("art.minv")

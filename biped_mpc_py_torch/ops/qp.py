@@ -27,6 +27,7 @@ from biped_mpc_py_torch.models.biped import BipedParams
 from biped_mpc_py_torch.ops.cuda.qp_kernel import fused_qp_solve
 from biped_mpc_py_torch.ops.linalg3 import mm3
 from biped_mpc_py_torch.ops.rotations import eul2rotm
+from biped_mpc_py_torch.utils.profiling import stage
 from biped_mpc_py_torch.utils.struct import TensorStruct
 
 _BIG = 1e20  # stand-in for +inf in one-sided rows (f32-safe)
@@ -505,9 +506,14 @@ def solve_qp(
     ``per_env``: (N,) ``admm_rho``, ``admm_sigma``, ``admm_alpha``
     overriding the config's, one value per env in the one launch. The
     config's three bf16 knobs (``ruiz_bf16_norms``, ``kinv_bf16_iters``,
-    ``admm_bf16_matvec``) run as in the JAX ``solve_qp``.
+    ``admm_bf16_matvec``) run as in the JAX ``solve_qp``. Its stages
+    (``utils/profiling.py``): ``qp.ruiz`` (scaling and warm start),
+    ``qp.kernel``, ``qp.unscale``.
     """
-    Ph, qh, Ah, lh, uh, D, E, c = ruiz_equilibrate(qp, mpc.ruiz_iters, mpc.ruiz_bf16_norms)
-    x0, z0, y0 = scaled_warm_start(warm, D, E, c, Ph.shape[-1])
-    x, z, y = fused_qp_solve(Ph, Ah, qh, lh, uh, x0, z0, y0, **solver_args(mpc, per_env))
-    return recover_solution(qp, x, z, y, D, E, c)
+    with stage("qp.ruiz"):
+        Ph, qh, Ah, lh, uh, D, E, c = ruiz_equilibrate(qp, mpc.ruiz_iters, mpc.ruiz_bf16_norms)
+        x0, z0, y0 = scaled_warm_start(warm, D, E, c, Ph.shape[-1])
+    with stage("qp.kernel"):
+        x, z, y = fused_qp_solve(Ph, Ah, qh, lh, uh, x0, z0, y0, **solver_args(mpc, per_env))
+    with stage("qp.unscale"):
+        return recover_solution(qp, x, z, y, D, E, c)

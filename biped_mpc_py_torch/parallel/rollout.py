@@ -36,6 +36,7 @@ from biped_mpc_py_torch.utils.device import DEFAULT_DEVICE, entry_device
 from biped_mpc_py_torch.utils.graphs import graphed
 from biped_mpc_py_torch.utils.metrics import RolloutMetrics
 from biped_mpc_py_torch.utils.precision import f32_precision
+from biped_mpc_py_torch.utils.profiling import stage
 from biped_mpc_py_torch.utils.struct import TensorStruct
 
 # fall detection band [m]: outside -> reset (elastic recovery)
@@ -105,18 +106,24 @@ def batched_closed_loop_tick(
 ) -> World:
     """One fused sim+MPC tick for every env (``rollout.py:100``); the QP
     solve is one ``fused_qp_solve`` call for the whole batch. ``x_cmd``
-    ((12,) or (N,12)) overrides ``mpc.x_cmd`` throughout the tick."""
+    ((12,) or (N,12)) overrides ``mpc.x_cmd`` throughout the tick. Its
+    stages (``utils/profiling.py``): ``mpc.build``, the solve's
+    ``qp.ruiz``, ``qp.kernel`` and ``qp.unscale``, ``srb.step``,
+    ``tick.post``."""
     sim = world.sim
-    contact = contact_sequence(sim.t, mpc, gait)
-    qp = build_mpc_qp(
-        sim.x_fb, sim.t, sim.foot, mpc, biped, contact, gait,
-        world.ctrl.cmd_ref, v_int=world.ctrl.v_int, x_cmd=x_cmd,
-    )
+    with stage("mpc.build"):
+        contact = contact_sequence(sim.t, mpc, gait)
+        qp = build_mpc_qp(
+            sim.x_fb, sim.t, sim.foot, mpc, biped, contact, gait,
+            world.ctrl.cmd_ref, v_int=world.ctrl.v_int, x_cmd=x_cmd,
+        )
     sol = solve_qp(qp, mpc, warm=world.ctrl.qp)
-    sim_new = srb_step(sim, sol.controls[:, 0], mpc, gait, biped, x_cmd=x_cmd)
-    ref_next = advance_cmd_ref(world.ctrl.cmd_ref, sim.x_fb, mpc, x_cmd)
-    vi_next = advance_v_int(world.ctrl.v_int, sim.x_fb, mpc, x_cmd)
-    return _finish_tick(sim_new, sol, ref_next, world.metrics, mpc, vi_next, x_cmd)
+    with stage("srb.step"):
+        sim_new = srb_step(sim, sol.controls[:, 0], mpc, gait, biped, x_cmd=x_cmd)
+    with stage("tick.post"):
+        ref_next = advance_cmd_ref(world.ctrl.cmd_ref, sim.x_fb, mpc, x_cmd)
+        vi_next = advance_v_int(world.ctrl.v_int, sim.x_fb, mpc, x_cmd)
+        return _finish_tick(sim_new, sol, ref_next, world.metrics, mpc, vi_next, x_cmd)
 
 
 @f32_precision

@@ -57,10 +57,11 @@ from biped_mpc_py_torch.control.gait import (
     measured_contact,
 )
 from biped_mpc_py_torch.control.lowlevel import low_level_control
-from biped_mpc_py_torch.control.mpc import solve_mpc
+from biped_mpc_py_torch.control.mpc import build_mpc_qp
 from biped_mpc_py_torch.models.biped import BipedParams
 from biped_mpc_py_torch.ops.cuda.substep_kernel import fused_substeps
 from biped_mpc_py_torch.ops.cuda.tick_kernel import fused_tick
+from biped_mpc_py_torch.ops.qp import solve_qp
 from biped_mpc_py_torch.sim.contact import Terrain
 from biped_mpc_py_torch.sim.engine import (
     ArtState,
@@ -73,6 +74,7 @@ from biped_mpc_py_torch.utils.device import DEFAULT_DEVICE, entry_device
 from biped_mpc_py_torch.utils.graphs import graphed
 from biped_mpc_py_torch.utils.metrics import RolloutMetrics
 from biped_mpc_py_torch.utils.precision import f32_precision
+from biped_mpc_py_torch.utils.profiling import stage
 from biped_mpc_py_torch.utils.struct import TensorStruct
 
 FALL_Z_MIN = 0.25
@@ -176,26 +178,29 @@ def _art_control_stage(world: ArtWorld, biped: BipedParams, mpc: MpcConfig,
                        x_cmd: torch.Tensor | None = None,
                        per_env: dict | None = None):
     """The MPC stage of a tick (``rollout_art.py:419``): feedback -> gait
-    clock -> contact schedule -> solve_mpc. Returns (x_fb, t_g, hold,
-    contact, sol). ``x_cmd`` ((12,) or (N,12)) overrides ``mpc.x_cmd``,
-    ``per_env`` the config's other fields (``config.py``)."""
+    clock -> contact schedule -> the MPC's QP -> its solve (``solve_mpc``'s
+    two steps, as stages ``art.feedback``, ``mpc.build`` and the solve's
+    three: ``utils/profiling.py``). Returns (x_fb, t_g, hold, contact,
+    sol). ``x_cmd`` ((12,) or (N,12)) overrides ``mpc.x_cmd``, ``per_env``
+    the config's other fields (``config.py``)."""
     sim = world.sim
-    x_fb, pf_w = feedback_and_soles(model, sim)
-    if gait.contact_clock:
-        down = measured_contact(pf_w, terrain, gait)
-        t_g, hold = advance_gait_clock(
-            world.ctrl.t_gait, world.ctrl.hold_count, down, mpc, gait, per_env
+    with stage("art.feedback"):
+        x_fb, pf_w = feedback_and_soles(model, sim)
+        if gait.contact_clock:
+            down = measured_contact(pf_w, terrain, gait)
+            t_g, hold = advance_gait_clock(
+                world.ctrl.t_gait, world.ctrl.hold_count, down, mpc, gait, per_env
+            )
+        else:
+            t_g, hold = sim.t, world.ctrl.hold_count
+    with stage("mpc.build"):
+        contact = contact_sequence(t_g, mpc, gait, per_env)
+        foot_yaw = x_fb[:, 2:3] + sim.q[:, 0:6:5] if mpc.foot_frame_wrench else None
+        qp = build_mpc_qp(
+            x_fb, t_g, pf_w, mpc, biped, contact, gait, world.ctrl.cmd_ref, foot_yaw,
+            terrain, world.ctrl.v_int, world.ctrl.pitch_ref, x_cmd, per_env,
         )
-    else:
-        t_g, hold = sim.t, world.ctrl.hold_count
-    contact = contact_sequence(t_g, mpc, gait, per_env)
-    foot_yaw = x_fb[:, 2:3] + sim.q[:, 0:6:5] if mpc.foot_frame_wrench else None
-    sol = solve_mpc(
-        x_fb, t_g, pf_w, mpc, biped, contact, warm=world.ctrl.qp, gait=gait,
-        cmd_ref=world.ctrl.cmd_ref, foot_yaw=foot_yaw, terrain=terrain,
-        v_int=world.ctrl.v_int, pitch_ref=world.ctrl.pitch_ref, x_cmd=x_cmd,
-        per_env=per_env,
-    )
+    sol = solve_qp(qp, mpc, world.ctrl.qp, per_env)
     return x_fb, t_g, hold, contact, sol
 
 
@@ -207,29 +212,30 @@ def _art_post_stage(world: ArtWorld, sim_new: ArtState, energy, x_fb, sol,
     (``rollout_art.py:446``). A fallen env restarts standing with a cold
     controller; its clock runs on. ``x_cmd`` ((12,) or (N,12)) overrides
     ``mpc.x_cmd``, the metrics' command included; ``per_env`` the config's
-    other fields."""
-    n, dtype, device = x_fb.shape[0], x_fb.dtype, x_fb.device
-    z = sim_new.pos[:, 2]
-    fell = (z < FALL_Z_MIN) | (z > FALL_Z_MAX)
-    reset = dataclasses.replace(
-        ArtState.standing(n, device=device, dtype=dtype), t=sim_new.t
-    )
-    ctrl = ControllerState(
-        qp=sol,
-        cmd_ref=advance_cmd_ref(world.ctrl.cmd_ref, x_fb, mpc, x_cmd, per_env),
-        v_int=advance_v_int(world.ctrl.v_int, x_fb, mpc, x_cmd, per_env),
-        t_gait=t_g.to(dtype), hold_count=hold,
-        pitch_ref=advance_pitch_ref(world.ctrl.pitch_ref, x_fb, mpc, per_env),
-    )
-    metrics = world.metrics.update(
-        sim_new.torso_state(), mpc.x_cmd if x_cmd is None else x_cmd,
-        sol.controls[:, 0], sol.res_prim, fell.to(dtype), energy=energy,
-    )
-    return ArtWorld(
-        sim=sim_new.where(fell, reset),
-        ctrl=ctrl.where(fell, ControllerState.init(mpc, n, device, dtype, x_cmd, per_env)),
-        metrics=metrics,
-    )
+    other fields. The stage ``tick.post``."""
+    with stage("tick.post"):
+        n, dtype, device = x_fb.shape[0], x_fb.dtype, x_fb.device
+        z = sim_new.pos[:, 2]
+        fell = (z < FALL_Z_MIN) | (z > FALL_Z_MAX)
+        reset = dataclasses.replace(
+            ArtState.standing(n, device=device, dtype=dtype), t=sim_new.t
+        )
+        ctrl = ControllerState(
+            qp=sol,
+            cmd_ref=advance_cmd_ref(world.ctrl.cmd_ref, x_fb, mpc, x_cmd, per_env),
+            v_int=advance_v_int(world.ctrl.v_int, x_fb, mpc, x_cmd, per_env),
+            t_gait=t_g.to(dtype), hold_count=hold,
+            pitch_ref=advance_pitch_ref(world.ctrl.pitch_ref, x_fb, mpc, per_env),
+        )
+        metrics = world.metrics.update(
+            sim_new.torso_state(), mpc.x_cmd if x_cmd is None else x_cmd,
+            sol.controls[:, 0], sol.res_prim, fell.to(dtype), energy=energy,
+        )
+        return ArtWorld(
+            sim=sim_new.where(fell, reset),
+            ctrl=ctrl.where(fell, ControllerState.init(mpc, n, device, dtype, x_cmd, per_env)),
+            metrics=metrics,
+        )
 
 
 def _lowlevel_stage(model, sim, t_ll, contact, u0, world, biped, mpc, gait,
@@ -252,7 +258,9 @@ def _art_tick(world: ArtWorld, biped: BipedParams, mpc: MpcConfig,
     period (``ll_dt`` a float, or (N,) with a per-env ``dt``). The MPC
     stage and the low-level control take their references from
     ``terrain``; the ground under ``physics`` is the caller's. ``x_cmd``
-    and ``per_env`` override the config's fields (``config.py``)."""
+    and ``per_env`` override the config's fields (``config.py``). Every
+    low-level period, its mass-matrix inverses and physics included, is
+    the one stage ``art.lowlevel``."""
     if n_lowlevel % minv_ll_hold:
         raise ValueError(
             f"n_lowlevel {n_lowlevel} is not a multiple of minv_ll_hold {minv_ll_hold}"
@@ -265,18 +273,19 @@ def _art_tick(world: ArtWorld, biped: BipedParams, mpc: MpcConfig,
     sim = world.sim
     t0 = sim.t
     energy = torch.zeros_like(t0)
-    for _ in range(n_lowlevel // minv_ll_hold):
-        # one mass-matrix inverse per group of low-level periods
-        Minv = mass_matrix_inv(model, sim.q)
-        for _ in range(minv_ll_hold):
-            # gait-local low-level clock: the within-tick offset on the
-            # (possibly held) MPC gait time
-            t_ll = sim.t if not gait.contact_clock else t_g + (sim.t - t0)
-            tau = _lowlevel_stage(model, sim, t_ll, contact, u0, world, biped, mpc,
-                                  gait, terrain, x_cmd, per_env)
-            # positive mechanical joint work this period (metrics.energy)
-            energy = energy + torch.sum(torch.clamp(tau * sim.qd, min=0.0), 1) * ll_dt
-            sim = physics(sim, tau, Minv, ll_dt)
+    with stage("art.lowlevel"):
+        for _ in range(n_lowlevel // minv_ll_hold):
+            # one mass-matrix inverse per group of low-level periods
+            Minv = mass_matrix_inv(model, sim.q)
+            for _ in range(minv_ll_hold):
+                # gait-local low-level clock: the within-tick offset on the
+                # (possibly held) MPC gait time
+                t_ll = sim.t if not gait.contact_clock else t_g + (sim.t - t0)
+                tau = _lowlevel_stage(model, sim, t_ll, contact, u0, world, biped, mpc,
+                                      gait, terrain, x_cmd, per_env)
+                # positive mechanical joint work this period (metrics.energy)
+                energy = energy + torch.sum(torch.clamp(tau * sim.qd, min=0.0), 1) * ll_dt
+                sim = physics(sim, tau, Minv, ll_dt)
     return _art_post_stage(world, sim, energy, x_fb, sol, t_g, hold, mpc, x_cmd, per_env)
 
 
@@ -449,15 +458,19 @@ def _tick_kernel_tick(w: ArtWorld, bipeds: BipedParams, mpc: MpcConfig, gait: Ga
                       model: ArticulatedModel, biped: BipedParams, n_lowlevel: int,
                       n_substeps: int) -> ArtWorld:
     """One tick of the tick-kernel path: the MPC stage, one mass-matrix
-    inverse, one ``fused_tick``, the post stage."""
+    inverse, one ``fused_tick``, the post stage (stages ``art.feedback``,
+    ``mpc.build``, ``qp.ruiz``, ``qp.kernel``, ``qp.unscale``,
+    ``art.minv``, ``art.tick_kernel``, ``tick.post``)."""
     x_fb, t_g, hold, contact, sol = _art_control_stage(w, bipeds, mpc, gait, model)
     sim = w.sim
     t0 = t_g if gait.contact_clock else sim.t
-    Minv = mass_matrix_inv(model, sim.q)
-    sim_new, energy = fused_tick(
-        model, biped, mpc, gait, sim, sol.controls[:, 0], contact[:, 0, 0:2], t0,
-        w.ctrl.cmd_ref[:, 2], w.ctrl.v_int, Minv, n_lowlevel, n_substeps,
-    )
+    with stage("art.minv"):
+        Minv = mass_matrix_inv(model, sim.q)
+    with stage("art.tick_kernel"):
+        sim_new, energy = fused_tick(
+            model, biped, mpc, gait, sim, sol.controls[:, 0], contact[:, 0, 0:2], t0,
+            w.ctrl.cmd_ref[:, 2], w.ctrl.v_int, Minv, n_lowlevel, n_substeps,
+        )
     return _art_post_stage(w, sim_new, energy, x_fb, sol, t_g, hold, mpc)
 
 

@@ -44,6 +44,7 @@ from biped_mpc_py_torch.ops.qp import QpSolution
 from biped_mpc_py_torch.utils.device import DEFAULT_DEVICE, entry_device
 from biped_mpc_py_torch.utils.graphs import TickGraph
 from biped_mpc_py_torch.utils.precision import f32_precision
+from biped_mpc_py_torch.utils.profiling import span
 from biped_mpc_py_torch.utils.struct import TensorStruct
 
 
@@ -208,7 +209,14 @@ class RealtimeLoop:
             realtime: bool = True) -> LoopStats:
         """Run ``n_ticks`` MPC periods. ``realtime=False`` does not sleep to
         the deadlines (as fast as possible; the latencies are still
-        recorded)."""
+        recorded). Spans (``utils/profiling.py``; tick ``k``):
+        ``realtime.tick`` from the tick's start to its last torque applied,
+        inside it ``realtime.clock``, ``realtime.read`` (the solve's, then
+        one a period: the plant's read, the wait for the previous copy, the
+        pinned copy), ``realtime.solve`` (the replay), and a period's
+        ``realtime.lowlevel`` (the replay), ``realtime.torques`` (the copy
+        back and the synchronization: the host waits on the device) and
+        ``realtime.apply``; after it ``realtime.sleep`` to the deadline."""
         mpc, gait = self.mpc, self.gait
         ll_dt = mpc.dt / self.n_lowlevel
         solve, lowlevel = self._solve_and_lowlevel()
@@ -219,24 +227,32 @@ class RealtimeLoop:
         for k in range(n_ticks):
             deadline = anchor + (k + 1) * mpc.dt
             tick_start = time.monotonic()
-
-            if gait.contact_clock:
-                # touchdown-sensed re-anchoring from the measured sole
-                # heights (flat ground; a robot wires its foot switches here)
-                pf_host = plant.foot_positions()
-                down = (pf_host[2] < gait.clock_z_tol, pf_host[5] < gait.clock_z_tol)
-                self._t_gait, self._hold = advance_gait_clock_host(
-                    self._t_gait, self._hold, down, mpc, gait
-                )
-                t_used = self._t_gait
-            else:
-                t_used = t_sim
-            self._read(plant, t_used)
-            solve.replay()
-            for j in range(self.n_lowlevel):
-                self._read(plant, t_used + j * ll_dt)
-                lowlevel.replay()
-                plant.apply(self._torques(), ll_dt)
+            with span("realtime.tick", k):
+                with span("realtime.clock"):
+                    if gait.contact_clock:
+                        # touchdown-sensed re-anchoring from the measured sole
+                        # heights (flat ground; a robot wires its foot switches here)
+                        pf_host = plant.foot_positions()
+                        down = (pf_host[2] < gait.clock_z_tol, pf_host[5] < gait.clock_z_tol)
+                        self._t_gait, self._hold = advance_gait_clock_host(
+                            self._t_gait, self._hold, down, mpc, gait
+                        )
+                        t_used = self._t_gait
+                    else:
+                        t_used = t_sim
+                with span("realtime.read"):
+                    self._read(plant, t_used)
+                with span("realtime.solve"):
+                    solve.replay()
+                for j in range(self.n_lowlevel):
+                    with span("realtime.read"):
+                        self._read(plant, t_used + j * ll_dt)
+                    with span("realtime.lowlevel"):
+                        lowlevel.replay()
+                    with span("realtime.torques"):
+                        tau = self._torques()
+                    with span("realtime.apply"):
+                        plant.apply(tau, ll_dt)
 
             latencies.append(time.monotonic() - tick_start)
             t_sim += mpc.dt
@@ -247,7 +263,8 @@ class RealtimeLoop:
                     # re-anchor: one overrun must not become a backlog
                     anchor = now - (k + 1) * mpc.dt
                 else:
-                    time.sleep(deadline - now)
+                    with span("realtime.sleep", k):
+                        time.sleep(deadline - now)
 
         lat = np.asarray(latencies) * 1e3
         return LoopStats(

@@ -34,9 +34,11 @@ the kernels' constant buffers are cached per object for this).
 from __future__ import annotations
 
 import dataclasses
+import gc
 
 import torch
 
+from biped_mpc_py_torch.utils import profiling
 from biped_mpc_py_torch.utils.precision import f32_matmul
 from biped_mpc_py_torch.utils.struct import TensorStruct
 
@@ -120,11 +122,14 @@ class TickGraph:
     memory the capture reserved for the graph's private pool, and
     ``launches`` maps each counted kernel wrapper to its launches per
     replay. Several ``TickGraph`` may share buffers (``RealtimeLoop``'s
-    solve and low-level graphs share their state)."""
+    solve and low-level graphs share their state). ``marks`` holds the
+    timing events that the step's ``profiling.stage`` blocks recorded into
+    the graph (None on the CPU); ``profiling.stage_ms()`` reads them after
+    a replay."""
 
     def __init__(self, step, carry, *consts):
         self.step, self.carry, self.consts = step, carry, consts
-        self.graph, self.launches, self.pool_mb = None, {}, 0.0
+        self.graph, self.launches, self.pool_mb, self.marks = None, {}, 0.0, None
         self.device = (leaves(carry) + leaves(consts))[0].device
         if self.device.type == "cuda":
             self._capture()
@@ -162,15 +167,24 @@ class TickGraph:
             torch.cuda.empty_cache()  # as the capture does first: count its pool alone
             reserved = torch.cuda.memory_reserved(self.device)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                self._write()
+            # no garbage collection inside the capture: a collected cycle that holds a
+            # graph or an event (a dropped RealtimeLoop's graphs hold its bound methods)
+            # would free it there, which CUDA refuses while a stream captures
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph), profiling.marking() as marks:
+                    self._write()
+            finally:
+                if collecting:
+                    gc.enable()
             self.pool_mb = (torch.cuda.memory_reserved(self.device) - reserved) / 2**20
         # the capture recorded these launches; none ran on the card
         for fn, n in zip(counted, before):
             if fn.launches != n:
                 self.launches[fn] = fn.launches - n
                 fn.launches = n
-        self.graph = graph
+        self.graph, self.marks = graph, marks
 
     def replay(self, n: int = 1) -> None:
         """``n`` steps in place (on the CPU, ``n`` eager steps)."""
@@ -178,11 +192,12 @@ class TickGraph:
             with torch.no_grad(), f32_matmul():
                 for _ in range(n):
                     self._write()
-            return
-        for _ in range(n):
-            self.graph.replay()
-        for fn, k in self.launches.items():
-            fn.launches += k * n
+        else:
+            for _ in range(n):
+                self.graph.replay()
+            for fn, k in self.launches.items():
+                fn.launches += k * n
+        profiling.replayed(self.marks)
 
 
 def _key(trees) -> tuple:

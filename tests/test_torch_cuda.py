@@ -78,6 +78,7 @@ capture and runs no eager fallback.
 """
 
 import dataclasses
+import gc
 
 import pytest
 import torch
@@ -956,6 +957,22 @@ def test_realtime_loop_on_graphs_walks_engine_plant(cuda):
     stats = loop.run(plant, 50, realtime=False)
     assert [a - c for a, c in zip(_counts(), before)] == [50, 0, 400]
     assert stats.n_ticks == 50 and plant.z() > 0.4
+
+
+def test_no_garbage_collection_inside_a_capture(cuda):
+    """The warm-up runs with the cyclic collector on, the capture with it
+    off (a collection there may free a graph of a dropped cycle, which
+    invalidates the capture), and it is on again after."""
+    from biped_mpc_py_torch.utils.graphs import graphed
+
+    seen = []
+
+    def step(c):
+        seen.append(gc.isenabled())
+        return c + 1
+
+    graphed(step, 1)(torch.zeros(4, device=cuda))
+    assert seen == [True, False] and gc.isenabled()
 
 
 def test_capture_raises_on_a_host_sync(cuda):

@@ -138,9 +138,9 @@ def test_tick_stages_mpc_off_never_solves(monkeypatch):
     mpc, gait, worlds, bipeds = _tick_inputs()
 
     def refuse(*args, **kwargs):
-        raise AssertionError("solve_mpc called with the MPC layer off")
+        raise AssertionError("solve_qp called with the MPC layer off")
 
-    monkeypatch.setattr(rollout_art, "solve_mpc", refuse)
+    monkeypatch.setattr(rollout_art, "solve_qp", refuse)
     world = bench_tick_stages.make("mpc", 2, mpc, gait, CPU)(worlds, bipeds)
     assert float(world.metrics.falls.sum()) == 0
     _bit_equal(world.ctrl.qp, worlds.ctrl.qp)

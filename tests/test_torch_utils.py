@@ -1,6 +1,6 @@
 """The torch port's utilities against the JAX package: ``utils/logging.py``,
-``utils/profiling.py``, ``utils/checkpoint.py``, ``runtime/native.py``, and
-the demo entry point.
+``utils/checkpoint.py``, ``runtime/native.py``, and the demo entry point
+(``utils/profiling.py``: ``tests/test_torch_tracing.py``).
 
 Tolerances:
 - ``metrics_to_dict`` on metrics carried over from JAX: equal floats (the
@@ -34,7 +34,7 @@ from biped_mpc_py_tpu.utils.metrics import RolloutMetrics as JRolloutMetrics
 from biped_mpc_py_torch.models.biped import BipedParams
 from biped_mpc_py_torch.parallel import rollout_art as tra
 from biped_mpc_py_torch.runtime import native
-from biped_mpc_py_torch.utils import checkpoint, profiling
+from biped_mpc_py_torch.utils import checkpoint
 from biped_mpc_py_torch.utils.convert import from_numpy
 from biped_mpc_py_torch.utils.logging import log_event, metrics_to_dict
 from biped_mpc_py_torch.utils.metrics import RolloutMetrics
@@ -73,17 +73,6 @@ def test_log_event_emits_json(capsys):
     log_event("bench", stream=sys.stdout, value=1.5, tag="x")
     rec = json.loads(capsys.readouterr().out.strip())
     assert rec["event"] == "bench" and rec["value"] == 1.5 and rec["tag"] == "x"
-
-
-def test_time_fn_and_trace(tmp_path):
-    stats = profiling.time_fn(lambda x: x * 2, torch.ones(8), warmup=1, iters=3)
-    assert stats["sec_per_call"] > 0 and stats["calls_per_sec"] > 0
-    with profiling.trace(str(tmp_path)) as d:
-        with profiling.scope("double"):
-            torch.ones(8) * 2
-    trace = json.loads((tmp_path / "trace.json").read_text())
-    assert d == str(tmp_path)
-    assert any(e.get("name") == "double" for e in trace["traceEvents"])
 
 
 def _world(n=2):
