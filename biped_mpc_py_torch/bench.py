@@ -77,7 +77,10 @@ during the capture. ``graph_pool_mb`` is that pool (the ``pool_mb`` of
 the run's ``TickGraph``, 0 on the CPU): the two together are what the
 run holds on the card. ``launches`` is the kernel wrappers' counts in the
 timed call, and ``checks`` the final world's statistics
-(:func:`walk_checks`), reported and not judged.
+(:func:`walk_checks`) and ``nonfinite_resets``, the envs that the timed
+call's post stages reset for a non-finite state
+(``utils/profiling.py::nonfinite_resets``; each is also one of ``falls``),
+reported and not judged.
 """
 
 from __future__ import annotations
@@ -98,6 +101,7 @@ from biped_mpc_py_torch.sim.contact import Terrain
 from biped_mpc_py_torch.utils.device import card_line, entry_device
 from biped_mpc_py_torch.utils.graphs import kernel_wrappers, leaves
 from biped_mpc_py_torch.utils.precision import f32_precision
+from biped_mpc_py_torch.utils.profiling import nonfinite_resets
 
 METRIC = "fused_sim_mpc_env_steps_per_sec_per_chip"
 UNIT = "env-steps/s/chip (25 Hz sim+MPC ticks)"
@@ -266,6 +270,7 @@ def measure(plan: BenchPlan):
     _log(f"capture+first run: {capture_s:.1f}s")
     counted = {f.__name__: f for f in kernel_wrappers()}
     before = {k: f.launches for k, f in counted.items()}
+    resets = nonfinite_resets(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -274,7 +279,7 @@ def measure(plan: BenchPlan):
     elapsed = time.perf_counter() - t0
     launches = {k: f.launches - before[k] for k, f in counted.items()}
     rate = plan.n_envs * plan.n_steps / elapsed
-    checks = walk_checks(world, plan.mode)
+    checks = walk_checks(world, plan.mode) | {"nonfinite_resets": nonfinite_resets(device) - resets}
     _log(f"envs={plan.n_envs} steps={plan.n_steps} elapsed={elapsed:.3f}s "
          f"rt_envs={rate * plan.mpc.dt:.0f} falls={checks['falls']}")
     if device.type == "cuda":

@@ -6,8 +6,10 @@ The QP is the JAX package's: the states are eliminated losslessly
 blocks of ``m_step(mpc)`` constraint rows (24, or 28 with the torsional
 cone). Every function takes a leading env axis.
 
-One solve path: :func:`solve_qp` Ruiz-equilibrates the batch, maps the warm
-start into the scaled space, runs the scaled ADMM core
+One solve path: :func:`solve_qp` Ruiz-equilibrates the batch and maps the
+warm start into the scaled space (on the card in one launch of the Ruiz
+kernel, ``ops/cuda/ruiz_kernel.py``; on the CPU by :func:`ruiz_equilibrate`
+and :func:`scaled_warm_start`), runs the scaled ADMM core
 (:func:`biped_mpc_py_torch.ops.cuda.qp_kernel.fused_qp_solve`: the CUDA
 kernel for tensors on the card, its plain PyTorch version for tensors on
 the CPU), then unscales and recovers the predicted states and residuals.
@@ -25,6 +27,7 @@ import torch
 from biped_mpc_py_torch.config import MpcConfig, config_tensor, config_value, config_vector
 from biped_mpc_py_torch.models.biped import BipedParams
 from biped_mpc_py_torch.ops.cuda.qp_kernel import fused_qp_solve
+from biped_mpc_py_torch.ops.cuda.ruiz_kernel import fused_ruiz
 from biped_mpc_py_torch.ops.linalg3 import mm3
 from biped_mpc_py_torch.ops.rotations import eul2rotm
 from biped_mpc_py_torch.utils.profiling import stage
@@ -493,6 +496,31 @@ def recover_solution(qp: CondensedQp, x, z, y, D, E, c) -> QpSolution:
     )
 
 
+def scale_qp(qp: CondensedQp, mpc: MpcConfig, warm: QpSolution | None = None):
+    """The stage ``qp.ruiz`` of :func:`solve_qp`: the Ruiz scaling at
+    ``mpc.ruiz_iters`` and ``mpc.ruiz_bf16_norms`` and the warm start
+    mapped into the scaled space -> ``(Ph, qh, Ah, lh, uh, D, E, c, x0, z0,
+    y0)``, as :func:`ruiz_equilibrate` and :func:`scaled_warm_start` return
+    them. On the card one launch of the Ruiz kernel
+    (``ops/cuda/ruiz_kernel.py::fused_ruiz``), on the CPU
+    :func:`scale_qp_reference`."""
+    if qp.P.is_cuda:
+        return fused_ruiz(
+            qp.P, qp.q, qp.A_step, qp.l, qp.u,
+            None if warm is None else (warm.controls, warm.z, warm.y),
+            n_iters=mpc.ruiz_iters, bf16_norms=mpc.ruiz_bf16_norms,
+        )
+    return scale_qp_reference(qp, mpc, warm)
+
+
+def scale_qp_reference(qp: CondensedQp, mpc: MpcConfig, warm: QpSolution | None = None):
+    """The plain version of :func:`scale_qp` on any device:
+    :func:`ruiz_equilibrate`, then :func:`scaled_warm_start`."""
+    scaled = ruiz_equilibrate(qp, mpc.ruiz_iters, mpc.ruiz_bf16_norms)
+    D, E, c = scaled[5:]
+    return scaled + scaled_warm_start(warm, D, E, c, scaled[0].shape[-1])
+
+
 def solve_qp(
     qp: CondensedQp, mpc: MpcConfig, warm: QpSolution | None = None,
     per_env: dict | None = None,
@@ -502,7 +530,8 @@ def solve_qp(
     Merges the JAX ``solve_qp`` (``qp.py:523``) and ``solve_qp_batch``
     (``qp.py:701``): Ruiz scaling, warm-start mapping, the scaled core in
     one ``fused_qp_solve`` call, unscaling. The device of the tensors picks
-    the core (the CUDA kernel on the card, the plain version on the CPU).
+    the scaling (:func:`scale_qp`: the Ruiz kernel on the card) and the
+    core (the QP kernel on the card, its plain version on the CPU).
     ``per_env``: (N,) ``admm_rho``, ``admm_sigma``, ``admm_alpha``
     overriding the config's, one value per env in the one launch. The
     config's three bf16 knobs (``ruiz_bf16_norms``, ``kinv_bf16_iters``,
@@ -511,8 +540,7 @@ def solve_qp(
     ``qp.kernel``, ``qp.unscale``.
     """
     with stage("qp.ruiz"):
-        Ph, qh, Ah, lh, uh, D, E, c = ruiz_equilibrate(qp, mpc.ruiz_iters, mpc.ruiz_bf16_norms)
-        x0, z0, y0 = scaled_warm_start(warm, D, E, c, Ph.shape[-1])
+        Ph, qh, Ah, lh, uh, D, E, c, x0, z0, y0 = scale_qp(qp, mpc, warm)
     with stage("qp.kernel"):
         x, z, y = fused_qp_solve(Ph, Ah, qh, lh, uh, x0, z0, y0, **solver_args(mpc, per_env))
     with stage("qp.unscale"):

@@ -33,10 +33,10 @@ from biped_mpc_py_torch.models.biped import BipedParams
 from biped_mpc_py_torch.ops.qp import QpSolution, solve_qp
 from biped_mpc_py_torch.sim.srb_sim import SrbState, srb_step
 from biped_mpc_py_torch.utils.device import DEFAULT_DEVICE, entry_device
-from biped_mpc_py_torch.utils.graphs import graphed
+from biped_mpc_py_torch.utils.graphs import graphed, leaves
 from biped_mpc_py_torch.utils.metrics import RolloutMetrics
 from biped_mpc_py_torch.utils.precision import f32_precision
-from biped_mpc_py_torch.utils.profiling import stage
+from biped_mpc_py_torch.utils.profiling import count_nonfinite, stage
 from biped_mpc_py_torch.utils.struct import TensorStruct
 
 # fall detection band [m]: outside -> reset (elastic recovery)
@@ -71,17 +71,33 @@ def batch_worlds(mpc: MpcConfig, n: int, device=DEFAULT_DEVICE) -> World:
     return init_world(mpc, n, device=device)
 
 
+def fallen(sim_new, z: torch.Tensor, lo: float = FALL_Z_MIN, hi: float = FALL_Z_MAX):
+    """The envs a post stage resets -> (fell, blown), each (N,) bool:
+    ``blown`` where the new simulator state ``sim_new`` (a state struct)
+    holds a non-finite value, ``fell`` where it is blown or its height
+    ``z`` (N,) is not inside [lo, hi] (a NaN height is outside). For a
+    finite state ``fell`` is the height band alone. The post stages add
+    ``blown`` to ``utils/profiling.py``'s count of non-finite resets."""
+    n = z.shape[0]
+    flat = torch.cat([t.reshape(n, -1) for t in leaves(sim_new) if t.is_floating_point()], 1)
+    finite = torch.isfinite(flat).all(1)
+    # z == clamp(z, lo, hi) exactly where lo <= z <= hi; never for a NaN or an infinity
+    return ~(finite & (torch.clamp(z, lo, hi) == z)), ~finite
+
+
 def _finish_tick(sim_new: SrbState, sol: QpSolution, cmd_ref: torch.Tensor,
                  metrics: RolloutMetrics, mpc: MpcConfig,
                  v_int: torch.Tensor | None = None,
                  x_cmd: torch.Tensor | None = None) -> World:
     """Per-env fall detection, in-batch reset and metrics update
-    (``rollout.py:54``). A fallen env restarts standing with a cold
-    controller; its clock ``t`` runs on."""
+    (``rollout.py:54``). A fallen env (``fallen``: out of the height band,
+    or not finite) restarts standing with a cold controller; its clock
+    ``t`` runs on. A non-finite env's running sums take only the tick and
+    the fall."""
     x = sim_new.x_fb
     n, dtype, device = x.shape[0], x.dtype, x.device
-    z = x[:, 5]
-    fell = (z < FALL_Z_MIN) | (z > FALL_Z_MAX)
+    fell, blown = fallen(sim_new, x[:, 5])
+    count_nonfinite(blown)
     reset = dataclasses.replace(
         SrbState.standing(n, device=device, dtype=dtype), t=sim_new.t
     )
@@ -96,7 +112,7 @@ def _finish_tick(sim_new: SrbState, sol: QpSolution, cmd_ref: torch.Tensor,
     )
     ctrl_next = carried.where(fell, ControllerState.init(mpc, n, device, dtype, x_cmd))
     metrics = metrics.update(x, mpc.x_cmd if x_cmd is None else x_cmd,
-                             sol.controls[:, 0], sol.res_prim, fell.to(dtype))
+                             sol.controls[:, 0], sol.res_prim, fell.to(dtype)).keep(blown, metrics)
     return World(sim=sim_next, ctrl=ctrl_next, metrics=metrics)
 
 

@@ -62,6 +62,7 @@ from biped_mpc_py_torch.models.biped import BipedParams
 from biped_mpc_py_torch.ops.cuda.substep_kernel import fused_substeps
 from biped_mpc_py_torch.ops.cuda.tick_kernel import fused_tick
 from biped_mpc_py_torch.ops.qp import solve_qp
+from biped_mpc_py_torch.parallel.rollout import fallen
 from biped_mpc_py_torch.sim.contact import Terrain
 from biped_mpc_py_torch.sim.engine import (
     ArtState,
@@ -74,7 +75,7 @@ from biped_mpc_py_torch.utils.device import DEFAULT_DEVICE, entry_device
 from biped_mpc_py_torch.utils.graphs import graphed
 from biped_mpc_py_torch.utils.metrics import RolloutMetrics
 from biped_mpc_py_torch.utils.precision import f32_precision
-from biped_mpc_py_torch.utils.profiling import stage
+from biped_mpc_py_torch.utils.profiling import count_nonfinite, stage
 from biped_mpc_py_torch.utils.struct import TensorStruct
 
 FALL_Z_MIN = 0.25
@@ -209,14 +210,16 @@ def _art_post_stage(world: ArtWorld, sim_new: ArtState, energy, x_fb, sol,
                     x_cmd: torch.Tensor | None = None,
                     per_env: dict | None = None) -> ArtWorld:
     """Fall reset, controller-state advance and metrics
-    (``rollout_art.py:446``). A fallen env restarts standing with a cold
-    controller; its clock runs on. ``x_cmd`` ((12,) or (N,12)) overrides
+    (``rollout_art.py:446``). A fallen env (``rollout.fallen``: out of the
+    height band, or not finite) restarts standing with a cold controller;
+    its clock runs on, and a non-finite env's running sums take only the
+    tick and the fall. ``x_cmd`` ((12,) or (N,12)) overrides
     ``mpc.x_cmd``, the metrics' command included; ``per_env`` the config's
     other fields. The stage ``tick.post``."""
     with stage("tick.post"):
         n, dtype, device = x_fb.shape[0], x_fb.dtype, x_fb.device
-        z = sim_new.pos[:, 2]
-        fell = (z < FALL_Z_MIN) | (z > FALL_Z_MAX)
+        fell, blown = fallen(sim_new, sim_new.pos[:, 2], FALL_Z_MIN, FALL_Z_MAX)
+        count_nonfinite(blown)
         reset = dataclasses.replace(
             ArtState.standing(n, device=device, dtype=dtype), t=sim_new.t
         )
@@ -230,7 +233,7 @@ def _art_post_stage(world: ArtWorld, sim_new: ArtState, energy, x_fb, sol,
         metrics = world.metrics.update(
             sim_new.torso_state(), mpc.x_cmd if x_cmd is None else x_cmd,
             sol.controls[:, 0], sol.res_prim, fell.to(dtype), energy=energy,
-        )
+        ).keep(blown, world.metrics)
         return ArtWorld(
             sim=sim_new.where(fell, reset),
             ctrl=ctrl.where(fell, ControllerState.init(mpc, n, device, dtype, x_cmd, per_env)),

@@ -49,10 +49,11 @@ KNOBS_OFF = dict(kinv_bf16_iters=0, admm_bf16_matvec=False, ruiz_bf16_norms=Fals
 DEFAULT_REPS = 3  # BENCH_REPS' default in tools/bench_tick_stages.py
 
 
-def launches(qp: int = 0, substeps: int = 0, tick: int = 0) -> dict:
-    """Launches of the QP, substep and tick kernels, keyed as a record's
-    ``launches``."""
-    return {"fused_qp_solve": qp, "fused_substeps": substeps, "fused_tick": tick}
+def launches(qp: int = 0, substeps: int = 0, tick: int = 0, ruiz: int = 0) -> dict:
+    """Launches of the QP, substep, tick and Ruiz kernels, keyed as a
+    record's ``launches``."""
+    return {"fused_qp_solve": qp, "fused_substeps": substeps, "fused_tick": tick,
+            "fused_ruiz": ruiz}
 
 
 def fast_art_mpc(**kw) -> MpcConfig:
@@ -93,13 +94,15 @@ def scaled_core(qp: CondensedQp, mpc: MpcConfig) -> tuple:
 @contextlib.contextmanager
 def plain_core():
     """Inside the block, ``ops.qp.solve_qp`` (and every rollout that calls
-    it) runs its core through the QP kernel's plain version in place of
-    the kernel, on any device."""
-    saved, qp_ops.fused_qp_solve = qp_ops.fused_qp_solve, fused_qp_solve_reference
+    it) runs its Ruiz scaling and its core through their plain versions
+    (``scale_qp_reference``, ``fused_qp_solve_reference``) in place of the
+    kernels, on any device."""
+    saved = qp_ops.scale_qp, qp_ops.fused_qp_solve
+    qp_ops.scale_qp, qp_ops.fused_qp_solve = qp_ops.scale_qp_reference, fused_qp_solve_reference
     try:
         yield
     finally:
-        qp_ops.fused_qp_solve = saved
+        qp_ops.scale_qp, qp_ops.fused_qp_solve = saved
 
 
 def solve_plain(qp: CondensedQp, mpc: MpcConfig):

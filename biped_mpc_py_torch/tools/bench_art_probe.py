@@ -62,7 +62,7 @@ VARIANTS = {
     "solver1-knobs-off": ("solver1 knobs off", SOLVER1 | h.KNOBS_OFF, {}),
 }
 # launches per replay (one tick) on the card
-LAUNCHES = {k: h.launches(qp=1) for k in VARIANTS}
+LAUNCHES = {k: h.launches(qp=1, ruiz=1) for k in VARIANTS}
 
 
 def first_qp_core(mpc: MpcConfig, gait: GaitConfig, worlds, bipeds) -> tuple:

@@ -75,7 +75,7 @@ LABELS = {
 }
 # launches per call on the card
 LAUNCHES = {k: h.launches() for k in LABELS} | {
-    "solve_mpc": h.launches(qp=1), "fused_substeps": h.launches(substeps=1),
+    "solve_mpc": h.launches(qp=1, ruiz=1), "fused_substeps": h.launches(substeps=1),
     "fused_tick": h.launches(tick=1)}
 
 

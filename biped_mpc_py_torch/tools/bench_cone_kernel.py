@@ -56,9 +56,9 @@ PAST = 0.1  # N: an env's controls this far apart count against the floor
 # objective slack over twice the floor's excess (|objective| ~ 470 here;
 # 1e-3 is about 2e-6 of it, some 30 float32 ulps)
 EXCESS_SLACK = 1e-3
-# QP kernel launches per call on the card
-LAUNCHES = {"kernel": h.launches(qp=1), "plain": h.launches(), "kernel core": h.launches(qp=1),
-            "plain core": h.launches()}
+# launches per call on the card
+LAUNCHES = {"kernel": h.launches(qp=1, ruiz=1), "plain": h.launches(),
+            "kernel core": h.launches(qp=1), "plain core": h.launches()}
 
 
 def mpc_config() -> MpcConfig:

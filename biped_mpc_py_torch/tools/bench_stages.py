@@ -11,6 +11,11 @@ inputs computed once before the capture:
   condense            condense
   ruiz                ruiz_equilibrate, f32 column norms (the JAX tool's)
   ruiz (bf16 norms)   the same with ruiz_bf16_norms, as the bench solves
+  ruiz, kernel; ruiz (bf16 norms), kernel
+                      the same through scale_qp, the stage qp.ruiz of a
+                      cold solve: the Ruiz kernel on the card (one launch,
+                      the zero warm start written too), the plain version
+                      on the CPU
   ns_inv(14), ns_inv(10), ns_inv(10,bf16=8)
                       ns_inverse of the scaled P + 1e-6 I
   full solve (f32)    solve_qp with kinv_bf16_iters 0 and no bf16 matvec
@@ -43,7 +48,7 @@ from biped_mpc_py_torch.control.gait import contact_sequence
 from biped_mpc_py_torch.control.mpc import build_mpc_qp
 from biped_mpc_py_torch.control.reference import com_reference, foot_reference
 from biped_mpc_py_torch.models.srb import linearize_horizon
-from biped_mpc_py_torch.ops.qp import condense, ns_inverse, ruiz_equilibrate, solve_qp
+from biped_mpc_py_torch.ops.qp import condense, ns_inverse, ruiz_equilibrate, scale_qp, solve_qp
 from biped_mpc_py_torch.parallel.rollout import batched_closed_loop_tick
 from biped_mpc_py_torch.tools import _harness as h
 from biped_mpc_py_torch.utils.device import entry_device
@@ -59,6 +64,8 @@ LABELS = {
     "condense": "condense",
     "ruiz": "ruiz",
     "ruiz_bf16": "ruiz (bf16 norms)",
+    "ruiz_kernel": "ruiz, kernel",
+    "ruiz_bf16_kernel": "ruiz (bf16 norms), kernel",
     "ns14": "ns_inv(14)",
     "ns10": "ns_inv(10)",
     "ns10_bf16": "ns_inv(10,bf16=8)",
@@ -69,8 +76,11 @@ LABELS = {
     "tick_f32": "full tick (f32)",
     "tick_bf16": "full tick (bf16)",
 }
-# QP kernel launches per call on the card (no stage launches another kernel)
-LAUNCHES = {k: h.launches(qp=int(k.endswith("_kernel") or k.startswith("tick"))) for k in LABELS}
+# launches per call on the card: the kernel solves and the ticks launch the
+# Ruiz and the QP kernels, the Ruiz stages the Ruiz kernel
+LAUNCHES = {k: h.launches(qp=int(k.startswith(("solve", "tick")) and not k.endswith("plain")),
+                          ruiz=int(k.endswith("kernel") or k.startswith("tick")))
+            for k in LABELS}
 
 
 def stages(envs: int, device) -> dict:
@@ -97,6 +107,9 @@ def stages(envs: int, device) -> dict:
                      (sim.x_fb, x_ref, A, B, contact, bipeds)),
         "ruiz": (ruiz_equilibrate, (qp,)),
         "ruiz_bf16": (lambda q: ruiz_equilibrate(q, bf16_norms=True), (qp,)),
+        "ruiz_kernel": (lambda q: scale_qp(q, dataclasses.replace(mpc, ruiz_bf16_norms=False)),
+                        (qp,)),
+        "ruiz_bf16_kernel": (lambda q: scale_qp(q, mpc), (qp,)),
         "ns14": (lambda k: ns_inverse(k, 14), (K,)),
         "ns10": (lambda k: ns_inverse(k, 10), (K,)),
         "ns10_bf16": (lambda k: ns_inverse(k, 10, 8), (K,)),

@@ -61,8 +61,8 @@ VARIANTS = {
     "ll4": ("tick ll4 abl  ", {}, _tick(n_lowlevel=4, n_substeps=10)),
 }
 # launches per replay (one tick) on the card
-LAUNCHES = {k: h.launches(qp=1, tick=1) for k in VARIANTS} | {
-    "substep": h.launches(qp=1, substeps=8)}
+LAUNCHES = {k: h.launches(qp=1, tick=1, ruiz=1) for k in VARIANTS} | {
+    "substep": h.launches(qp=1, substeps=8, ruiz=1)}
 
 
 def run(envs: int = N_ENVS, steps: int = N_STEPS, reps: int = h.DEFAULT_REPS,

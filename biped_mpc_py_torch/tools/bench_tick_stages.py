@@ -103,7 +103,7 @@ VARIANTS = {
                                            post_off=True)),
 }
 # launches per replay (one tick) on the card
-LAUNCHES = {k: h.launches(qp=int(k == "base"), tick=1) for k in VARIANTS}
+LAUNCHES = {k: h.launches(qp=int(k == "base"), tick=1, ruiz=int(k == "base")) for k in VARIANTS}
 # (the attribution's line, the variant whose ms it starts from, the one it
 # subtracts; None: the variant's own ms)
 ATTRIBUTION = (

@@ -88,9 +88,10 @@ def _signature(tree):
 
 def kernel_wrappers():
     """The kernel wrappers whose ``launches`` a replay adds to."""
-    from biped_mpc_py_torch.ops.cuda import qp_kernel, substep_kernel, tick_kernel
+    from biped_mpc_py_torch.ops.cuda import qp_kernel, ruiz_kernel, substep_kernel, tick_kernel
 
-    return (qp_kernel.fused_qp_solve, substep_kernel.fused_substeps, tick_kernel.fused_tick)
+    return (qp_kernel.fused_qp_solve, substep_kernel.fused_substeps, tick_kernel.fused_tick,
+            ruiz_kernel.fused_ruiz)
 
 
 _WARMUP_STREAMS: dict = {}  # device -> the side stream of every warm-up on it

@@ -55,6 +55,16 @@ class RolloutMetrics(TensorStruct):
             energy=self.energy + energy,
         )
 
+    def keep(self, mask: torch.Tensor, old: "RolloutMetrics") -> "RolloutMetrics":
+        """``old``'s running sums where ``mask`` (N,) is true, this tick's
+        step and fall counts: an env reset for a non-finite state takes
+        nothing else from its tick. The sums go through one ``where`` (three
+        kernels, not one a sum)."""
+        names = [f.name for f in dataclasses.fields(self) if f.name not in ("n_steps", "falls")]
+        sums = torch.where(mask, torch.stack([getattr(old, k) for k in names]),
+                           torch.stack([getattr(self, k) for k in names]))
+        return dataclasses.replace(self, **dict(zip(names, sums.unbind(0))))
+
 
 
 def cost_of_transport(energy_j, mass_kg, distance_m, g: float = 9.81):

@@ -23,6 +23,12 @@ stages inside a captured tick.
 The marks of a capture belong to its ``TickGraph`` (``TickGraph.marks``);
 the recorder keeps only those of the graph replayed last, for
 :func:`stage_ms`.
+
+- :func:`count_nonfinite` adds the envs that a tick's post stage reset
+  because their new simulator state held a non-finite value to a counter
+  on their device: one in-place add, no host synchronization, so a
+  captured tick records it into its graph and every replay adds to it.
+  :func:`nonfinite_resets` reads the count on demand.
 """
 
 from __future__ import annotations
@@ -93,6 +99,7 @@ _calls: dict = {}  # name -> top spans of that name so far
 _pending: list = []  # (Span, start event, end event) of the block's device-timed stages
 _capture: Marks | None = None  # the marks of the TickGraph being captured
 _replayed: Marks | None = None  # the marks of the TickGraph replayed last
+_nonfinite: dict = {}  # device -> int64 count of envs reset for a non-finite state
 
 
 class _Span:
@@ -203,3 +210,28 @@ def tracing():
             end.synchronize()
             rec.device_ms = start.elapsed_time(end)
         _records, _open, _calls, _pending = outer
+
+
+def count_nonfinite(reset: torch.Tensor) -> None:
+    """Add the envs where ``reset`` (N,) bool is true to the count of envs
+    reset for a non-finite state on its device, by one in-place add. The
+    counter is made at the first call, which must come before any capture
+    (a ``TickGraph`` runs its step once before it captures): one made
+    inside a capture would be zeroed by every replay."""
+    counter = _nonfinite.get(reset.device)
+    if counter is None:
+        if reset.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("count_nonfinite: the counter must be made before a capture")
+        counter = _nonfinite[reset.device] = torch.zeros((), dtype=torch.int64,
+                                                         device=reset.device)
+    counter.add_(reset.sum())
+
+
+def nonfinite_resets(device="cuda") -> int:
+    """Envs reset for a non-finite simulator state on ``device`` since the
+    process started (0 before any); waits for the work queued on it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    counter = _nonfinite.get(device)
+    return 0 if counter is None else int(counter)

@@ -7,9 +7,10 @@ Phases, each printed on its own lines:
 
 1. device: the card's name and ``nvidia-smi`` name and power limit;
 2. build: ``nvcc`` compiles ``biped_mpc_py_torch/csrc/qp_admm.cu``,
-   ``csrc/substep.cu``, ``csrc/tick.cu`` and ``csrc/probe_ops.cu`` for
-   sm_90a from the checkout's sources, in parallel, and prints the QP,
-   substep and tick kernels' ``-Xptxas -v`` registers, spills and stack;
+   ``csrc/substep.cu``, ``csrc/tick.cu``, ``csrc/ruiz.cu`` and
+   ``csrc/probe_ops.cu`` for sm_90a from the checkout's sources, in
+   parallel, and prints the QP, substep, tick and Ruiz kernels' ``-Xptxas
+   -v`` registers, spills and stack;
 3. QP kernel vs plain: the fused ADMM QP-solve kernel and its plain PyTorch
    version on the same 1024 real MPC QPs (perturbed standing states at
    every gait phase, domain-randomized robots, cold and warm starts), at
@@ -196,6 +197,15 @@ Phases, each printed on its own lines:
    each within twice the floor's plus a slack). The ablations are
    timing-only: their falls are reported, not bounded.
 
+25. Ruiz kernel vs plain (run after phase 3): the Ruiz kernel
+   (``csrc/ruiz.cu``, the stage ``qp.ruiz``) on real MPC QPs at 4096 envs
+   and at 1, m = 24 and 28, bf16 and f32 norms, cold and warm, all eleven
+   outputs bit-equal to ``ruiz_equilibrate`` + ``scaled_warm_start``; ms a
+   call at 4096, 1024 and 1 env beside the plain stage and the bytes bound;
+   the tick path (1024 x 50, bf16 norms) and SRB (1024 x 25, the default
+   budget, f32 norms) with the stage on the kernel and on the plain
+   version, bit-equal, with equal counts of non-finite resets.
+
 Phase 18 runs ``RealtimeLoop``, whose solve and low-level period are two
 CUDA graphs replayed at N = 1 (captured by its ``warmup``); phase 17 the
 MuJoCo loop's controller on its three graphs, phase 19 the plain chain's
@@ -263,14 +273,17 @@ def phase_device(torch):
 
 
 def phase_build():
-    from biped_mpc_py_torch.ops.cuda import build, qp_kernel, substep_kernel, tick_kernel
+    from biped_mpc_py_torch.ops.cuda import (
+        build, qp_kernel, ruiz_kernel, substep_kernel, tick_kernel,
+    )
     from biped_mpc_py_torch.tools import probe_cuda_ops
 
     t0 = time.time()
     paths = build.build(qp_kernel.SOURCE, substep_kernel.SOURCE, tick_kernel.SOURCE,
-                        probe_cuda_ops.SOURCE, verbose=True)
+                        ruiz_kernel.SOURCE, probe_cuda_ops.SOURCE, verbose=True)
     log(f"[build] {', '.join(p.name for p in paths)} in {time.time() - t0:.1f} s")
-    for source in (qp_kernel.SOURCE, substep_kernel.SOURCE, tick_kernel.SOURCE):
+    for source in (qp_kernel.SOURCE, substep_kernel.SOURCE, tick_kernel.SOURCE,
+                   ruiz_kernel.SOURCE):
         for line in build.ptxas_report(source):
             log(f"[build] {source.name} -Xptxas -v: {line}")
 
@@ -417,6 +430,176 @@ def phase_kernel(torch, device):
         f"{float(d.max()):.3f} N, median {float(d.median()):.3f} N, min {float(d.min()):.3f} N")
     return {b: max(results[(b, s)]["max_du"] for s in ("cold", "warm"))
             for b in ("bench", "bench-f32", "bench-ns", "default")}
+
+
+# The Ruiz kernel's checks: the envs (the batched cells' 4096 and the
+# N = 1 solve graph's 1) by the rows a step (24, or 28 with the torsional
+# cone), at the real horizon, both norm precisions, cold and warm.
+RUIZ_ENVS = (4096, 1)
+RUIZ_TIMED_ENVS = (4096, 1024, 1)
+RUIZ_OUTPUTS = ("Ph", "qh", "Ah", "lh", "uh", "D", "E", "c", "x0", "z0", "y0")
+
+
+def _ruiz_inputs(torch, device, n, m, bf16):
+    """(mpc, qp, warm start): n real MPC QPs at the bench budget with the
+    norm precision ``bf16`` and m rows a step, and the kernel's own solve of
+    other QPs as the warm start."""
+    import dataclasses
+
+    from biped_mpc_py_torch import fast_mpc_config
+    from biped_mpc_py_torch.ops import qp as tqp
+
+    mpc = dataclasses.replace(fast_mpc_config(mu_z=0.03 if m == 28 else None),
+                              ruiz_bf16_norms=bf16)
+    qp = mpc_qps(torch, mpc, n, device, SEED + m)
+    if qp.l.shape[2] != m:
+        raise AssertionError(f"QPs of {qp.l.shape[2]} rows a step, want {m}")
+    return mpc, qp, tqp.solve_qp(mpc_qps(torch, mpc, n, device, SEED + m + 1), mpc)
+
+
+def _fused_ruiz(qp, mpc, warm):
+    from biped_mpc_py_torch.ops.cuda.ruiz_kernel import fused_ruiz
+
+    return fused_ruiz(qp.P, qp.q, qp.A_step, qp.l, qp.u,
+                      None if warm is None else (warm.controls, warm.z, warm.y),
+                      n_iters=mpc.ruiz_iters, bf16_norms=mpc.ruiz_bf16_norms)
+
+
+def bound_ruiz(qp, mpc, warm, out):
+    """(bound ms, what sets it) of one Ruiz launch: bytes of the QP and the
+    warm start read and of the eleven outputs written; operations of the
+    ``ruiz_iters`` + 1 column passes over |P| D (a product and a maximum an
+    element), the A-side norms alike and the three products an element of
+    Ph."""
+    from biped_mpc_py_torch.utils import roofline
+
+    n_env, h, m = qp.l.shape
+    n = 12 * h
+    ops = n_env * ((mpc.ruiz_iters + 1) * 2 * (n * n + 2 * h * m * 12) + 3 * n * n)
+    warm_in = () if warm is None else (warm.controls, warm.z, warm.y)
+    return roofline.bound_ms(ops, roofline.tensor_bytes(qp.P, qp.q, qp.A_step, qp.l, qp.u,
+                                                        warm_in, out))
+
+
+def _nonfinite_run(torch, device, run, plain):
+    """``run()`` with the stage qp.ruiz on the Ruiz kernel, or on its plain
+    version (``plain``) -> (result, Ruiz launches, non-finite resets)."""
+    from biped_mpc_py_torch.ops import qp as tqp
+    from biped_mpc_py_torch.ops.cuda import ruiz_kernel
+    from biped_mpc_py_torch.utils import profiling
+
+    saved = tqp.scale_qp
+    if plain:
+        tqp.scale_qp = tqp.scale_qp_reference
+    try:
+        launches, resets = ruiz_kernel.fused_ruiz.launches, profiling.nonfinite_resets(device)
+        out = run()
+        torch.cuda.synchronize()
+        return (out, ruiz_kernel.fused_ruiz.launches - launches,
+                profiling.nonfinite_resets(device) - resets)
+    finally:
+        tqp.scale_qp = saved
+
+
+def phase_ruiz(torch, device):
+    """Phase 25: the Ruiz kernel (``ops/cuda/ruiz_kernel.py::fused_ruiz``)
+    against its plain version (``ops/qp.py::scale_qp_reference``:
+    ``ruiz_equilibrate``, then ``scaled_warm_start``) on the card.
+
+    (a) Real MPC QPs at 4096 envs and at 1, h = 10, m = 24 and 28, bf16
+    and f32 norms, cold and warm (the kernel's own solve of other QPs):
+    one launch a call, and all eleven outputs bit-equal to the plain
+    version's (0 ulps; the kernel adds the one sum, gamma's mean, in the
+    order of torch.mean on the card, ``csrc/ruiz.cu``). (b) ms a call at
+    4096, 1024 and 1 env (warm, m = 24; CUDA events), the plain stage's
+    beside it, and the bound from the launch's bytes. (c) Rollouts with the
+    stage on the kernel and on the plain version from the same worlds: the
+    tick-kernel path (1024 envs x 50 ticks, the bench budget, bf16 norms)
+    and SRB (1024 envs x 25 ticks, the default budget, f32 norms), each
+    bit-equal leaf by leaf, one Ruiz launch a tick against none, and the
+    same count of envs reset for a non-finite state
+    (``utils/profiling.py::nonfinite_resets``). -> the kernels line's
+    figures."""
+    import dataclasses
+
+    from biped_mpc_py_torch import MpcConfig
+    from biped_mpc_py_torch.ops import qp as tqp
+    from biped_mpc_py_torch.ops.cuda import ruiz_kernel
+    from biped_mpc_py_torch.parallel.rollout_art import batched_art_rollout_tick_kernel
+    from biped_mpc_py_torch.sim.model import hector_model
+    from biped_mpc_py_torch.utils.graphs import leaves
+
+    worst = {"max_abs_err": 0.0, "max_ulps": 0}
+    for n in RUIZ_ENVS:
+        for m in (24, 28):
+            for bf16 in (True, False):
+                mpc, qp, warm_sol = _ruiz_inputs(torch, device, n, m, bf16)
+                for start, warm in (("cold", None), ("warm", warm_sol)):
+                    want = tqp.scale_qp_reference(qp, mpc, warm)
+                    before = ruiz_kernel.fused_ruiz.launches
+                    got = _fused_ruiz(qp, mpc, warm)
+                    torch.cuda.synchronize()
+                    if ruiz_kernel.fused_ruiz.launches != before + 1:
+                        raise AssertionError("fused_ruiz did not count its one launch")
+                    row = {}
+                    for name, a, b in zip(RUIZ_OUTPUTS, got, want, strict=True):
+                        if a.shape != b.shape:
+                            raise AssertionError(f"Ruiz {name}: {tuple(a.shape)} vs "
+                                                 f"{tuple(b.shape)}")
+                        ulps = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+                        row[name] = (float((a - b).abs().max()), int(ulps.max()))
+                    err = max(v[0] for v in row.values())
+                    ulp = max(v[1] for v in row.values())
+                    finite = all(bool(torch.isfinite(t).all()) for t in got)
+                    norms = "bf16" if bf16 else "f32"
+                    log(f"[ruiz] {n} envs, m {m}, {norms} norms, {start}: max|diff| {err:.3e}, "
+                        f"max ulps {ulp}, finite {finite}")
+                    if ulp or not finite:
+                        raise AssertionError(f"Ruiz kernel vs plain ({n} envs, m {m}, {norms} "
+                                             f"norms, {start}): (max|diff|, ulps) {row}")
+                    worst["max_abs_err"] = max(worst["max_abs_err"], err)
+                    worst["max_ulps"] = max(worst["max_ulps"], ulp)
+
+    times = {}
+    for n in RUIZ_TIMED_ENVS:
+        for bf16 in (True, False):
+            mpc, qp, warm = _ruiz_inputs(torch, device, n, 24, bf16)
+            ms = _timed(torch, lambda: _fused_ruiz(qp, mpc, warm), 20)
+            plain_ms = _timed(torch, lambda: tqp.scale_qp_reference(qp, mpc, warm), 5)
+            bound, by = bound_ruiz(qp, mpc, warm, _fused_ruiz(qp, mpc, warm))
+            times[(n, bf16)] = (ms, plain_ms, bound, by)
+            log(f"[ruiz] {n} envs, {'bf16' if bf16 else 'f32'} norms, warm: kernel {ms:.4f} ms, "
+                f"plain stage {plain_ms:.4f} ms ({plain_ms / ms:.1f}x); bound {bound:.4f} ms "
+                f"({by}, share {bound / ms:.3f})")
+
+    mpc, gait = _art_config()
+    model = hector_model(device=device)
+    w0, bipeds = art_worlds(torch, device)
+    default = dataclasses.replace(MpcConfig(), x_cmd=WALK_CMD)
+    runs = {
+        "tick path": (N_TICKS, lambda: batched_art_rollout_tick_kernel(
+            w0, bipeds, N_TICKS, mpc, gait, model=model)),
+        "srb default": (N_COMPARE_TICKS, lambda: run_rollout(
+            torch, device, N_COMPARE_TICKS, default)[0]),
+    }
+    launches = {}
+    for label, (ticks, run) in runs.items():
+        w_k, launches_k, resets_k = _nonfinite_run(torch, device, run, plain=False)
+        launches[label] = launches_k
+        w_p, launches_p, resets_p = _nonfinite_run(torch, device, run, plain=True)
+        same = [torch.equal(a, b) for a, b in zip(leaves(w_k), leaves(w_p), strict=True)]
+        log(f"[ruiz] {label}, {N_ENVS} envs x {ticks} ticks, Ruiz kernel vs plain: "
+            f"{sum(same)} of {len(same)} leaves bit-equal, Ruiz launches {launches_k} vs "
+            f"{launches_p}, non-finite resets {resets_k} vs {resets_p}, falls "
+            f"{float(w_k.metrics.falls.sum())} vs {float(w_p.metrics.falls.sum())}")
+        if not all(same) or (launches_k, launches_p) != (ticks, 0) or resets_k != resets_p:
+            raise AssertionError(f"{label}: the Ruiz kernel's rollout differs from the plain "
+                                 "version's")
+    ms, plain_ms, bound, by = times[(RUIZ_TIMED_ENVS[0], True)]
+    ms_f32, plain_ms_f32, bound_f32, _ = times[(RUIZ_TIMED_ENVS[0], False)]
+    return worst | {"launches": launches["tick path"], "ms": ms, "plain_ms": plain_ms,
+                    "bound": (bound, by), "ms_f32": ms_f32, "plain_ms_f32": plain_ms_f32,
+                    "bound_ms_f32": bound_f32}
 
 
 WALK_CMD = (0, 0, 0, 0, 0, 0.55, 0, 0, 0, 0.3, 0, 0)  # 0.3 m/s forward
@@ -2834,18 +3017,18 @@ BENCH_RUNS = (
 BENCH_SIZES = (256, 4096, 16384)
 # launches per tick by the bench's path
 BENCH_LAUNCHES = {
-    "srb": {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 0},
-    "tick": {"fused_qp_solve": 1, "fused_tick": 1, "fused_substeps": 0},
-    "kernel": {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 8},
-    "plain": {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 0},
-    "terrain": {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 0},
+    "srb": {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 0, "fused_ruiz": 1},
+    "tick": {"fused_qp_solve": 1, "fused_tick": 1, "fused_substeps": 0, "fused_ruiz": 1},
+    "kernel": {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 8, "fused_ruiz": 1},
+    "plain": {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 0, "fused_ruiz": 1},
+    "terrain": {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 0, "fused_ruiz": 1},
 }
 
 
 def _bench_ok(result, name, falls_bounded):
     """Raise unless the bench result ``result`` launched its path's kernels
-    once (eight times) a tick, ended finite and, where ``falls_bounded``,
-    fell nowhere."""
+    once (eight times) a tick, ended finite, counted no more non-finite
+    resets than falls and, where ``falls_bounded``, fell nowhere."""
     want = {k: v * result["steps"] for k, v in BENCH_LAUNCHES[result["path"]].items()}
     checks = result["checks"]
     if result["launches"] != want:
@@ -2854,6 +3037,9 @@ def _bench_ok(result, name, falls_bounded):
         raise AssertionError(f"bench {name}: non-finite states")
     if falls_bounded and checks["falls"] != 0:
         raise AssertionError(f"bench {name}: {checks['falls']} falls")
+    if checks["nonfinite_resets"] > checks["falls"]:  # each such reset is a fall
+        raise AssertionError(f"bench {name}: {checks['nonfinite_resets']} non-finite resets, "
+                             f"{checks['falls']} falls")
 
 
 # The falls of the bench's art configuration at the bf16 knobs in the JAX
@@ -3055,6 +3241,7 @@ def main() -> int:
 
     with torch.no_grad(), f32_matmul():
         qp_err = phase_kernel(torch, device)
+        ruiz = phase_ruiz(torch, device)
         srb_launches, sec_k, sec_p, w_bench = phase_slice(torch, device)
         substep_err = phase_substep_kernel(torch, device)
         art_launches, sec_art, w25_substep = phase_art_slice(torch, device)
@@ -3084,7 +3271,8 @@ def main() -> int:
         bounds = {"fused_qp_solve": solve_ms["bench"][2:4],
                   "fused_substeps": bound_substep(torch, device),
                   "fused_tick": bound_tick(torch, device),
-                  "probe_ops": bound_probe(torch, device)}
+                  "probe_ops": bound_probe(torch, device),
+                  "fused_ruiz": ruiz["bound"]}
     log("[bounds] " + json.dumps(bounds))
     rate_k = N_ENVS * N_TICKS / sec_k
     rate_p = N_ENVS * N_TICKS / sec_p
@@ -3137,6 +3325,23 @@ def main() -> int:
             "max_abs_err": tick_err,
             "ms": tick_ms,
             "plain_ms": tick_plain_ms,
+        },
+        {
+            "name": "fused_ruiz",
+            "route": "cuda",
+            "source": "biped_mpc_py_torch/csrc/ruiz.cu",
+            # none: the JAX package's Ruiz (biped_mpc_py_tpu/ops/qp.py:445) is plain jnp
+            "replaces": None,
+            # the tick path's 50-tick rollout of phase 25, one launch a tick
+            "launches": ruiz["launches"],
+            "max_abs_err": ruiz["max_abs_err"],
+            "max_ulps": ruiz["max_ulps"],
+            # 4096 envs, warm: bf16 norms (the bench budget), f32 beside
+            "ms": ruiz["ms"],
+            "plain_ms": ruiz["plain_ms"],
+            "ms_f32": ruiz["ms_f32"],
+            "plain_ms_f32": ruiz["plain_ms_f32"],
+            "bound_ms_f32": ruiz["bound_ms_f32"],
         },
         {
             "name": "probe_ops",

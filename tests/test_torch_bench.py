@@ -247,9 +247,11 @@ def test_bench_run_is_the_entry_point(name):
     assert (result["envs"], result["steps"], result["device"]) == (2, ticks, "cpu")
     assert result["metric"] == "fused_sim_mpc_env_steps_per_sec_per_chip"
     assert result["value"] > 0 and result["peak_mb"] is None and result["graph_pool_mb"] == 0
-    assert result["launches"] == {"fused_qp_solve": 0, "fused_tick": 0, "fused_substeps": 0}
+    assert result["launches"] == {"fused_qp_solve": 0, "fused_tick": 0, "fused_substeps": 0,
+                                  "fused_ruiz": 0}
     checks = result["checks"]
     assert checks["finite"] and checks["falls"] == float(world.metrics.falls.sum())
+    assert checks["nonfinite_resets"] == 0
     if plan.mode == "art":
         assert checks["x_min"] == float(world.sim.pos[:, 0].min())
         assert checks["res_prim_ge_1"] == int((world.metrics.res_prim_max >= 1.0).sum())

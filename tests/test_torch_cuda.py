@@ -88,6 +88,7 @@ from biped_mpc_py_torch.control.gait import contact_sequence
 from biped_mpc_py_torch.control.mpc import build_mpc_qp
 from biped_mpc_py_torch.ops import qp as tqp
 from biped_mpc_py_torch.ops.cuda import qp_kernel as tk
+from biped_mpc_py_torch.ops.cuda import ruiz_kernel as rk
 from biped_mpc_py_torch.ops.cuda import substep_kernel as sk
 from biped_mpc_py_torch.ops.cuda import tick_kernel as tick
 from biped_mpc_py_torch.parallel import rollout_art as ra
@@ -307,6 +308,108 @@ def test_kernel_rejects_bad_per_env_numerics(cuda, fault):
     with pytest.raises((ValueError, TypeError), match="rho"):
         tk.fused_qp_solve(*args, **{**tqp.solver_args(mpc), "rho": bad})
     assert tk.fused_qp_solve.launches == before
+
+
+# The Ruiz kernel's cases: every horizon and row count the repo solves (h =
+# 5, 7, 10; m = 24, or 28 with the torsional cone), both norm precisions,
+# cold and warm starts at 33 envs, and at the real horizon 1 env (the N = 1
+# solve graph) and 4096 (the batched cells).
+RUIZ_CASES = [(33, h, m, bf16, warm) for h in (5, 7, 10) for m in (24, 28)
+              for bf16 in (False, True) for warm in (False, True)]
+RUIZ_CASES += [(n, 10, m, bf16, warm) for n in (1, 4096) for m in (24, 28)
+               for bf16 in (False, True) for warm in (False, True)]
+RUIZ_OUTPUTS = ("Ph", "qh", "Ah", "lh", "uh", "D", "E", "c", "x0", "z0", "y0")
+
+
+def _ruiz_case(cuda, n, h, m, bf16, warm):
+    """(mpc, qp, warm start or None): real MPC QPs at the case's shape, the
+    first env with an all-zero constraint row (its E reaches the 1e6 clamp)
+    and the last with A's column 7 zero and P's column 19 zero but for
+    1e-12 on the diagonal, so that P is not symmetric and step 1's column 7
+    starts under the 1e-8 clamp of the column norms."""
+    mpc = dataclasses.replace(fast_mpc_config(h=h, mu_z=0.03 if m == 28 else None),
+                              ruiz_bf16_norms=bf16)
+    qp = _mpc_qps(n, cuda, mpc, seed=n + h + m)
+    assert qp.l.shape[1:] == (h, m)
+    A, P = qp.A_step.clone(), qp.P.clone()
+    A[0, 3] = 0.0
+    A[-1, :, 7] = 0.0
+    P[-1, :, 19] = 0.0
+    P[-1, 19, 19] = 1e-12
+    qp = dataclasses.replace(qp, A_step=A, P=P)
+    if not warm:
+        return mpc, qp, None
+    gen = torch.Generator().manual_seed(7)
+
+    def draw(*shape, scale):
+        return (scale * torch.randn((n,) + shape, generator=gen)).to(cuda)
+
+    sol = tqp.QpSolution(controls=draw(h, 12, scale=50.0), states=draw(h, 13, scale=1.0),
+                         z=draw(h, m, scale=20.0), y=draw(h, m, scale=5.0),
+                         res_prim=draw(scale=1.0), res_dual=draw(scale=1.0))
+    return mpc, qp, sol
+
+
+@pytest.mark.parametrize("n, h, m, bf16, warm", RUIZ_CASES,
+                         ids=[f"n{n}-h{h}-m{m}-{'bf16' if b else 'f32'}-{'warm' if w else 'cold'}"
+                              for n, h, m, b, w in RUIZ_CASES])
+def test_ruiz_kernel_matches_plain(cuda, n, h, m, bf16, warm):
+    """The Ruiz kernel (one launch) against ``ruiz_equilibrate`` and
+    ``scaled_warm_start`` on the card. The kernel adds the one sum, the
+    mean behind each iteration's cost scaling, in the order of torch.mean on
+    the card; every other number is the plain version's arithmetic in its
+    order. So every output is bit-equal (0 ulps) to the plain version's, D,
+    E, c, Ph and Ah included. Each iteration's column norms (bf16 products
+    and a bf16 maximum with bf16 norms) enter its D and c, so equal D and c
+    over 10 iterations are equal norms. The clamps engage: the zero row's E
+    reads 1e6. The mean's order is ATen's reduce kernel's as of torch
+    2.11.0 (CUDA 12.8), where it was matched: under a torch that orders that
+    reduction otherwise, the outputs differ by a few ulps from c on, a fault
+    of the match and not of the kernel's arithmetic."""
+    mpc, qp, sol = _ruiz_case(cuda, n, h, m, bf16, warm)
+    want = tqp.scale_qp_reference(qp, mpc, sol)
+    before = rk.fused_ruiz.launches
+    got = rk.fused_ruiz(qp.P, qp.q, qp.A_step, qp.l, qp.u,
+                        None if sol is None else (sol.controls, sol.z, sol.y),
+                        n_iters=mpc.ruiz_iters, bf16_norms=bf16)
+    torch.cuda.synchronize()
+    assert rk.fused_ruiz.launches == before + 1
+    gaps = {}
+    for name, a, b in zip(RUIZ_OUTPUTS, got, want, strict=True):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        if not torch.equal(a, b):
+            ulps = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs().reshape(n, -1)
+            gaps[name] = (int(ulps.max()), int((ulps > 0).any(1).sum()))
+    assert not gaps, (f"(largest ulps, envs that differ) by output: {gaps}; gamma's mean is "
+                      f"added in torch 2.11.0's order, this is torch {torch.__version__}")
+    assert torch.equal(got[6][0, :, 3], torch.full((h,), 1e6, device=cuda))
+    if not warm:
+        assert all(not bool(t.any()) for t in got[8:])
+
+
+def test_ruiz_kernel_refuses_what_it_does_not_take(cuda):
+    """CPU tensors, a P past the shared memory of a block (h = 20: 230 KB
+    of P), a P off a 16-byte boundary and a strided input each raise before
+    any launch."""
+    mpc = fast_mpc_config()
+    qp = _mpc_qps(4, cuda, mpc)
+    args = (qp.P, qp.q, qp.A_step, qp.l, qp.u)
+    kw = dict(n_iters=10, bf16_norms=True)
+    shifted = torch.empty(qp.P.numel() + 1, device=cuda)[1:].view_as(qp.P)
+    shifted.copy_(qp.P)
+    big = (torch.zeros(1, 240, 240, device=cuda), torch.zeros(1, 240, device=cuda),
+           torch.zeros(1, 24, 12, device=cuda), torch.zeros(1, 20, 24, device=cuda),
+           torch.zeros(1, 20, 24, device=cuda))
+    before = rk.fused_ruiz.launches
+    with pytest.raises(ValueError, match="on the card"):
+        rk.fused_ruiz(*[a.cpu() for a in args], **kw)
+    with pytest.raises(ValueError, match="shared memory"):
+        rk.fused_ruiz(*big, **kw)
+    with pytest.raises(ValueError, match="16-byte"):
+        rk.fused_ruiz(shifted, *args[1:], **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        rk.fused_ruiz(*args[:4], torch.cat([qp.u, qp.u], 2)[:, :, ::2], **kw)
+    assert rk.fused_ruiz.launches == before
 
 
 def test_rollout_launches_kernel_once_per_tick(cuda):
@@ -858,7 +961,8 @@ def _graph_case(path, device):
 @pytest.mark.parametrize("path", list(GRAPH_TICKS))
 def test_graph_replay_is_bit_equal_to_eager(cuda, path):
     """1024 envs: a replayed ``*_fn`` gives every leaf of the eager loop bit
-    for bit, and its call counts the launches its replays made."""
+    for bit, and its call counts the launches its replays made (the Ruiz
+    kernel's too: one a tick)."""
     from biped_mpc_py_torch.utils.graphs import leaves
 
     k = GRAPH_TICKS[path]
@@ -868,10 +972,11 @@ def test_graph_replay_is_bit_equal_to_eager(cuda, path):
     fn(*inputs)  # captures
     (graph,) = fn.graphs.values()
     assert graph.graph is not None
-    before = _counts()
+    before, ruiz = _counts(), rk.fused_ruiz.launches
     out = fn(*inputs)
     torch.cuda.synchronize()
     assert [a - c for a, c in zip(_counts(), before)] == [k * p for p in per_tick]
+    assert rk.fused_ruiz.launches - ruiz == k  # one Ruiz launch a tick, on every path
     assert all(torch.equal(x, y) for x, y in zip(leaves(out), leaves(want), strict=True))
 
 
@@ -997,10 +1102,11 @@ def test_capture_raises_on_a_host_sync(cuda):
 
 
 @pytest.mark.parametrize("env, per_tick", [
-    ({}, {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 0}),
-    ({"BENCH_MODE": "art"}, {"fused_qp_solve": 1, "fused_tick": 1, "fused_substeps": 0}),
+    ({}, {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 0, "fused_ruiz": 1}),
+    ({"BENCH_MODE": "art"},
+     {"fused_qp_solve": 1, "fused_tick": 1, "fused_substeps": 0, "fused_ruiz": 1}),
     ({"BENCH_MODE": "art", "BENCH_ART_BACKEND": "kernel"},
-     {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 8}),
+     {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 8, "fused_ruiz": 1}),
 ], ids=["srb", "tick", "kernel"])
 def test_bench_runs_on_the_card(cuda, env, per_tick):
     """``biped_mpc_py_torch.bench`` on the card by default: the card's name,

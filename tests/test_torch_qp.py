@@ -135,3 +135,25 @@ def test_ns_inverse_at_jax_floor():
         res_j = np.abs(K_np.astype(np.float64) @ X_j - eye).max(axis=(1, 2))
         res_t = np.abs(K_np.astype(np.float64) @ X_t - eye).max(axis=(1, 2))
         assert np.all(res_t <= 2 * res_j + 1e-6), (iters, res_t, res_j)
+
+
+def test_scale_qp_on_the_cpu_is_the_plain_version():
+    """``scale_qp`` (the stage ``qp.ruiz`` of ``solve_qp``) runs
+    ``ruiz_equilibrate`` and ``scaled_warm_start`` on CPU tensors, bit for
+    bit, cold and warm; the Ruiz kernel's wrapper refuses CPU tensors
+    before it loads anything."""
+    from biped_mpc_py_torch.ops.cuda import ruiz_kernel
+
+    _, tq, _, tm = qp_batch("randomized_robots")
+    gen = torch.Generator().manual_seed(0)
+    h, m = tq.l.shape[1:]
+    warm = tqp.QpSolution(*(torch.randn((N_ENVS,) + s, generator=gen)
+                            for s in ((h, 12), (h, 13), (h, m), (h, m), (), ())))
+    for w in (None, warm):
+        want = tqp.ruiz_equilibrate(tq, tm.ruiz_iters, tm.ruiz_bf16_norms)
+        want = want + tqp.scaled_warm_start(w, *want[5:], want[0].shape[-1])
+        got = tqp.scale_qp(tq, tm, w)
+        assert len(got) == 11 and all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="on the card"):
+        ruiz_kernel.fused_ruiz(tq.P, tq.q, tq.A_step, tq.l, tq.u, n_iters=10, bf16_norms=False)
+    assert ruiz_kernel._lib is None
