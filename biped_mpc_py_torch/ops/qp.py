@@ -539,9 +539,10 @@ def solve_qp(
     (``utils/profiling.py``): ``qp.ruiz`` (scaling and warm start),
     ``qp.kernel``, ``qp.unscale``.
     """
-    with stage("qp.ruiz"):
+    device = qp.P.device
+    with stage("qp.ruiz", device):
         Ph, qh, Ah, lh, uh, D, E, c, x0, z0, y0 = scale_qp(qp, mpc, warm)
-    with stage("qp.kernel"):
+    with stage("qp.kernel", device):
         x, z, y = fused_qp_solve(Ph, Ah, qh, lh, uh, x0, z0, y0, **solver_args(mpc, per_env))
-    with stage("qp.unscale"):
+    with stage("qp.unscale", device):
         return recover_solution(qp, x, z, y, D, E, c)

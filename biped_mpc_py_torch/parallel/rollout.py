@@ -127,16 +127,17 @@ def batched_closed_loop_tick(
     ``qp.ruiz``, ``qp.kernel`` and ``qp.unscale``, ``srb.step``,
     ``tick.post``."""
     sim = world.sim
-    with stage("mpc.build"):
+    device = sim.x_fb.device
+    with stage("mpc.build", device):
         contact = contact_sequence(sim.t, mpc, gait)
         qp = build_mpc_qp(
             sim.x_fb, sim.t, sim.foot, mpc, biped, contact, gait,
             world.ctrl.cmd_ref, v_int=world.ctrl.v_int, x_cmd=x_cmd,
         )
     sol = solve_qp(qp, mpc, warm=world.ctrl.qp)
-    with stage("srb.step"):
+    with stage("srb.step", device):
         sim_new = srb_step(sim, sol.controls[:, 0], mpc, gait, biped, x_cmd=x_cmd)
-    with stage("tick.post"):
+    with stage("tick.post", device):
         ref_next = advance_cmd_ref(world.ctrl.cmd_ref, sim.x_fb, mpc, x_cmd)
         vi_next = advance_v_int(world.ctrl.v_int, sim.x_fb, mpc, x_cmd)
         return _finish_tick(sim_new, sol, ref_next, world.metrics, mpc, vi_next, x_cmd)

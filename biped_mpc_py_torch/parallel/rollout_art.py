@@ -75,7 +75,7 @@ from biped_mpc_py_torch.utils.device import DEFAULT_DEVICE, entry_device
 from biped_mpc_py_torch.utils.graphs import graphed
 from biped_mpc_py_torch.utils.metrics import RolloutMetrics
 from biped_mpc_py_torch.utils.precision import f32_precision
-from biped_mpc_py_torch.utils.profiling import count_nonfinite, stage
+from biped_mpc_py_torch.utils.profiling import count_nonfinite, stage, start_ground_count
 from biped_mpc_py_torch.utils.struct import TensorStruct
 
 FALL_Z_MIN = 0.25
@@ -185,7 +185,8 @@ def _art_control_stage(world: ArtWorld, biped: BipedParams, mpc: MpcConfig,
     sol). ``x_cmd`` ((12,) or (N,12)) overrides ``mpc.x_cmd``, ``per_env``
     the config's other fields (``config.py``)."""
     sim = world.sim
-    with stage("art.feedback"):
+    device = sim.q.device
+    with stage("art.feedback", device):
         x_fb, pf_w = feedback_and_soles(model, sim)
         if gait.contact_clock:
             down = measured_contact(pf_w, terrain, gait)
@@ -194,7 +195,7 @@ def _art_control_stage(world: ArtWorld, biped: BipedParams, mpc: MpcConfig,
             )
         else:
             t_g, hold = sim.t, world.ctrl.hold_count
-    with stage("mpc.build"):
+    with stage("mpc.build", device):
         contact = contact_sequence(t_g, mpc, gait, per_env)
         foot_yaw = x_fb[:, 2:3] + sim.q[:, 0:6:5] if mpc.foot_frame_wrench else None
         qp = build_mpc_qp(
@@ -216,7 +217,7 @@ def _art_post_stage(world: ArtWorld, sim_new: ArtState, energy, x_fb, sol,
     tick and the fall. ``x_cmd`` ((12,) or (N,12)) overrides
     ``mpc.x_cmd``, the metrics' command included; ``per_env`` the config's
     other fields. The stage ``tick.post``."""
-    with stage("tick.post"):
+    with stage("tick.post", x_fb.device):
         n, dtype, device = x_fb.shape[0], x_fb.dtype, x_fb.device
         fell, blown = fallen(sim_new, sim_new.pos[:, 2], FALL_Z_MIN, FALL_Z_MAX)
         count_nonfinite(blown)
@@ -261,26 +262,33 @@ def _art_tick(world: ArtWorld, biped: BipedParams, mpc: MpcConfig,
     period (``ll_dt`` a float, or (N,) with a per-env ``dt``). The MPC
     stage and the low-level control take their references from
     ``terrain``; the ground under ``physics`` is the caller's. ``x_cmd``
-    and ``per_env`` override the config's fields (``config.py``). Every
-    low-level period, its mass-matrix inverses and physics included, is
-    the one stage ``art.lowlevel``."""
+    and ``per_env`` override the config's fields (``config.py``). Below
+    the MPC stage the low-level loop is three stages that partition it:
+    ``art.minv`` (each mass-matrix inverse), ``art.control`` (each period's
+    feedback, soles and low-level control) and ``art.substeps`` (each
+    period's physics). On a height field the tick starts the count of
+    sole points below the ground (``profiling.start_ground_count``)."""
     if n_lowlevel % minv_ll_hold:
         raise ValueError(
             f"n_lowlevel {n_lowlevel} is not a multiple of minv_ll_hold {minv_ll_hold}"
         )
+    sim = world.sim
+    device = sim.q.device
+    if terrain is not None:
+        start_ground_count(device)
     x_fb, t_g, hold, contact, sol = _art_control_stage(
         world, biped, mpc, gait, model, terrain, x_cmd, per_env
     )
     u0 = sol.controls[:, 0]
     ll_dt = config_value(mpc, "dt", per_env) / n_lowlevel
-    sim = world.sim
     t0 = sim.t
     energy = torch.zeros_like(t0)
-    with stage("art.lowlevel"):
-        for _ in range(n_lowlevel // minv_ll_hold):
-            # one mass-matrix inverse per group of low-level periods
+    for _ in range(n_lowlevel // minv_ll_hold):
+        # one mass-matrix inverse per group of low-level periods
+        with stage("art.minv", device):
             Minv = mass_matrix_inv(model, sim.q)
-            for _ in range(minv_ll_hold):
+        for _ in range(minv_ll_hold):
+            with stage("art.control", device):
                 # gait-local low-level clock: the within-tick offset on the
                 # (possibly held) MPC gait time
                 t_ll = sim.t if not gait.contact_clock else t_g + (sim.t - t0)
@@ -288,6 +296,7 @@ def _art_tick(world: ArtWorld, biped: BipedParams, mpc: MpcConfig,
                                       gait, terrain, x_cmd, per_env)
                 # positive mechanical joint work this period (metrics.energy)
                 energy = energy + torch.sum(torch.clamp(tau * sim.qd, min=0.0), 1) * ll_dt
+            with stage("art.substeps", device):
                 sim = physics(sim, tau, Minv, ll_dt)
     return _art_post_stage(world, sim, energy, x_fb, sol, t_g, hold, mpc, x_cmd, per_env)
 
@@ -467,9 +476,9 @@ def _tick_kernel_tick(w: ArtWorld, bipeds: BipedParams, mpc: MpcConfig, gait: Ga
     x_fb, t_g, hold, contact, sol = _art_control_stage(w, bipeds, mpc, gait, model)
     sim = w.sim
     t0 = t_g if gait.contact_clock else sim.t
-    with stage("art.minv"):
+    with stage("art.minv", sim.q.device):
         Minv = mass_matrix_inv(model, sim.q)
-    with stage("art.tick_kernel"):
+    with stage("art.tick_kernel", sim.q.device):
         sim_new, energy = fused_tick(
             model, biped, mpc, gait, sim, sol.controls[:, 0], contact[:, 0, 0:2], t0,
             w.ctrl.cmd_ref[:, 2], w.ctrl.v_int, Minv, n_lowlevel, n_substeps,

@@ -18,6 +18,7 @@ import torch
 
 from biped_mpc_py_torch.sim.model import ArticulatedModel
 from biped_mpc_py_torch.utils.device import DEFAULT_DEVICE, entry_device
+from biped_mpc_py_torch.utils.profiling import count_ground_contacts
 from biped_mpc_py_torch.utils.struct import TensorStruct
 
 
@@ -70,7 +71,7 @@ class Terrain(TensorStruct):
     def height(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """Bilinear height sample at world (x, y), of their broadcast
         shape. With a field per env the queries' leading axis is the env
-        axis: (N,), (N, k), (N, k, l), ..."""
+        axis: (N,), (N, k), (N, k, l), ... A NaN query reads NaN."""
         x, y = torch.broadcast_tensors(x, y)
         H, W = self.heights.shape[-2:]
         # clipped below W - 1, so that x0 + 1 stays on the grid
@@ -78,7 +79,11 @@ class Terrain(TensorStruct):
         gy = torch.clamp((y / self.extent + 0.5) * (H - 1), 0.0, H - 1.001)
         x0f, y0f = torch.floor(gx), torch.floor(gy)
         fx, fy = gx - x0f, gy - y0f
-        x0, y0 = x0f.to(torch.int64), y0f.to(torch.int64)
+        # a query that is not a number (an env whose state diverged) converts to no
+        # index on the grid: clamped onto it, as JAX's gathers clamp, its height is
+        # NaN through fx, fy; a finite query's indices are on the grid already
+        x0 = x0f.to(torch.int64).clamp_(0, W - 2)
+        y0 = y0f.to(torch.int64).clamp_(0, H - 2)
         if self.batched:
             n = self.heights.shape[0]
             if x.dim() == 0 or x.shape[0] != n:
@@ -146,7 +151,8 @@ def contact_force_world(model: ArticulatedModel, p_w: torch.Tensor,
     v_w (...,3); zero above the ground, a smooth penalty below
     (``contact.py:113``). ``terrain=None`` is the plane z = 0. On a field
     the spring and damper act along the local surface normal and the
-    friction lives in the tangent plane."""
+    friction lives in the tangent plane, and the points below it are
+    counted (``utils/profiling.py::count_ground_contacts``)."""
     if terrain is None:
         ground = 0.0
         n = torch.zeros_like(p_w)
@@ -157,11 +163,14 @@ def contact_force_world(model: ArticulatedModel, p_w: torch.Tensor,
     phi = (p_w[..., 2] - ground) * n[..., 2]
     phi_dot = torch.sum(v_w * n, -1)  # normal approach rate
     pen = torch.clamp(-phi, min=0.0)
+    below = pen > 0
+    if terrain is not None:
+        count_ground_contacts(below)
     f_n = torch.clamp(
         model.contact_stiffness * pen
         - model.contact_damping * phi_dot * torch.sign(pen),
         min=0.0,
-    ) * (pen > 0)
+    ) * below
     v_t = v_w - phi_dot[..., None] * n  # tangent-plane slip velocity
     speed = torch.sqrt(torch.sum(v_t * v_t, -1) + model.contact_vslip**2)
     f_t = -model.contact_mu * f_n[..., None] * v_t / speed[..., None]

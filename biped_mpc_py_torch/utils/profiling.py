@@ -18,7 +18,8 @@ stages inside a captured tick.
   stages of a tick, which do not nest, partition it. :func:`stage_ms`
   reads each stage's device time in the last replay. Outside a capture a
   stage is a host span, as :func:`span`; inside :func:`tracing` it is also
-  timed on the device (:attr:`Span.device_ms`).
+  timed on its ``device`` (:attr:`Span.device_ms`): by CUDA events on a
+  CUDA device, by the host's clock on the CPU.
 
 The marks of a capture belong to its ``TickGraph`` (``TickGraph.marks``);
 the recorder keeps only those of the graph replayed last, for
@@ -29,6 +30,12 @@ the recorder keeps only those of the graph replayed last, for
   on their device: one in-place add, no host synchronization, so a
   captured tick records it into its graph and every replay adds to it.
   :func:`nonfinite_resets` reads the count on demand.
+- :func:`count_ground_contacts` adds, per substep on a height field, the
+  sole points below the ground to a counter of the same shape on their
+  device (one in-place add); :func:`start_ground_count` zeroes it at a
+  tick's start, in the graph where the tick is captured, and
+  :func:`terrain_contacts` reads the share of sole-point substeps in
+  contact in the last tick counted (the last replay of a captured one).
 """
 
 from __future__ import annotations
@@ -48,8 +55,8 @@ class Span:
     the span open around it (None at the top); ``tick`` the number given to
     its top span (``span(name, tick)``), else that top span's call number
     among the top spans of its name; ``device_ms`` a stage's device time
-    (CUDA events on the current stream where CUDA is initialized, else its
-    host time), None for a span."""
+    (CUDA events on its device's current stream for a stage on a CUDA
+    device, else its host time), None for a span."""
 
     name: str
     start_ns: int
@@ -100,12 +107,15 @@ _pending: list = []  # (Span, start event, end event) of the block's device-time
 _capture: Marks | None = None  # the marks of the TickGraph being captured
 _replayed: Marks | None = None  # the marks of the TickGraph replayed last
 _nonfinite: dict = {}  # device -> int64 count of envs reset for a non-finite state
+_ground: dict = {}  # device -> the _GroundCount of the tick counted last
+_ground_counts: list = []  # every counter made: a captured graph adds to its own for life
 
 
 class _Span:
     __slots__ = ("name", "tick", "timed", "_fast", "_rec", "_start")
 
-    def __init__(self, name: str, tick: int | None = None, timed: bool = False):
+    def __init__(self, name: str, tick: int | None = None,
+                 timed: torch.device | None = None):
         self.name, self.tick, self.timed = name, tick, timed
 
     def __enter__(self):
@@ -124,9 +134,9 @@ class _Span:
             _open.append(len(_records))
             self._rec = Span(self.name, 0, 0, parent, tick)
             _records.append(self._rec)
-            if self.timed and torch.cuda.is_initialized():
+            if self.timed is not None and self.timed.type == "cuda":
                 self._start = torch.cuda.Event(enable_timing=True)
-                self._start.record()
+                self._start.record(torch.cuda.current_stream(self.timed))
             else:
                 self._start = None
             self._rec.start_ns = time.perf_counter_ns()
@@ -139,9 +149,9 @@ class _Span:
             _open.pop()
             if self._start is not None:
                 end = torch.cuda.Event(enable_timing=True)
-                end.record()
+                end.record(torch.cuda.current_stream(self.timed))
                 _pending.append((rec, self._start, end))
-            elif self.timed:
+            elif self.timed is not None:
                 rec.device_ms = (rec.end_ns - rec.start_ns) * 1e-6
         if self._fast is not None:
             self._fast.__exit__(*exc)
@@ -157,15 +167,17 @@ def span(name: str, tick: int | None = None):
     return _Span(name, tick)
 
 
-def stage(name: str):
-    """A stage of the tick named ``name`` over the ``with`` block: marks in
-    the graph being captured, else a host span as :func:`span`, also timed
-    on the device inside :func:`tracing`."""
+def stage(name: str, device=None):
+    """A stage of the tick named ``name`` over the ``with`` block, whose
+    work runs on ``device``: marks in the graph being captured, else a host
+    span as :func:`span`, also timed inside :func:`tracing` (CUDA events on
+    a CUDA device, the host's clock on the CPU or where ``device`` is
+    None)."""
     if _capture is not None:
         return _capture.stage(name)
     if _records is None and not _autograd_profiler._is_profiler_enabled:
         return _OFF
-    return _Span(name, timed=True)
+    return _Span(name, timed=torch.device("cpu" if device is None else device))
 
 
 @contextlib.contextmanager
@@ -227,11 +239,60 @@ def count_nonfinite(reset: torch.Tensor) -> None:
     counter.add_(reset.sum())
 
 
-def nonfinite_resets(device="cuda") -> int:
-    """Envs reset for a non-finite simulator state on ``device`` since the
-    process started (0 before any); waits for the work queued on it."""
+def _indexed(device) -> torch.device:
+    """``device`` as a tensor's ``device`` names it (a CUDA device with its
+    index)."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    counter = _nonfinite.get(device)
+    return device
+
+
+def nonfinite_resets(device="cuda") -> int:
+    """Envs reset for a non-finite simulator state on ``device`` since the
+    process started (0 before any); waits for the work queued on it."""
+    counter = _nonfinite.get(_indexed(device))
     return 0 if counter is None else int(counter)
+
+
+@dataclasses.dataclass
+class _GroundCount:
+    below: torch.Tensor  # int32, per sole point: substeps below the ground this tick
+    substeps: int  # counts added since the tick's start
+
+
+def start_ground_count(device) -> None:
+    """Zero the count of sole points below the ground on ``device`` at a
+    tick's start, in place: a captured tick zeroes it at every replay."""
+    rec = _ground.get(_indexed(device))
+    if rec is not None:
+        rec.below.zero_()
+        rec.substeps = 0
+
+
+def count_ground_contacts(below: torch.Tensor) -> None:
+    """Add one substep's sole points below the ground (``below``, bool, one
+    per point) to the count on their device, by one in-place add. A counter
+    is made at the first call with a shape, which must come before any
+    capture, as :func:`count_nonfinite`'s."""
+    rec = _ground.get(below.device)
+    if rec is None or rec.below.shape != below.shape:
+        if below.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("count_ground_contacts: the counter must be made before a "
+                               "capture")
+        rec = _GroundCount(torch.zeros(below.shape, dtype=torch.int32, device=below.device), 0)
+        _ground[below.device] = rec
+        _ground_counts.append(rec.below)
+    rec.below.add_(below)
+    rec.substeps += 1
+
+
+def terrain_contacts(device="cuda") -> float | None:
+    """The share of sole-point substeps below the ground in the last tick
+    counted on ``device`` (for a captured tick, its last replay): 0 where no
+    sole point reached the ground, None before any tick on a height field.
+    Waits for the work queued on the device."""
+    rec = _ground.get(_indexed(device))
+    if rec is None or not rec.substeps:
+        return None
+    return float(rec.below.sum()) / (rec.below.numel() * rec.substeps)

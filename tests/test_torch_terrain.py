@@ -112,6 +112,25 @@ def test_height_and_normal_match_jax(per_env, shape):
     assert torch.equal(h_2, h_t) and torch.equal(n_2, n_t)
 
 
+@pytest.mark.parametrize("per_env", [False, True], ids=["shared", "per_env"])
+def test_nan_query_reads_nan_on_the_grid(per_env):
+    """A query that is not a number (a sole point of an env whose state
+    diverged) reads NaN, as JAX's clamped gathers give it, and indexes
+    nothing off the grid; the other queries of the call read as JAX."""
+    jt, tt = _terrains(per_env)
+    nan, inf = float("nan"), float("inf")
+    x = np.array([[nan, 0.3], [0.1, inf], [nan, -inf], [0.2, -0.4], [nan, 1.0], [0.0, 0.0]],
+                 np.float32)
+    y = np.array([[0.0, nan], [0.1, 0.2], [nan, 0.5], [inf, 0.3], [-1.0, nan], [0.0, 0.0]],
+                 np.float32)
+    assert x.shape == (N, 2)
+    h_t = tt.height(torch.from_numpy(x), torch.from_numpy(y))
+    h_j = np.asarray(_jax_sample(jt, per_env, "height", x, y))
+    assert np.array_equal(np.isnan(h_t.numpy()), np.isnan(x) | np.isnan(y))
+    assert np.array_equal(np.isnan(h_j), np.isnan(x) | np.isnan(y))
+    _close(h_t.nan_to_num(), np.nan_to_num(h_j), 1e-6, name="height")
+
+
 def test_height_edges_and_broadcast():
     """Beyond the grid the ground is flat at the edge value, a shared field
     broadcasts x against y, and a per-env field refuses queries that do not

@@ -3,15 +3,19 @@ stages of a tick and the one-robot loop's per-period spans.
 
 On the CPU: with tracing off neither kind of span calls into
 ``torch.profiler``; inside ``tracing()`` an SRB tick records its six stages
-and a tick-kernel articulated tick its eight, once each and in order, and
-a 2-tick ``RealtimeLoop`` its per-period spans; under a CPU profiler the
-spans are among its host events.
+and a tick-kernel articulated tick its eight, once each and in order, the
+plain chain's tick on a field per env its MPC stages, then ``art.minv``
+and per period ``art.control`` and ``art.substeps``, then the post stage,
+and a 2-tick ``RealtimeLoop`` its per-period spans; under a CPU profiler
+the spans are among its host events. The count of sole points below the
+ground reads 0 on a field under the soles' reach and more on a rough one.
 
 On the card (``cuda``-marked; the file imports no JAX):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_tracing.py
 
-After a replay every stage reads > 0 ms and the stages add up, within 5%,
+After a replay (the SRB tick, the tick path and the plain chain on a field
+per env) every stage reads > 0 ms and the stages add up, within 5%,
 to the replay's time between its first and last boundary; the QP kernel's
 stage is within 3% of the kernel's device time in a profiler trace of the
 same graph; a capture with the marks steps bit-equal to one without; and
@@ -37,6 +41,8 @@ SRB_STAGES = ["mpc.build", "qp.ruiz", "qp.kernel", "qp.unscale", "srb.step", "ti
 ART_STAGES = ["art.feedback", "mpc.build", "qp.ruiz", "qp.kernel", "qp.unscale", "art.minv",
               "art.tick_kernel", "tick.post"]
 PERIOD = ["realtime.read", "realtime.lowlevel", "realtime.torques", "realtime.apply"]
+# the plain chain at 8 periods a tick, Minv held all tick
+PLAIN_STAGES = ART_STAGES[:5] + ["art.minv"] + ["art.control", "art.substeps"] * 8 + ["tick.post"]
 
 
 class _Plant:
@@ -82,6 +88,21 @@ def _art_tick(n=2, device=CPU):
     return bt.batched_art_rollout_tick_kernel(w, b, 1, mpc, gait)
 
 
+def _fields(n, device, below=None):
+    """One 0.04 m rough field per env, or flat fields ``below`` m under the
+    standing soles."""
+    if below is not None:
+        return bt.Terrain(torch.full((n, 16, 16), -below, device=device))
+    gen = torch.Generator(device=device).manual_seed(7)
+    return bt.Terrain.rough_batch(gen, n, amplitude=0.04, res=16, device=device)
+
+
+def _terrain_tick(n=2, device=CPU, below=None):
+    mpc, gait, w, b = _art(n, device)
+    return bt.batched_art_rollout_terrain(w, b, _fields(n, device, below), 1, mpc, gait,
+                                          n_substeps=5, minv_ll_hold=8)
+
+
 def _loop(device):
     mpc, _ = _art_config()
     loop = bt.RealtimeLoop(mpc, bt.GaitConfig(), bt.BipedParams(), device=device)
@@ -118,6 +139,26 @@ def test_tick_kernel_tick_records_its_eight_stages():
         _art_tick()
     assert [s.name for s in spans] == ART_STAGES
     assert all(a.end_ns <= b.start_ns for a, b in zip(spans, spans[1:]))
+
+
+def test_plain_chain_tick_partitions_its_lowlevel_loop():
+    """On a field per env: the MPC stages, then ``art.minv`` once (Minv held
+    all tick) and ``art.control`` and ``art.substeps`` each period, then
+    the post stage; none nested, in order, none overlapping."""
+    with profiling.tracing() as spans:
+        _terrain_tick()
+    assert [s.name for s in spans] == PLAIN_STAGES
+    assert all(s.parent is None for s in spans)
+    assert all(a.end_ns <= b.start_ns for a, b in zip(spans, spans[1:]))
+
+
+@pytest.mark.parametrize("below", [0.1, None], ids=["flat_below_the_soles", "rough"])
+def test_terrain_contacts_count_the_soles_below_the_ground(below):
+    """No sole point reaches a flat field 0.1 m under the standing soles in a
+    tick; on a rough field the stance soles sink into it."""
+    _terrain_tick(below=below)
+    share = profiling.terrain_contacts(CPU)
+    assert share == 0.0 if below else 0.0 < share <= 1.0, share
 
 
 def test_realtime_loop_records_each_period():
@@ -165,23 +206,28 @@ def _graph(path, n, device, ticks=3):
     capture and ``ticks`` replays); returns (fn, its inputs, its TickGraph)."""
     if path == "srb":
         mpc, gait, w, b = _srb(n, device)
-        fn = bt.batched_rollout_fn(ticks, mpc, gait)
+        fn, args = bt.batched_rollout_fn(ticks, mpc, gait), (w, b)
+    elif path == "tick":
+        mpc, gait, w, b = _art(n, device)
+        fn, args = bt.batched_art_rollout_tick_kernel_fn(ticks, mpc, gait), (w, b)
     else:
         mpc, gait, w, b = _art(n, device)
-        fn = bt.batched_art_rollout_tick_kernel_fn(ticks, mpc, gait)
+        fn = bt.batched_art_rollout_terrain_fn(ticks, mpc, gait, n_substeps=5, minv_ll_hold=8)
+        args = (w, b, _fields(n, device))
     with f32_matmul():
-        fn(w, b)
-    return fn, (w, b), next(iter(fn.graphs.values()))
+        fn(*args)
+    return fn, args, next(iter(fn.graphs.values()))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path, names", [("srb", SRB_STAGES), ("tick", ART_STAGES)])
+@pytest.mark.parametrize("path, names", [("srb", SRB_STAGES), ("tick", ART_STAGES),
+                                         ("terrain", PLAIN_STAGES)])
 def test_stage_ms_after_a_replay(cuda, path, names):
     _, _, g = _graph(path, 1024, cuda)
     g.replay()
     ms = profiling.stage_ms()
     assert g.marks.names == names and len(g.marks.events) == len(names) + 1
-    assert sorted(ms) == sorted(names) and all(v > 0 for v in ms.values()), ms
+    assert sorted(ms) == sorted(set(names)) and all(v > 0 for v in ms.values()), ms
     whole = g.marks.events[0].elapsed_time(g.marks.events[-1])
     assert sum(ms.values()) == pytest.approx(whole, rel=0.05)
 
@@ -203,7 +249,7 @@ def test_qp_kernel_stage_is_the_kernel(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", ["srb", "tick"])
+@pytest.mark.parametrize("path", ["srb", "tick", "terrain"])
 def test_marks_leave_the_tick_bit_equal(cuda, path, monkeypatch):
     fn, args, g = _graph(path, 256, cuda)
     assert g.marks.names
