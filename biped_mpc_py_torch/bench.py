@@ -41,12 +41,13 @@ It reads the variables of ``bench.py`` with the same defaults:
 Where it differs from ``bench.py``:
 
 - **The path rule.** A terrain (``BENCH_TERRAIN`` > 0) takes the terrain
-  path (``batched_art_rollout_terrain_fn``: the plain chain, as no physics
-  kernel knows a terrain). Otherwise ``BENCH_ART_BACKEND`` picks it, and
-  its default is ``tick`` when ``BENCH_MINV_HOLD`` is 8 and ``kernel``
-  otherwise, at any env count: ``bench.py:194-200`` falls back to ``xla``
-  unless the envs are whole 1024-env blocks, a TPU tiling rule that the
-  CUDA kernels do not have. ``tick`` is ``batched_art_rollout_tick_kernel_fn``,
+  path (``batched_art_rollout_terrain_fn``: each low-level period's
+  substeps one launch of the substep kernel's field variant, the low-level
+  control plain; the tick kernel knows flat ground only). Otherwise
+  ``BENCH_ART_BACKEND`` picks it, and its default is ``tick`` when
+  ``BENCH_MINV_HOLD`` is 8 and ``kernel`` otherwise, at any env count:
+  ``bench.py:194-200`` falls back to ``xla`` unless the envs are whole
+  1024-env blocks, a TPU tiling rule that the CUDA kernels do not have. ``tick`` is ``batched_art_rollout_tick_kernel_fn``,
   ``kernel`` ``batched_art_rollout_kernel_fn`` and ``xla`` the plain chain
   ``batched_art_rollout_fn``; the JSON's ``path`` names them ``tick``,
   ``kernel``, ``plain`` and ``terrain``, and ``srb`` the SRB loop.

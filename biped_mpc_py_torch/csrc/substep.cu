@@ -1,10 +1,10 @@
 // Fused articulated physics substeps of a batch of HECTOR envs, for Hopper
-// (sm_90a).
+// (sm_90a): two kernels, one per ground.
 //
-// Replaces the TPU kernel biped_mpc_py_tpu/ops/pallas/substep_kernel.py::
-// fused_substeps. One launch advances every env by n_steps semi-implicit
-// substeps of dt under held joint torques tau (10) and a held mass-matrix
-// inverse Minv (16x16), on the plane z = 0. Each substep:
+// substep_kernel<false> replaces the TPU kernel biped_mpc_py_tpu/ops/pallas/
+// substep_kernel.py::fused_substeps. One launch advances every env by n_steps
+// semi-implicit substeps of dt under held joint torques tau (10) and a held
+// mass-matrix inverse Minv (16x16), on the plane z = 0. Each substep:
 //
 //   per leg, 5 levels: joint rotation, world pose, body velocity and
 //     acceleration (gravity trick: the base accelerates up by g), body
@@ -59,11 +59,54 @@
 // Not done: a finer split (toe and heel), constants as instruction operands
 // (a __constant__ copy per launch costs more than the shared loads it saves
 // here), Minv's symmetry.
+//
+// substep_kernel<true> runs the same substeps on a height field per env: the
+// contact of sim/contact.py on a Terrain (substep_device.cuh::Field: five
+// bilinear height samples per toe or heel point and substep, the normal by
+// central differences, normal force and friction along it). It replaces no
+// TPU kernel: the JAX package, like the port before it, steps a height field
+// with the plain chain (sim/engine.py::art_step), whose 5 substeps a period
+// are ~2,400 small ATen kernels on this card, 70% of a rough-ground tick at
+// 4096 envs. Beyond the flat kernel's work it writes t as the plain chain
+// does (n_steps f32 additions of dt) and counts, per sole point, the substeps
+// that begin below the ground into the caller's counter
+// (utils/profiling.py's ground count), each lane its own leg's two entries,
+// so no atomics.
+//
+// What bounds it: latency, as the flat kernel. An env a launch reads ~3 KB
+// (state, Minv, 400 height-corner loads from its 16 KB field: 20 a sole
+// point and substep) and runs ~25k operations; at 4096 envs that is ~12 MB
+// and ~0.1 GOP, ~0.004 ms at the card's rates. What the field adds to the
+// chain is a memory round trip per substep: the 4096 fields (64 MB at 64 x
+// 64) do not fit the 50 MB L2, so a point's samples come from HBM on first
+// touch.
+//
+// What the design does about it: the flat kernel's lanes, staging and code,
+// with the ground a template parameter of substep(); a point's 20 corner
+// loads (5 samples x 4) issued together by __ldg before any is used, so that
+// the point waits for one memory round trip, not five; the per-launch field
+// constants are kernel parameters (FieldArgs).
 
 #include "substep_device.cuh"
 
 namespace {
 
+// What the field kernel takes besides the flat kernel's inputs: t and its
+// output, the heights (n_env, H, W) with the grid's extent and half-cell
+// steps, and the (n_env, 2, 2) int32 count of sole points below the ground,
+// added to in place. The flat kernel reads none of it.
+struct FieldArgs {
+  const float* __restrict__ t_in;
+  const float* __restrict__ heights;
+  float* __restrict__ t_out;
+  int* __restrict__ below_count;
+  int H, W;
+  float extent, eps_x, eps_y;
+};
+
+// n_steps substeps of every env, on the plane (kOnField false) or on the
+// env's height field (kOnField true).
+template <bool kOnField>
 __global__ void __launch_bounds__(kThreads)
 substep_kernel(const float* __restrict__ consts, const float* __restrict__ pos_in,
                const float* __restrict__ quat_in, const float* __restrict__ vb_in,
@@ -71,7 +114,7 @@ substep_kernel(const float* __restrict__ consts, const float* __restrict__ pos_i
                const float* __restrict__ tau_in, const float* __restrict__ minv_in,
                float* __restrict__ pos_out, float* __restrict__ quat_out,
                float* __restrict__ vb_out, float* __restrict__ q_out,
-               float* __restrict__ qd_out, int n_env, float dt, int n_steps) {
+               float* __restrict__ qd_out, int n_env, float dt, int n_steps, FieldArgs fa) {
   __shared__ __align__(16) float S[kNStaged];
   __shared__ __align__(16) float M[kEnvsPerBlock * kMinvStride];
   const int e0 = blockIdx.x * kEnvsPerBlock;
@@ -96,13 +139,27 @@ substep_kernel(const float* __restrict__ consts, const float* __restrict__ pos_i
     qd5[l] = qd_in[j0 + l];
     tau5[l] = tau_in[j0 + l];
   }
+  float t = 0.f;
+  if constexpr (kOnField) t = fa.t_in[e];
+  const Field field{fa.heights + static_cast<size_t>(e) * fa.H * fa.W, fa.H, fa.W, fa.extent,
+                    fa.eps_x, fa.eps_y};
   joint_sincos(q5, cs, sn);
   async_wait<0>();
 
   const float* minv = M + kMinvStride * slot;
+  int toe = 0, heel = 0;
 #pragma unroll 1
-  for (int s = 0; s < n_steps; ++s)
-    substep(S, leg, minv, pos, quat, vb, q5, qd5, cs, sn, tau5, dt, s + 1 < n_steps);
+  for (int s = 0; s < n_steps; ++s) {
+    int below = 0;
+    if constexpr (kOnField)
+      below = substep(S, leg, minv, pos, quat, vb, q5, qd5, cs, sn, tau5, dt, s + 1 < n_steps,
+                      field);
+    else
+      substep(S, leg, minv, pos, quat, vb, q5, qd5, cs, sn, tau5, dt, s + 1 < n_steps);
+    toe += below & 1;
+    heel += below >> 1;
+    t += dt;  // the plain chain's t + dt at every substep (the field kernel's t)
+  }
 
   if (e_own < n_env) {
     if (leg == 0) {  // the pair's copies are bit-equal: lane 0 writes the base
@@ -112,11 +169,17 @@ substep_kernel(const float* __restrict__ consts, const float* __restrict__ pos_i
       for (int i = 0; i < 4; ++i) quat_out[4 * e + i] = quat[i];
 #pragma unroll
       for (int i = 0; i < 6; ++i) vb_out[6 * e + i] = vb[i];
+      if constexpr (kOnField) fa.t_out[e] = t;
     }
 #pragma unroll
     for (int l = 0; l < 5; ++l) {
       q_out[j0 + l] = q5[l];
       qd_out[j0 + l] = qd5[l];
+    }
+    if constexpr (kOnField) {
+      int* count = fa.below_count + 4 * e + 2 * leg;  // the lane's own two entries
+      count[0] += toe;
+      count[1] += heel;
     }
   }
 }
@@ -138,9 +201,33 @@ extern "C" int substep_launch(const float* consts, const float* pos, const float
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (n_env + kEnvsPerBlock - 1) / kEnvsPerBlock;
-  substep_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  substep_kernel<false><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       consts, pos, quat, v_base, q, qd, tau, minv, pos_out, quat_out, v_base_out, q_out,
-      qd_out, n_env, dt, n_steps);
+      qd_out, n_env, dt, n_steps, FieldArgs{});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The field kernel's launch, as substep_launch's; `heights` is (n_env, H, W)
+// with H, W >= 2, `below_count` (n_env, 2, 2) int32.
+extern "C" int substep_field_launch(const float* consts, const float* pos, const float* quat,
+                                    const float* v_base, const float* q, const float* qd,
+                                    const float* tau, const float* minv, const float* t,
+                                    const float* heights, float* pos_out, float* quat_out,
+                                    float* v_base_out, float* q_out, float* qd_out,
+                                    float* t_out, int* below_count, int n_env, int H, int W,
+                                    float extent, float eps_x, float eps_y, float dt,
+                                    int n_steps, int device, void* stream) {
+  if (n_env < 0 || n_steps < 1 || H < 2 || W < 2 ||
+      (reinterpret_cast<size_t>(minv) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_env == 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (n_env + kEnvsPerBlock - 1) / kEnvsPerBlock;
+  substep_kernel<true><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      consts, pos, quat, v_base, q, qd, tau, minv, pos_out, quat_out, v_base_out, q_out,
+      qd_out, n_env, dt, n_steps,
+      FieldArgs{t, heights, t_out, below_count, H, W, extent, eps_x, eps_y});
   return static_cast<int>(cudaGetLastError());
 }
 

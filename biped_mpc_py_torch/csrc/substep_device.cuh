@@ -9,6 +9,12 @@
 // it computes and what bounds it. Everything here has internal linkage: each
 // kernel source includes it once and builds into its own library.
 //
+// The ground is a template parameter of substep(): Plane, the plane z = 0
+// (the flat kernels, and the TPU kernels' only ground), or Field, one env's
+// height field (substep.cu's substep_kernel<true>). The two share every
+// line of the substep but the contact force at a toe or heel point, which
+// each computes from the point's world position and velocity.
+//
 // The lane split. An env belongs to two neighbouring lanes of a warp (lane
 // 2s and 2s + 1 hold slot s of the block's 16 envs), one per leg. A lane
 // keeps its own leg's five joints (q, qd, tau, their cos and sin) and a copy
@@ -294,15 +300,117 @@ __device__ __forceinline__ float minv_row(const float* __restrict__ row, const f
   return acc;
 }
 
+// The plane z = 0: spring-damper normal force gated by penetration,
+// regularized Coulomb friction in the plane. contact() takes a point's world
+// position pt and velocity vp, writes its world force fw and returns whether
+// the point is below the ground.
+struct Plane {
+  __device__ __forceinline__ bool contact(const float pt[3], const float vp[3], float stiff,
+                                          float damp, float mu, float vslip2,
+                                          float fw[3]) const {
+    const float pen = fmaxf(-pt[2], 0.f);
+    const float in_c = pen > 0.f ? 1.f : 0.f;
+    const float fn = fmaxf(stiff * pen - damp * vp[2] * in_c, 0.f) * in_c;
+    const float speed = sqrtf(vp[0] * vp[0] + vp[1] * vp[1] + vslip2);
+    const float scale = -mu * fn / speed;
+    fw[0] = scale * vp[0]; fw[1] = scale * vp[1]; fw[2] = fn;
+    return in_c > 0.f;
+  }
+};
+
+// Where a query lies on one axis of a height field of n >= 2 samples over
+// `extent` meters (sim/contact.py::Terrain.height): the grid coordinate
+// clamped below n - 1 so that the cell's far corner stays on the grid, the
+// cell's index i0 and the fraction f into it. A NaN query gives the fraction
+// NaN, so its height reads NaN, and the index 0: fminf and fmaxf drop a NaN
+// and a float-to-int conversion of one is undefined, so the index is taken
+// from a NaN-free value and clamped as an integer.
+__device__ __forceinline__ void grid_axis(float x, float extent, int n, float& f, int& i0) {
+  const float g = (x / extent + 0.5f) * static_cast<float>(n - 1);
+  const float hi = static_cast<float>(n - 1.001);  // as torch casts the Python float
+  const float gc = isnan(g) ? g : fminf(fmaxf(g, 0.f), hi);
+  const float g0 = floorf(gc);
+  f = gc - g0;
+  i0 = min(max(__float2int_rz(fmaxf(g0, 0.f)), 0), n - 2);
+}
+
+// clamp(x, min=0) that keeps a NaN, as torch.clamp does
+__device__ __forceinline__ float clamp0(float x) { return x < 0.f ? 0.f : x; }
+
+// One env's height field: H x W heights (row-major, y by x) over extent x
+// extent meters centred on the origin, sampled bilinearly, with contact along
+// the surface normal (sim/contact.py::contact_force_world on a Terrain):
+//   h, n    the height and the normal from five bilinear samples, the
+//           gradient by central differences at a half-cell step (eps)
+//   phi = (p_z - h) n_z, phi_dot = v.n, pen = max(-phi, 0)
+//   f_n = max(k pen - d phi_dot sign(pen), 0) (pen > 0)
+//   f = f_n n + f_t, f_t = -mu f_n v_t / sqrt(|v_t|^2 + vslip^2), v_t = v - phi_dot n
+// The friction's factor -mu f_n / speed is formed first, as Plane forms
+// it. A NaN point gives a NaN force, as the plain version does (fmaxf would
+// drop the NaN).
+struct Field {
+  const float* __restrict__ h;  // the env's heights
+  int H, W;
+  float extent, eps_x, eps_y;
+
+  __device__ __forceinline__ bool contact(const float pt[3], const float vp[3], float stiff,
+                                          float damp, float mu, float vslip2,
+                                          float fw[3]) const {
+    // the five samples: centre, x + eps, x - eps, y + eps, y - eps; each
+    // one's four corners are loaded together, all twenty before any is used,
+    // so that the point waits for one round trip to memory
+    const float sx[5] = {pt[0], pt[0] + eps_x, pt[0] - eps_x, pt[0], pt[0]};
+    const float sy[5] = {pt[1], pt[1], pt[1], pt[1] + eps_y, pt[1] - eps_y};
+    float fx[5], fy[5], c[5][4];
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+      int ix, iy;
+      grid_axis(sx[j], extent, W, fx[j], ix);
+      grid_axis(sy[j], extent, H, fy[j], iy);
+      const float* p = h + iy * W + ix;
+      c[j][0] = __ldg(p); c[j][1] = __ldg(p + 1);
+      c[j][2] = __ldg(p + W); c[j][3] = __ldg(p + W + 1);
+    }
+    float hs[5];
+#pragma unroll
+    for (int j = 0; j < 5; ++j)
+      hs[j] = c[j][0] * (1.f - fx[j]) * (1.f - fy[j]) + c[j][1] * fx[j] * (1.f - fy[j]) +
+              c[j][2] * (1.f - fx[j]) * fy[j] + c[j][3] * fx[j] * fy[j];
+    const float dhdx = (hs[1] - hs[2]) / (2.f * eps_x);
+    const float dhdy = (hs[3] - hs[4]) / (2.f * eps_y);
+    const float nrm = sqrtf(dhdx * dhdx + dhdy * dhdy + 1.f);
+    const float n[3] = {-dhdx / nrm, -dhdy / nrm, 1.f / nrm};
+
+    const float phi = (pt[2] - hs[0]) * n[2];
+    const float phi_dot = vp[0] * n[0] + vp[1] * n[1] + vp[2] * n[2];
+    const float pen = clamp0(-phi);
+    // in_c stands for sign(pen) too: they differ only at a NaN pen, where k
+    // pen is NaN already
+    const float in_c = pen > 0.f ? 1.f : 0.f;
+    const float fn = clamp0(stiff * pen - damp * phi_dot * in_c) * in_c;
+    float vt[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) vt[i] = vp[i] - phi_dot * n[i];
+    const float speed = sqrtf(vt[0] * vt[0] + vt[1] * vt[1] + (vt[2] * vt[2] + vslip2));
+    const float scale = -mu * fn / speed;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) fw[i] = fn * n[i] + scale * vt[i];
+    return in_c > 0.f;
+  }
+};
+
 // One semi-implicit substep of one env, in place on the registers of the
 // lane that holds leg `leg` (0 or 1) of it; both lanes of the pair call it
 // together. S: the staged model; minv: the env's Minv in shared memory; cs,
-// sn: cos and sin of q5 on entry, and of the new q5 on exit if `refresh`.
-__device__ __forceinline__ void substep(const float* __restrict__ S, int leg,
-                                        const float* __restrict__ minv, float pos[3],
-                                        float quat[4], float vb[6], float q5[5], float qd5[5],
-                                        float cs[5], float sn[5], const float tau5[5], float dt,
-                                        bool refresh) {
+// sn: cos and sin of q5 on entry, and of the new q5 on exit if `refresh`;
+// ground: what the leg's toe and heel touch. Returns the leg's points below
+// the ground at the substep's start: bit 0 the toe, bit 1 the heel.
+template <class Ground = Plane>
+__device__ __forceinline__ int substep(const float* __restrict__ S, int leg,
+                                       const float* __restrict__ minv, float pos[3],
+                                       float quat[4], float vb[6], float q5[5], float qd5[5],
+                                       float cs[5], float sn[5], const float tau5[5], float dt,
+                                       bool refresh, const Ground& ground = Ground()) {
   float R0[3][3];
   quat_to_rotm(quat, R0);
   const float4 sc0 = ld4(S + kSScalar), sc1 = ld4(S + kSScalar + 4);
@@ -340,8 +448,9 @@ __device__ __forceinline__ void substep(const float* __restrict__ S, int leg,
     body_force(B, v, a, fs[l]);
   }
 
-  // toe/heel contact on z = 0; Rw, pw, v are now the foot's
+  // toe/heel contact with the ground; Rw, pw, v are now the foot's
   float n_sum[3] = {0.f, 0.f, 0.f}, f_sum[3] = {0.f, 0.f, 0.f};
+  int below = 0;
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     const float4 r4 = ld4(S + kSContact + 4 * (2 * leg + k));
@@ -354,12 +463,8 @@ __device__ __forceinline__ void substep(const float* __restrict__ S, int leg,
       pt[i] = pw[i] + (Rw[i][0] * rr[0] + Rw[i][1] * rr[1] + Rw[i][2] * rr[2]);
       vp[i] = Rw[i][0] * vpb[0] + Rw[i][1] * vpb[1] + Rw[i][2] * vpb[2];
     }
-    const float pen = fmaxf(-pt[2], 0.f);
-    const float in_c = pen > 0.f ? 1.f : 0.f;
-    const float fn = fmaxf(stiff * pen - damp * vp[2] * in_c, 0.f) * in_c;
-    const float speed = sqrtf(vp[0] * vp[0] + vp[1] * vp[1] + vslip2);
-    const float scale = -mu * fn / speed;
-    const float fw[3] = {scale * vp[0], scale * vp[1], fn};
+    float fw[3];
+    if (ground.contact(pt, vp, stiff, damp, mu, vslip2, fw)) below |= 1 << k;
     float fb[3], nb[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) fb[i] = Rw[0][i] * fw[0] + Rw[1][i] * fw[1] + Rw[2][i] * fw[2];
@@ -456,6 +561,7 @@ __device__ __forceinline__ void substep(const float* __restrict__ S, int leg,
 #pragma unroll
   for (int l = 0; l < 5; ++l) q5[l] += qd5[l] * dt;
   if (refresh) joint_sincos(q5, cs, sn);
+  return below;
 }
 
 }  // namespace

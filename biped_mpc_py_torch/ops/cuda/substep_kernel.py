@@ -4,17 +4,23 @@ Counterpart of ``biped_mpc_py_tpu/ops/pallas/substep_kernel.py::
 fused_substeps``. :func:`fused_substeps` advances a batch of
 :class:`~biped_mpc_py_torch.sim.engine.ArtState` by ``n_steps``
 semi-implicit substeps of ``dt / n_steps`` under held joint torques and a
-held mass-matrix inverse, on flat ground: leg FK and velocities, toe/heel
-penalty contact, joint-limit and damping torques, the RNEA bias with the
-gravity trick, qdd = Minv (tau - bias), and the Euler step with the
-exponential-map quaternion update. ``t`` advances by ``dt`` once, on the
-host side, as in the JAX wrapper.
+held mass-matrix inverse: leg FK and velocities, toe/heel penalty contact,
+joint-limit and damping torques, the RNEA bias with the gravity trick,
+qdd = Minv (tau - bias), and the Euler step with the exponential-map
+quaternion update. On flat ground (``terrain=None``, the TPU kernel's only
+ground) ``t`` advances by ``dt`` once, on the host side, as in the JAX
+wrapper. On a height field per env (``terrain``, (N, H, W)) the contact acts
+along the surface normal, ``t`` advances by ``dt / n_steps`` at every
+substep and the sole points below the ground are counted, all as
+``sim/engine.py::art_step`` does: the JAX package steps a field with that
+plain chain only.
 
 Tensors on the card go to the CUDA kernel in ``csrc/substep.cu`` (two
 lanes per env, one per leg; the mass-matrix inverses staged in shared
-memory), built with ``nvcc`` at first use (``ops/cuda/build.py``).
-Tensors on the CPU go to :func:`fused_substeps_reference`, a loop of
-``sim/engine.py::art_substep``. Nothing else chooses between the two.
+memory; one instantiation per ground), built with ``nvcc`` at first use
+(``ops/cuda/build.py``). Tensors on the CPU go to
+:func:`fused_substeps_reference`, a loop of ``sim/engine.py::art_substep``,
+or on a field to ``art_step`` itself. Nothing else chooses between the two.
 
 The kernel reads the model from a small constant buffer
 (:func:`model_constants`), so the model is a runtime input, not a
@@ -33,19 +39,26 @@ import torch
 
 from biped_mpc_py_torch.ops.cuda import build
 from biped_mpc_py_torch.sim.dynamics import GRAVITY
-from biped_mpc_py_torch.sim.engine import ArtState, art_substep
+from biped_mpc_py_torch.sim.engine import ArtState, art_step, art_substep
 from biped_mpc_py_torch.sim.model import ArticulatedModel
 from biped_mpc_py_torch.sim.spatial import spatial_inertia
+from biped_mpc_py_torch.utils import profiling
 
 SOURCE = build.CSRC / "substep.cu"
 # the constant buffer's layout, mirrored in csrc/substep.cu
 N_CONSTS = 30 + 12 + 11 * 36 + 8 + 20  # 466 floats
 
-_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
-# the library's C interface: {name: (argtypes, restype)}
-FUNCTIONS = {
-    "substep_launch": ([_PTR] * 13 + [_I32, ctypes.c_float, _I32, _I32, _PTR], _I32),
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the library's C interface: {name: (argtypes, restype)}; FLAT_FUNCTIONS
+# without the field kernel's launch, which a source of the flat kernel alone
+# lacks
+FLAT_FUNCTIONS = {
+    "substep_launch": ([_PTR] * 13 + [_I32, _F32, _I32, _I32, _PTR], _I32),
     "substep_error_string": ([_I32], ctypes.c_char_p),
+}
+FUNCTIONS = {
+    **FLAT_FUNCTIONS,
+    "substep_field_launch": ([_PTR] * 17 + [_I32] * 3 + [_F32] * 4 + [_I32, _I32, _PTR], _I32),
 }
 
 _lib = None
@@ -111,6 +124,28 @@ def _check(state: ArtState, tau, Minv):
     return n
 
 
+def _check_field(terrain, state: ArtState, n: int, device) -> torch.Tensor:
+    """The heights of a field per env that the field kernel takes: (n, H, W)
+    with H, W >= 2, float32, contiguous, on ``device``; the kernel also
+    steps ``state.t``, (n,) float32."""
+    if state.t.dtype != torch.float32 or tuple(state.t.shape) != (n,):
+        raise ValueError(f"t must be ({n},) float32, got {tuple(state.t.shape)} {state.t.dtype}")
+    h = terrain.heights
+    if not terrain.batched:
+        raise ValueError("the substep kernel takes a height field per env, (N, H, W), not "
+                         "one shared field (run art_step)")
+    if h.shape[0] != n or min(h.shape[1:]) < 2:
+        raise ValueError(f"terrain.heights has shape {tuple(h.shape)}, want ({n}, H, W) "
+                         "with H, W >= 2")
+    if h.dtype != torch.float32:
+        raise TypeError(f"terrain.heights must be float32, got {h.dtype}")
+    if h.device != device:
+        raise ValueError(f"terrain.heights is on {h.device}, q on {device}")
+    if not h.is_contiguous():
+        raise ValueError("terrain.heights must be contiguous")
+    return h
+
+
 def fused_substeps(model: ArticulatedModel, state: ArtState, tau: torch.Tensor,
                    Minv: torch.Tensor, dt: float, n_steps: int,
                    terrain=None) -> ArtState:
@@ -122,46 +157,64 @@ def fused_substeps(model: ArticulatedModel, state: ArtState, tau: torch.Tensor,
       tau: (N,10) joint torques, held across the substeps.
       Minv: (N,16,16) held mass-matrix inverse.
       dt: the full period [s], one float for the batch.
-      terrain: must be None. The kernel knows the plane z = 0 only, as the
-        TPU kernel does; a height field runs ``art_step``'s plain chain.
+      terrain: None for the plane z = 0, or a ``sim.contact.Terrain`` with a
+        field per env: ``heights`` (N, H, W), float32, contiguous, on the
+        state's device, H and W >= 2.
 
-    CUDA tensors launch the kernel (and count the launch in
-    ``fused_substeps.launches``; a CUDA-graph replay of a captured launch adds to it too,
-    ``utils/graphs.py``); CPU tensors run
-    :func:`fused_substeps_reference`. Raises ValueError on a terrain and on
-    a per-env ``dt`` (a tensor): the kernel takes one step per launch, and
-    a sweep over ``dt`` runs ``art_step``'s plain chain.
+    CUDA tensors launch the flat kernel, or on a field the field kernel (and
+    count the launch in ``fused_substeps.launches``; a CUDA-graph replay of a
+    captured launch adds to it too, ``utils/graphs.py``); CPU tensors run
+    :func:`fused_substeps_reference`, or on a field ``art_step(model, state,
+    tau, dt, n_steps, terrain, Minv=Minv)``. On a field the sole points below
+    the ground are counted as the plain chain counts them
+    (``utils/profiling.py::terrain_contacts``). Raises ValueError on a
+    shared (H, W) field and on a per-env ``dt`` (a tensor): those run
+    ``art_step``'s plain chain.
     """
-    if terrain is not None:
-        raise ValueError("the substep kernel runs on flat ground only (terrain is None)")
     if isinstance(dt, torch.Tensor):
         raise ValueError("the substep kernel takes one dt per launch, not a per-env "
                          "tensor (run art_closed_loop_tick)")
     n = _check(state, tau, Minv)
+    device = state.q.device
+    heights = None if terrain is None else _check_field(terrain, state, n, device)
     if n_steps < 1:
         raise ValueError("n_steps must be >= 1")
-    device = state.q.device
     if device.type == "cpu":
+        if terrain is not None:
+            return art_step(model, state, tau, dt, n_steps, terrain, Minv=Minv)
         return fused_substeps_reference(model, state, tau, Minv, dt, n_steps)
     if device.type != "cuda":
         raise ValueError(f"fused_substeps runs on cuda or cpu, not {device}")
     ins = [t.contiguous() for t in (state.pos, state.quat, state.v_base,
                                     state.q, state.qd, tau, Minv)]
     outs = [torch.empty_like(t) for t in ins[:5]]
+    sub_dt = dt / n_steps
+    if terrain is None:
+        t = state.t + dt
+    else:
+        t_in = state.t.contiguous()
+        t = torch.empty_like(t_in)
+        below = profiling.ground_counter((n, 2, 2), device, n_steps)
     if n > 0:
         lib = _load()
-        rc = lib.substep_launch(
-            _constants(model, device).data_ptr(), *[t.data_ptr() for t in ins + outs],
-            n, float(dt / n_steps), int(n_steps),
-            device.index if device.index is not None else torch.cuda.current_device(),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        stream = torch.cuda.current_stream(device).cuda_stream
+        consts = _constants(model, device).data_ptr()
+        if terrain is None:
+            rc = lib.substep_launch(consts, *[x.data_ptr() for x in ins + outs], n,
+                                    float(sub_dt), int(n_steps), index, stream)
+        else:
+            H, W = heights.shape[1:]
+            rc = lib.substep_field_launch(
+                consts, *[x.data_ptr() for x in ins + [t_in, heights] + outs + [t, below]],
+                n, H, W, float(terrain.extent), 0.5 * terrain.extent / (W - 1),
+                0.5 * terrain.extent / (H - 1), float(sub_dt), int(n_steps), index, stream,
+            )
         if rc != 0:
             msg = lib.substep_error_string(rc).decode()
             raise RuntimeError(f"substep kernel launch failed: {msg} ({rc})")
         fused_substeps.launches += 1
-    return ArtState(pos=outs[0], quat=outs[1], v_base=outs[2], q=outs[3],
-                    qd=outs[4], t=state.t + dt)
+    return ArtState(pos=outs[0], quat=outs[1], v_base=outs[2], q=outs[3], qd=outs[4], t=t)
 
 
 fused_substeps.launches = 0

@@ -23,13 +23,17 @@ fused substep kernel once per low-level period (the counterpart of
 :func:`batched_art_rollout` runs the plain ``art_step`` chain (the
 counterpart of ``batched_art_rollout_fn``), on the plane z = 0 or on one
 height field under every env; :func:`batched_art_rollout_terrain` runs the
-same chain with a height field per env (the counterpart of
-``batched_art_rollout_terrain_fn`` and of ``bench.py BENCH_TERRAIN``). The
-two kernels know flat ground only, as the TPU kernels do, so a terrain runs
-the plain chain in both packages. :func:`batched_art_rollout_tick_kernel_fn`
+same tick with a height field per env (the counterpart of
+``batched_art_rollout_terrain_fn`` and of ``bench.py BENCH_TERRAIN``), each
+low-level period's substeps in one launch of the substep kernel's field
+variant on the card (``fused_substeps(terrain=)``; ``art_step`` on the
+CPU). The TPU kernels know flat ground only, so the JAX package runs every
+terrain on the plain chain; the port's tick kernel also knows flat ground
+only, and a shared field runs the plain chain here too.
+:func:`batched_art_rollout_tick_kernel_fn`
 and :func:`batched_art_rollout_kernel_fn` are the compiled forms of the
-two kernel paths, :func:`batched_art_rollout_fn` and
-:func:`batched_art_rollout_terrain_fn` those of the plain chain: the
+two kernel paths, :func:`batched_art_rollout_fn` that of the plain chain
+and :func:`batched_art_rollout_terrain_fn` that of the terrain path: the
 counterparts of ``jax.jit`` of the JAX factories, one tick captured as a
 CUDA graph and replayed (``utils/graphs.py``). The JAX package's single-env
 ``art_rollout_fn`` has no separate port: the batched functions at N = 1 are
@@ -63,13 +67,9 @@ from biped_mpc_py_torch.ops.cuda.substep_kernel import fused_substeps
 from biped_mpc_py_torch.ops.cuda.tick_kernel import fused_tick
 from biped_mpc_py_torch.ops.qp import solve_qp
 from biped_mpc_py_torch.parallel.rollout import fallen
+from biped_mpc_py_torch.sim import engine
 from biped_mpc_py_torch.sim.contact import Terrain
-from biped_mpc_py_torch.sim.engine import (
-    ArtState,
-    art_step,
-    feedback_and_soles,
-    mass_matrix_inv,
-)
+from biped_mpc_py_torch.sim.engine import ArtState, feedback_and_soles, mass_matrix_inv
 from biped_mpc_py_torch.sim.model import ArticulatedModel, hector_model
 from biped_mpc_py_torch.utils.device import DEFAULT_DEVICE, entry_device
 from biped_mpc_py_torch.utils.graphs import graphed
@@ -301,6 +301,19 @@ def _art_tick(world: ArtWorld, biped: BipedParams, mpc: MpcConfig,
     return _art_post_stage(world, sim, energy, x_fb, sol, t_g, hold, mpc, x_cmd, per_env)
 
 
+def art_step(model: ArticulatedModel, state: ArtState, tau: torch.Tensor, dt, n_substeps: int,
+             terrain, Minv: torch.Tensor) -> ArtState:
+    """One low-level period of physics under a held ``Minv``, as the
+    rollouts step it: on a height field per env with one ``dt``, one
+    :func:`~biped_mpc_py_torch.ops.cuda.substep_kernel.fused_substeps` call
+    (the substep kernel's field variant on the card, ``sim.engine.art_step``
+    itself on the CPU); otherwise (no terrain, a shared field, a per-env
+    ``dt``) ``sim.engine.art_step``'s plain chain."""
+    if terrain is not None and terrain.batched and not isinstance(dt, torch.Tensor):
+        return fused_substeps(model, state, tau, Minv, dt, n_substeps, terrain=terrain)
+    return engine.art_step(model, state, tau, dt, n_substeps, terrain, Minv=Minv)
+
+
 def art_closed_loop_tick(world: ArtWorld, mpc: MpcConfig, gait: GaitConfig,
                          biped: BipedParams, model: ArticulatedModel,
                          n_lowlevel: int = 8, n_substeps: int = 10,
@@ -317,7 +330,8 @@ def art_closed_loop_tick(world: ArtWorld, mpc: MpcConfig, gait: GaitConfig,
     of ``config.PER_ENV_FIELDS`` and ``config.MPC_PER_ENV_FIELDS`` as (N,)
     tensors, ``Q`` and ``R`` as (N,13) and (N,12)) override the config's,
     as a config batched under vmap does in JAX (``parallel/sweep.py``); a
-    per-env ``dt`` steps each env's physics by its own period."""
+    per-env ``dt`` steps each env's physics by its own period. Each period's
+    physics is :func:`art_step`'s."""
 
     def physics(sim, tau, Minv, dt):
         return art_step(model, sim, tau, dt, n_substeps, terrain, Minv=Minv)
@@ -360,8 +374,11 @@ def batched_art_rollout_terrain(worlds: ArtWorld, bipeds: BipedParams,
     model, n_lowlevel, n_substeps, minv_ll_hold)(worlds, bipeds,
     terrains)``, randomized robots on randomized rough ground.
     ``terrains.heights`` is (N, H, W) with the worlds' env axis
-    (``Terrain.rough_batch``). Runs the plain substep chain, as in JAX: the
-    physics kernels know flat ground only."""
+    (``Terrain.rough_batch``). Each low-level period's substeps are one
+    launch of the substep kernel's field variant on the card
+    (``fused_substeps(terrain=)``, ``n_lowlevel`` a tick) and ``art_step``'s
+    plain chain on the CPU, which JAX runs on either; the low-level control
+    and the MPC stage are the plain chain's."""
     _check_terrains(worlds, terrains)
     step = _plain_step(mpc, gait, model, n_lowlevel, n_substeps, minv_ll_hold)
     w = worlds
@@ -423,8 +440,9 @@ def batched_art_rollout_terrain_fn(n_steps: int, mpc: MpcConfig, gait: GaitConfi
                                    model: ArticulatedModel | None = None,
                                    n_lowlevel: int = 8, n_substeps: int = 10,
                                    minv_ll_hold: int = 1):
-    """``fn(worlds, bipeds, terrains) -> worlds``: ``n_steps`` ticks of the
-    plain chain with a height field per env, the counterpart of
+    """``fn(worlds, bipeds, terrains) -> worlds``: ``n_steps`` ticks with a
+    height field per env (each period's substeps one field-kernel launch on
+    the card, as :func:`batched_art_rollout_terrain`), the counterpart of
     ``jax.jit(batched_art_rollout_terrain_fn(n_steps, mpc, gait, model,
     n_lowlevel, n_substeps, minv_ll_hold))``. ``terrains`` (N, H, W) is an
     input of the graph, as the JAX function's argument: new fields of the

@@ -32,8 +32,9 @@ the recorder keeps only those of the graph replayed last, for
   :func:`nonfinite_resets` reads the count on demand.
 - :func:`count_ground_contacts` adds, per substep on a height field, the
   sole points below the ground to a counter of the same shape on their
-  device (one in-place add); :func:`start_ground_count` zeroes it at a
-  tick's start, in the graph where the tick is captured, and
+  device (one in-place add); a kernel that steps several substeps adds to
+  the counter itself (:func:`ground_counter`). :func:`start_ground_count`
+  zeroes it at a tick's start, in the graph where the tick is captured, and
   :func:`terrain_contacts` reads the share of sole-point substeps in
   contact in the last tick counted (the last replay of a captured one).
 """
@@ -270,21 +271,36 @@ def start_ground_count(device) -> None:
         rec.substeps = 0
 
 
+def _ground_count(shape, device: torch.device) -> _GroundCount:
+    """The counter of ``shape`` on ``device``, made at the first call with
+    the shape, which must come before any capture, as
+    :func:`count_nonfinite`'s."""
+    rec = _ground.get(device)
+    if rec is None or rec.below.shape != shape:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the count of sole points below the ground must be made "
+                               "before a capture")
+        rec = _GroundCount(torch.zeros(shape, dtype=torch.int32, device=device), 0)
+        _ground[device] = rec
+        _ground_counts.append(rec.below)
+    return rec
+
+
 def count_ground_contacts(below: torch.Tensor) -> None:
     """Add one substep's sole points below the ground (``below``, bool, one
-    per point) to the count on their device, by one in-place add. A counter
-    is made at the first call with a shape, which must come before any
-    capture, as :func:`count_nonfinite`'s."""
-    rec = _ground.get(below.device)
-    if rec is None or rec.below.shape != below.shape:
-        if below.is_cuda and torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("count_ground_contacts: the counter must be made before a "
-                               "capture")
-        rec = _GroundCount(torch.zeros(below.shape, dtype=torch.int32, device=below.device), 0)
-        _ground[below.device] = rec
-        _ground_counts.append(rec.below)
+    per point) to the count on their device, by one in-place add."""
+    rec = _ground_count(below.shape, below.device)
     rec.below.add_(below)
     rec.substeps += 1
+
+
+def ground_counter(shape, device: torch.device, substeps: int) -> torch.Tensor:
+    """The int32 count of sole points below the ground of ``shape`` on
+    ``device``, for a kernel that adds ``substeps`` substeps' points to it in
+    place; counts those substeps."""
+    rec = _ground_count(torch.Size(shape), device)
+    rec.substeps += substeps
+    return rec.below
 
 
 def terrain_contacts(device="cuda") -> float | None:

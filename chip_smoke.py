@@ -53,13 +53,21 @@ Phases, each printed on its own lines:
 10. terrain slice: 1024 domain-randomized robots on per-env rough height
    fields (``Terrain.rough_batch``, amplitude 0.03 m, 64 x 64 cells) x 50
    ticks (2 s) through ``batched_art_rollout_terrain`` at the bench budget
-   (5 substeps, the mass-matrix inverse held all tick): the plain substep
-   chain, since the physics kernels know flat ground only. Finite states,
-   launch counts (50 QP, 0 tick, 0 substep), the stance soles' mean gap to
-   their ground, and falls, distance, attitude and residual as reported
-   figures; then 3 ticks on flat per-env fields against
-   ``batched_art_rollout`` without a terrain, the bf16 knobs off (max |diff|
-   under 1e-5);
+   (5 substeps, the mass-matrix inverse held all tick): each low-level
+   period's substeps one launch of the substep kernel's field variant.
+   Finite states, launch counts (50 QP, 0 tick, 400 substep), the stance
+   soles' mean gap to their ground, and falls, distance, attitude and
+   residual as reported figures; then on flat per-env fields against no
+   terrain: one launch of the field kernel against one of the flat kernel
+   within ``SUBSTEP_BOUNDS``, and 3 ticks of the terrain path against
+   ``batched_art_rollout`` (the plain chain), the bf16 knobs off, within
+   ``CHAIN_BOUNDS``; then on rough per-env fields (the slice's at 1024 envs,
+   drawn alike at 4096) one launch of the field kernel against
+   ``sim.engine.art_step(..., terrain, Minv=)`` from perturbed in-contact
+   states, within ``SUBSTEP_BOUNDS``, ``t`` bit-equal, the ground count
+   within 1 of the plain chain's in at most 4 entries; its device time at
+   4096 envs beside the plain chain's and its bound -> the kernels line's
+   ``fused_substeps_field`` entry;
 11. per-env commands: 1024 envs x 50 ticks of ``batched_cmd_rollout`` (SRB)
    with each env's forward command spread over 0-0.4 m/s: zero falls, and
    the distance covered ordered with the command;
@@ -73,8 +81,8 @@ Phases, each printed on its own lines:
    beside it), the physics kernels' device time, bound and share at 1024,
    4096, 16,384 and 65,536 envs, the rollouts' env-steps/s with kernel and
    plain version, and a per-stage split of one SRB tick and of one
-   articulated tick on each path, the terrain path's beside the flat plain
-   chain's; and the bounds of the JAX package's
+   articulated tick on each path, the terrain path's (field kernel) beside
+   the flat plain chain's; and the bounds of the JAX package's
    ``tests/test_rollout.py::test_bench_budget_accuracy`` on phase 4's walk
    (bf16 knobs on) against the same worlds at the default budget, on the
    population's means (each env's largest differences reported);
@@ -149,8 +157,9 @@ Phases, each printed on its own lines:
    and load ms;
 22. graphs: the compiled entry points (``batched_rollout_fn``,
    ``batched_art_rollout_tick_kernel_fn``, ``batched_art_rollout_kernel_fn``,
-   and on the plain chain ``batched_art_rollout_fn``,
-   ``batched_art_rollout_terrain_fn`` and ``art_sweep_fn``: one tick captured
+   ``batched_art_rollout_terrain_fn`` (the substep kernel's field variant),
+   and on the plain chain ``batched_art_rollout_fn`` and ``art_sweep_fn``:
+   one tick captured
    as a CUDA graph and replayed) at 1024 envs and the bench budget (the
    bf16 knobs on, the sweep's off), SRB x 50
    ticks, the tick path x 50, the substep path x 25, the flat plain chain,
@@ -163,7 +172,8 @@ Phases, each printed on its own lines:
    per tick in turns (eager, graph, graph, eager), the capture's seconds and
    the graph pool's MB; and one ``torch.profiler`` window of 5 graph ticks
    of the tick path (device kernels, busy ms and the idle share, beside
-   phase 13's eager figures) and of 2 graph ticks of each plain-chain path.
+   phase 13's eager figures) and of 2 graph ticks of the plain chain, the
+   terrain walk and the sweep.
 23. bench: ``python -m biped_mpc_py_torch.bench``'s ``run`` in process, one
    run each of SRB, SRB with randomized robots, the tick path, the substep
    path, the plain chain and randomized robots on 0.03 m rough terrain at
@@ -172,7 +182,7 @@ Phases, each printed on its own lines:
    (exactly one stdout line, the SRB headline); the three articulated flat
    paths also with the bf16 knobs off. One ``{"bench": ...}`` line per run;
    each run's launches (per tick: 1 QP solve; the tick path 1 tick, the
-   substep path 8 substep launches) checked and its states finite; no fall
+   substep and terrain paths 8 substep launches) checked and its states finite; no fall
    on the SRB runs and on the knobs-off articulated ones; the falls of the
    knobs-on articulated runs (identical robots: one trajectory, and a draw,
    ``BENCH_RUNS``' note) and on terrain reported. (b) the three knobs-on
@@ -1453,16 +1463,98 @@ def stance_gap(model, sim, terrains, mpc, gait):
     return float(g.mean()), float(g.min()), float(g.max())
 
 
+# The field kernel's operations beyond the plane's, per sole point and
+# substep: five bilinear samples (two grid coordinates of 6 operations and 15
+# for the weights and sum each), the gradient 4, the normal 12, phi and
+# phi_dot 7, the tangent velocity, friction and force 26.
+FIELD_CONTACT_OPS = 5 * (2 * 6 + 15) + 4 + 12 + 7 + 26
+
+
+def bound_substep_field(torch, device, n, fields):
+    """(bound ms, what sets it) of one 5-substep field-kernel call at ``n``
+    envs: the flat call's operations plus ``FIELD_CONTACT_OPS`` per sole
+    point and substep; bytes of the state (``t`` included), torques, Minv
+    and model read, the state written, the ground count read and written,
+    and every height-corner load as issued (20 a point and substep, 4 points,
+    5 substeps), as though none hit a cache."""
+    from biped_mpc_py_torch.sim.engine import mass_matrix_inv
+    from biped_mpc_py_torch.sim.model import hector_model
+    from biped_mpc_py_torch.utils import roofline
+
+    state, tau = perturbed_art_states(torch, n, SEED)
+    model = hector_model(device=device)
+    sc, tc = state.to(device), tau.to(device)
+    Minv = mass_matrix_inv(model, sc.q)
+    count = torch.zeros(n, 2, 2, dtype=torch.int32)
+    corners = n * 4 * 5 * 20 * fields.heights.element_size()
+    return roofline.bound_ms(roofline.substep_ops(n, 5) + n * 4 * 5 * FIELD_CONTACT_OPS,
+                             roofline.tensor_bytes(sc, tc, Minv, model, sc, count, count)
+                             + corners)
+
+
+def field_kernel_check(torch, device, model, n, dt):
+    """The substep kernel's field variant against ``sim.engine.art_step(...,
+    terrain, Minv=)`` on the card: ``n`` perturbed in-contact envs, each on
+    its own rough field as the terrain slice draws them (at 1024 envs the
+    slice's fields), one period of 5 substeps of ``dt / 5``. Raises unless
+    every state field is within ``SUBSTEP_BOUNDS``, ``t`` is bit-equal and
+    the count of sole points below the ground is within 1 of the plain
+    chain's in each entry and in at most 4 entries (a point flips only where
+    its gap to the ground lies within the two sides' rounding). -> (max |err|
+    per field, the fields, the state, torques and Minv)."""
+    from biped_mpc_py_torch.ops.cuda.substep_kernel import fused_substeps
+    from biped_mpc_py_torch.sim import engine
+    from biped_mpc_py_torch.sim.contact import Terrain
+    from biped_mpc_py_torch.utils import profiling
+
+    fields = Terrain.rough_batch(
+        torch.Generator(device=device).manual_seed(SEED + 1), n,
+        amplitude=TERRAIN_AMPLITUDE, res=TERRAIN_RES, device=device,
+    )
+    state, tau = perturbed_art_states(torch, n, SEED)
+    sc, tc = state.to(device), tau.to(device)
+    Minv = engine.mass_matrix_inv(model, sc.q)
+
+    def counted(fn):
+        profiling.start_ground_count(device)
+        out = fn()
+        return out, profiling._ground[profiling._indexed(device)].below.clone()
+
+    out_p, count_p = counted(lambda: engine.art_step(model, sc, tc, dt, 5, fields, Minv=Minv))
+    out_k, count_k = counted(lambda: fused_substeps(model, sc, tc, Minv, dt, 5, terrain=fields))
+    errs = _max_diff(out_k, out_p, SUBSTEP_BOUNDS)
+    t_equal = bool(torch.equal(out_k.t, out_p.t))
+    diff = (count_k - count_p).abs()
+    flips, worst = int((diff > 0).sum()), int(diff.max())
+    log(f"[terrain] field kernel vs art_step on rough per-env fields, {n} envs, 5 substeps of "
+        f"{dt / 5 * 1e3:.4f} ms: max|err| {json.dumps(errs)} "
+        f"(bounds {json.dumps(SUBSTEP_BOUNDS)}), "
+        f"t bit-equal {t_equal}; sole-point substeps below the ground {int(count_k.sum())} "
+        f"(plain {int(count_p.sum())} of {4 * 5 * n}), entries that differ {flips}, by at most "
+        f"{worst}")
+    if any(not errs[k] < b for k, b in SUBSTEP_BOUNDS.items()) or not t_equal:
+        raise AssertionError(f"the field kernel left its bounds at {n} envs")
+    if int(count_p.sum()) == 0 or worst > 1 or flips > 4:
+        raise AssertionError(f"the field kernel's ground count departs from the plain chain's at "
+                             f"{n} envs")
+    return errs, fields, (sc, tc, Minv)
+
+
 def phase_terrain(torch, device):
-    """The rough-terrain articulated path at full width, then flat per-env
-    fields against no terrain. Returns (launch counts, seconds)."""
+    """The rough-terrain articulated path at full width, flat per-env fields
+    against no terrain, then the field kernel against the plain chain on
+    rough fields (``field_kernel_check``) at 1024 and 4096 envs, timed at
+    4096. Returns (launch counts, seconds, the field kernel's figures for the
+    kernels line)."""
     import dataclasses
 
     from biped_mpc_py_torch.ops.cuda import qp_kernel, substep_kernel, tick_kernel
+    from biped_mpc_py_torch.ops.cuda.substep_kernel import fused_substeps
     from biped_mpc_py_torch.parallel.rollout_art import (
         batched_art_rollout, batched_art_rollout_terrain,
     )
     from biped_mpc_py_torch.sim.contact import Terrain
+    from biped_mpc_py_torch.sim.engine import mass_matrix_inv
     from biped_mpc_py_torch.sim.model import hector_model
 
     mpc, gait = _art_config()
@@ -1497,27 +1589,60 @@ def phase_terrain(torch, device):
         f"{float(m.res_prim_max.max()):.3e}, height [{float(s.pos[:, 2].min()):.4f}, "
         f"{float(s.pos[:, 2].max()):.4f}]; stance sole gap mean {gap[0]:.5f} m "
         f"[{gap[1]:.5f}, {gap[2]:.5f}] (bound on the mean {STANCE_GAP_RANGE})")
-    if launches != {"fused_qp_solve": N_TERRAIN_TICKS, "fused_tick": 0, "fused_substeps": 0}:
+    if launches != {"fused_qp_solve": N_TERRAIN_TICKS, "fused_tick": 0,
+                    "fused_substeps": 8 * N_TERRAIN_TICKS}:
         raise AssertionError(f"terrain path launch counts {launches} in {N_TERRAIN_TICKS} ticks")
     if not finite:
         raise AssertionError("the terrain path produced non-finite states")
     if not STANCE_GAP_RANGE[0] < gap[0] < STANCE_GAP_RANGE[1]:
         raise AssertionError(f"stance soles sit {gap[0]:.4f} m from their ground on average")
 
-    # flat fields against no terrain: an equivalence of the contact code,
-    # pointwise, so with the bf16 knobs off (their rounding flips would
-    # carry last-bit differences on, see phase_kernel)
+    # flat fields against no terrain: one launch of the field kernel against
+    # one of the flat kernel from the slice's states, within SUBSTEP_BOUNDS
+    # (the two grounds' contact agrees on flat ground up to rounding); then
+    # 3 ticks of the
+    # terrain path on flat fields against the plain chain on no terrain,
+    # which steps t alike, pointwise, so with the bf16 knobs off (their
+    # rounding flips would carry last-bit differences on, see phase_kernel),
+    # within CHAIN_BOUNDS (the kernel's rounding against the plain chain's)
     flat = Terrain.flat(n=N_ENVS, device=device)
+    s0 = w0.sim
+    gen = torch.Generator().manual_seed(SEED)
+    tau = (5.0 * torch.randn(N_ENVS, 10, generator=gen)).to(device)
+    Minv = mass_matrix_inv(model, s0.q)
+    one_f = fused_substeps(model, s0, tau, Minv, 0.005, 5, terrain=flat)
+    one_n = fused_substeps(model, s0, tau, Minv, 0.005, 5)
+    one = _max_diff(one_f, one_n, SUBSTEP_BOUNDS)
     mpc_f32 = dataclasses.replace(mpc, **KNOBS_OFF)
     w_f = batched_art_rollout_terrain(w0, bipeds, flat, 3, mpc_f32, gait, **kw)
     w_n = batched_art_rollout(w0, bipeds, 3, mpc_f32, gait, **kw)
-    d_pos = float((w_f.sim.pos - w_n.sim.pos).abs().max())
-    d_q = float((w_f.sim.q - w_n.sim.q).abs().max())
-    log(f"[terrain] flat per-env fields vs no terrain, 3 ticks: max|dpos| {d_pos:.3e} m, "
-        f"max|dq| {d_q:.3e} rad (bound 1e-5)")
-    if not (d_pos < 1e-5 and d_q < 1e-5):
+    diffs = _max_diff(w_f.sim, w_n.sim, CHAIN_BOUNDS)
+    log(f"[terrain] flat per-env fields vs no terrain: one launch of each kernel "
+        f"{json.dumps(one)} (bounds {json.dumps(SUBSTEP_BOUNDS)}); 3 ticks, the terrain path "
+        f"vs the plain chain {json.dumps(diffs)} (bounds {json.dumps(CHAIN_BOUNDS)})")
+    if (any(one[k] >= b for k, b in SUBSTEP_BOUNDS.items())
+            or any(diffs[k] >= b for k, b in CHAIN_BOUNDS.items())):
         raise AssertionError("flat height fields and terrain=None walk differently")
-    return launches, sec
+
+    # the field kernel on rough fields against the plain chain, at the
+    # slice's width and the benchmark cell's; timed at the cell's
+    from biped_mpc_py_torch.sim.engine import art_step
+
+    ll_dt = mpc.dt / 8
+    errs = {}
+    for n in (N_ENVS, 4096):
+        errs[n], fields, (sc, tc, Mv) = field_kernel_check(torch, device, model, n, ll_dt)
+    ms_k, = _device_ms(torch, lambda: fused_substeps(model, sc, tc, Mv, ll_dt, 5, terrain=fields),
+                       ("substep_kernel",), 50)
+    ms_p = _timed(torch, lambda: art_step(model, sc, tc, ll_dt, 5, fields, Minv=Mv), 5)
+    bound, by = bound_substep_field(torch, device, 4096, fields)
+    log(f"[times] field kernel (4096 envs, 5 substeps): {ms_k:.4f} ms of device time "
+        f"(torch.profiler), plain chain {ms_p:.3f} ms (CUDA events, eager), bound {bound:.4f} ms "
+        f"({by}, share {bound / ms_k:.3f})")
+    field = {"launches": launches["fused_substeps"],
+             "max_abs_err": max(max(e.values()) for e in errs.values()),
+             "ms": ms_k, "plain_ms": ms_p, "bound": (bound, by)}
+    return launches, sec, field
 
 
 def _device_kernels(torch, fn):
@@ -1535,13 +1660,15 @@ def _device_kernels(torch, fn):
 
 
 def time_terrain(torch, device, sec_terrain, sec_chain):
-    """One tick of the plain chain split into its stages (host clock,
-    synchronized after each stage, mean of 3 ticks after 2), on the terrain
-    slice's fields and on no terrain from the same worlds and robots, in
-    turns (terrain, flat, flat, terrain: the host's speed drifts within a
-    call), with the two rates; and the device kernels one substep and one
+    """One tick split into its stages (host clock, synchronized after each
+    stage, mean of 3 ticks after 2), on the terrain slice's fields (each
+    period's substeps one field-kernel launch, as the terrain path) and on
+    no terrain (the plain chain) from the same worlds and robots, in turns
+    (terrain, flat, flat, terrain: the host's speed drifts within a call),
+    with the two rates; and the device kernels one plain substep and one
     low-level stage launch with and without a terrain, the cost of the
-    height gathers that does not depend on the host."""
+    height gathers on the plain chain that does not depend on the host."""
+    from biped_mpc_py_torch.ops.cuda.substep_kernel import fused_substeps
     from biped_mpc_py_torch.parallel import rollout_art as ra
     from biped_mpc_py_torch.sim.engine import art_step, art_substep, mass_matrix_inv
     from biped_mpc_py_torch.sim.model import hector_model
@@ -1549,7 +1676,8 @@ def time_terrain(torch, device, sec_terrain, sec_chain):
     mpc, gait = _art_config()
     model = hector_model(device=device)
     w0, bipeds, terrains = terrain_setup(torch, device)
-    names = ("control stage (MPC)", "Minv", "low-level x 8", "substeps x 8 (plain)", "post")
+    names = ("control stage (MPC)", "Minv", "low-level x 8",
+             "substeps x 8 (field kernel; flat: plain)", "post")
     ll_dt = mpc.dt / 8
 
     def chain_tick(terrain):
@@ -1567,7 +1695,10 @@ def time_terrain(torch, device, sec_terrain, sec_chain):
                                          terrain)
                 energy = energy + torch.sum(torch.clamp(tau * sim.qd, min=0.0), 1) * ll_dt
                 mark(names[2])
-                sim = art_step(model, sim, tau, ll_dt, 5, terrain, Minv=Minv)
+                if terrain is None:
+                    sim = art_step(model, sim, tau, ll_dt, 5, Minv=Minv)
+                else:
+                    sim = fused_substeps(model, sim, tau, Minv, ll_dt, 5, terrain=terrain)
                 mark(names[3])
             w = ra._art_post_stage(w, sim, energy, x_fb, sol, t_g, hold, mpc)
             mark(names[4])
@@ -1585,8 +1716,8 @@ def time_terrain(torch, device, sec_terrain, sec_chain):
         f"of 3, terrain (flat plain chain), run in the order terrain, flat, flat, terrain: "
         + "; then ".join(
             ", ".join(f"{k} {acc_t[k]:.3f} ({acc_f[k]:.3f})" for k in names)
-            + f", total {sum(acc_t.values()):.3f} ({sum(acc_f.values()):.3f}), the gathers add "
-            f"{sum(acc_t.values()) / sum(acc_f.values()) - 1:.3f}" for acc_t, acc_f in turns))
+            + f", total {sum(acc_t.values()):.3f} ({sum(acc_f.values()):.3f}), ratio "
+            f"{sum(acc_t.values()) / sum(acc_f.values()):.3f}" for acc_t, acc_f in turns))
 
     sim = w0.sim
     Minv = mass_matrix_inv(model, sim.q)
@@ -2824,6 +2955,7 @@ def _graph_paths(torch, device):
     kw = dict(n_substeps=5, minv_ll_hold=8)
     n = GRAPH_TICKS
     qp_only = {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 0}
+    per_period = {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 8}
     return {
         "srb": (lambda k: r.batched_rollout(w_srb, b_srb, k, srb, GaitConfig()),
                 r.batched_rollout_fn(n["srb"], srb, GaitConfig()), (w_srb, b_srb), qp_only),
@@ -2832,14 +2964,14 @@ def _graph_paths(torch, device):
                  {"fused_qp_solve": 1, "fused_tick": 1, "fused_substeps": 0}),
         "substep": (lambda k: ra.batched_art_rollout_kernel(w_art, b_art, k, mpc, gait),
                     ra.batched_art_rollout_kernel_fn(n["substep"], mpc, gait), (w_art, b_art),
-                    {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 8}),
+                    per_period),
         "plain": (lambda k: ra.batched_art_rollout(w_art, b_art, k, mpc, gait, **kw),
                   ra.batched_art_rollout_fn(n["plain"], mpc, gait, **kw), (w_art, b_art),
                   qp_only),
         "terrain": (lambda k: ra.batched_art_rollout_terrain(w_ter, b_ter, fields, k, mpc, gait,
                                                              **kw),
                     ra.batched_art_rollout_terrain_fn(n["terrain"], mpc, gait, **kw),
-                    (w_ter, b_ter, fields), qp_only),
+                    (w_ter, b_ter, fields), per_period),
         "sweep": (lambda k: sw.art_sweep(w_sw, b_sw, k, mpc_s, gait_s, per_env, **kw),
                   sw.art_sweep_fn(n["sweep"], mpc_s, gait_s, **kw), (w_sw, b_sw, per_env),
                   qp_only),
@@ -3021,7 +3153,7 @@ BENCH_LAUNCHES = {
     "tick": {"fused_qp_solve": 1, "fused_tick": 1, "fused_substeps": 0, "fused_ruiz": 1},
     "kernel": {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 8, "fused_ruiz": 1},
     "plain": {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 0, "fused_ruiz": 1},
-    "terrain": {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 0, "fused_ruiz": 1},
+    "terrain": {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 8, "fused_ruiz": 1},
 }
 
 
@@ -3248,7 +3380,7 @@ def main() -> int:
         probe = phase_probe(torch, device)
         tick_err = phase_tick_kernel(torch, device)
         tick_launches, sec_tick = phase_tick_path(torch, device, w25_substep)
-        _, sec_terrain = phase_terrain(torch, device)
+        _, sec_terrain, field = phase_terrain(torch, device)
         phase_cmd_rollout(torch, device)
         solve_ms = time_solves(torch, device)
         phase_bench_accuracy(w_bench, time_default_rollouts(torch, device))
@@ -3272,7 +3404,8 @@ def main() -> int:
                   "fused_substeps": bound_substep(torch, device),
                   "fused_tick": bound_tick(torch, device),
                   "probe_ops": bound_probe(torch, device),
-                  "fused_ruiz": ruiz["bound"]}
+                  "fused_ruiz": ruiz["bound"],
+                  "fused_substeps_field": field["bound"]}
     log("[bounds] " + json.dumps(bounds))
     rate_k = N_ENVS * N_TICKS / sec_k
     rate_p = N_ENVS * N_TICKS / sec_p
@@ -3315,6 +3448,21 @@ def main() -> int:
             "max_abs_err": substep_err,
             "ms": substep_ms,
             "plain_ms": substep_plain_ms,
+        },
+        {
+            "name": "fused_substeps_field",
+            "route": "cuda",
+            "source": "biped_mpc_py_torch/csrc/substep.cu",
+            # none: the JAX package steps a height field with the plain chain
+            # (biped_mpc_py_tpu/sim/engine.py::art_step)
+            "replaces": None,
+            # phase 10's 50 terrain ticks, 8 a tick
+            "launches": field["launches"],
+            # rough fields at 1024 and 4096 envs against art_step
+            "max_abs_err": field["max_abs_err"],
+            # 4096 envs
+            "ms": field["ms"],
+            "plain_ms": field["plain_ms"],
         },
         {
             "name": "fused_tick",

@@ -235,7 +235,7 @@ def load_physics(directory: Path, need_substep=True):
     tick = build.load(tick_src, tick_kernel.FUNCTIONS)
     if tick.tick_n_consts() != tick_kernel.N_TICK_CONSTS:
         raise RuntimeError(f"{tick_src} expects {tick.tick_n_consts()} tick constants")
-    sub = build.load(sub_src, substep_kernel.FUNCTIONS) if need_substep else None
+    sub = build.load(sub_src, substep_kernel.FLAT_FUNCTIONS) if need_substep else None
     return tick, sub
 
 

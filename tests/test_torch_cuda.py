@@ -57,19 +57,31 @@ bench budget: feedback attitude and position 1e-4, velocities 2e-3 (the
 bounds of ``tests/test_torch_deploy.py``). The new entry points build on
 the card by default.
 
-The terrain path runs no physics kernel (they know flat ground only): 64
-envs x 2 ticks of ``batched_art_rollout_terrain`` on the card against the
-same rollout on the CPU (pos 1e-3, q 1e-2, qd 1.0: the QP kernel and its
-plain version differ by up to 0.05 N per solve, and stiff contact grows
-that), 2 QP launches and no other; both physics wrappers raise on a terrain
-before they launch.
+The substep kernel's field variant (a height field per env): at 4096, 17
+and 1 envs on a 4 cm ``Terrain.rough_batch`` field each, 5 substeps of 1 ms
+against ``art_step(..., terrain, Minv=)`` on the card within the substep
+kernel's bounds above, ``t`` bit-equal (the plain chain's 5 f32 additions),
+and its count of sole points below the ground within 1 of the plain
+chain's in each entry and in at most 4 entries (a point flips only where
+its gap to the ground lies within the two sides' rounding, ~1e-7 m); on
+flat fields it agrees with the flat kernel within the same bounds (the two
+grounds share every line but the contact, which on a flat field rounds a
+few envs' forces apart: qd 3.3e-6 at most in 5 substeps); an env seeded
+with NaN ends all NaN without a device fault and
+leaves its neighbours bit-unchanged. The terrain path launches it once per
+low-level period: 64 envs x 2 ticks of ``batched_art_rollout_terrain`` on
+the card against the same rollout on the CPU (pos 1e-3, q 1e-2, qd 1.0: the
+QP kernel and its plain version differ by up to 0.05 N per solve, and stiff
+contact grows that), 2 QP and 16 substep launches; the substep wrapper
+raises on a shared field and on a per-env ``dt``, the tick kernel on any
+terrain, before they launch.
 
 The compiled entry points (``*_fn``, one tick captured as a CUDA graph): at
 1024 envs and the bench budget, a replay bit-equal to the eager loop on
 every leaf (SRB and the tick path 10 ticks, the substep path 5), with the
 launch counters reading the replays' launches (the plain chain, the
-per-env terrain walk and the 4 x 4 x 64 sweep 3 ticks each, the physics
-kernels launched no time); the sharded ``*_fn`` on one NCCL rank bit-equal
+per-env terrain walk and the 4 x 4 x 64 sweep 3 ticks each: the terrain
+walk's substep-kernel launches 8 a tick, the other two's none); the sharded ``*_fn`` on one NCCL rank bit-equal
 to the eager sharded loops; ``RealtimeLoop`` on its two graphs, and the
 MuJoCo loop's ``MjController`` on its three, walk
 ``chip_smoke.EnginePlant``; replay's graphed frames and the demo's graphed
@@ -99,8 +111,9 @@ from biped_mpc_py_torch.parallel.rollout import (
     randomize_params,
 )
 from biped_mpc_py_torch.sim.contact import Terrain
-from biped_mpc_py_torch.sim.engine import ArtState, mass_matrix_inv
+from biped_mpc_py_torch.sim.engine import ArtState, art_step, mass_matrix_inv
 from biped_mpc_py_torch.sim.model import hector_model
+from biped_mpc_py_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -482,6 +495,77 @@ def test_substep_kernel_neighbour_envs(cuda):
     _substep_case(cuda, _deep_and_airborne(state), tau)
 
 
+def _ground_count(device):
+    """A copy of the count of sole points below the ground on ``device``."""
+    return profiling._ground[profiling._indexed(device)].below.clone()
+
+
+def _field_case(cuda, n, nan_env=None):
+    """The field kernel against ``art_step`` on the card on a 4 cm rough
+    field per env; with ``nan_env``, that env's position is NaN. Returns
+    (kernel state, plain state, kernel count, plain count)."""
+    state, tau = _perturbed_states(n, cuda)
+    model = hector_model(device=cuda)
+    Minv = mass_matrix_inv(model, state.q)
+    fields = Terrain.rough_batch(torch.Generator().manual_seed(2), n, amplitude=0.04,
+                                 device=cuda)
+    if nan_env is not None:
+        pos = state.pos.clone()
+        pos[nan_env] = float("nan")
+        state = dataclasses.replace(state, pos=pos)
+    profiling.start_ground_count(cuda)
+    out_p = art_step(model, state, tau, 0.005, 5, fields, Minv=Minv)
+    count_p = _ground_count(cuda)
+    profiling.start_ground_count(cuda)
+    before = sk.fused_substeps.launches
+    out_k = sk.fused_substeps(model, state, tau, Minv, 0.005, 5, terrain=fields)
+    torch.cuda.synchronize()
+    assert sk.fused_substeps.launches == before + 1
+    return out_k, out_p, _ground_count(cuda), count_p
+
+
+@pytest.mark.parametrize("n", [4096, 17, 1])
+def test_substep_field_kernel_matches_plain(cuda, n):
+    out_k, out_p, count_k, count_p = _field_case(cuda, n)
+    for name, tol in SUBSTEP_BOUNDS.items():
+        k, p = getattr(out_k, name), getattr(out_p, name)
+        assert k.shape == p.shape and torch.isfinite(k).all(), name
+        err = float((k - p).abs().max())
+        assert err < tol, (name, err)
+    assert torch.equal(out_k.t, out_p.t)
+    assert count_k.shape == (n, 2, 2) and int(count_p.sum()) > 0
+    diff = (count_k - count_p).abs()
+    assert int(diff.max()) <= 1 and int((diff > 0).sum()) <= 4, int(diff.sum())
+
+
+def test_substep_field_kernel_nan_env(cuda):
+    """An env whose position is NaN queries its field at NaN: it ends NaN in
+    every state entry, as on the plain chain, the card raises no fault, and
+    the other envs' results are those of the same launch without it, bit
+    for bit."""
+    n, bad = 64, 21
+    clean, _, _, _ = _field_case(cuda, n)
+    out_k, out_p, _, _ = _field_case(cuda, n, nan_env=bad)
+    keep = torch.arange(n, device=cuda) != bad
+    for name in ("pos", "quat", "v_base", "q", "qd"):
+        k = getattr(out_k, name)
+        assert torch.isnan(k[bad]).all() and torch.isnan(getattr(out_p, name)[bad]).all(), name
+        assert torch.equal(k[keep], getattr(clean, name)[keep]), name
+    assert torch.equal(out_k.t, clean.t)
+
+
+def test_substep_field_kernel_on_flat_fields_matches_the_flat_kernel(cuda):
+    state, tau = _perturbed_states(1024, cuda)
+    model = hector_model(device=cuda)
+    Minv = mass_matrix_inv(model, state.q)
+    flat = sk.fused_substeps(model, state, tau, Minv, 0.005, 5)
+    field = sk.fused_substeps(model, state, tau, Minv, 0.005, 5,
+                              terrain=Terrain.flat(res=8, n=1024, device=cuda))
+    for name, tol in SUBSTEP_BOUNDS.items():
+        err = float((getattr(field, name) - getattr(flat, name)).abs().max())
+        assert err < tol, (name, err)
+
+
 def test_art_rollout_launches_substep_kernel(cuda):
     mpc, gait = ra.art_config_for_speed(0.3, n_admm_iters=40, admm_rho_phases=1,
                                         admm_polish=False, kinv_ns_iters=10)
@@ -599,7 +683,7 @@ def test_terrain_rollout_card_matches_cpu(cuda):
                                          ticks, mpc, gait, **kw)
     torch.cuda.synchronize()
     after = (tk.fused_qp_solve.launches, tick.fused_tick.launches, sk.fused_substeps.launches)
-    assert [a - b for a, b in zip(after, before)] == [ticks, 0, 0]
+    assert [a - b for a, b in zip(after, before)] == [ticks, 0, 8 * ticks]
     assert out.sim.pos.device.type == "cuda"
     for name, tol in (("pos", 1e-3), ("q", 1e-2), ("qd", 1.0)):
         err = float((getattr(out.sim, name).cpu() - getattr(out_cpu.sim, name)).abs().max())
@@ -624,15 +708,20 @@ def test_terrain_constructors_build_on_the_card(cuda):
 
 
 def test_physics_wrappers_raise_on_terrain(cuda):
+    """The substep wrapper refuses a shared field, and a per-env ``dt`` on a
+    field per env; the tick kernel any terrain; neither launches."""
     mpc, gait = _bench_art_config()
     n = 16
     model, biped = hector_model(device=cuda), BipedParams().to(cuda)
     state = ArtState.standing(n, device=cuda)
     Minv = mass_matrix_inv(model, state.q)
     flat = Terrain.flat(n=n)
+    tau = torch.zeros(n, 10, device=cuda)
     before = (tick.fused_tick.launches, sk.fused_substeps.launches)
-    with pytest.raises(ValueError, match="flat ground"):
-        sk.fused_substeps(model, state, torch.zeros(n, 10, device=cuda), Minv, 0.005, 5,
+    with pytest.raises(ValueError, match="shared field"):
+        sk.fused_substeps(model, state, tau, Minv, 0.005, 5, terrain=Terrain.flat())
+    with pytest.raises(ValueError, match="one dt"):
+        sk.fused_substeps(model, state, tau, Minv, torch.full((n,), 0.005, device=cuda), 5,
                           terrain=flat)
     with pytest.raises(ValueError, match="flat ground"):
         tick.fused_tick(model, biped, mpc, gait, state, torch.zeros(n, 12, device=cuda),
@@ -947,7 +1036,7 @@ def _graph_case(path, device):
                                      device=device)
         return (lambda k: ra.batched_art_rollout_terrain(w, b, fields, k, mpc, gait, **kw),
                 lambda k: ra.batched_art_rollout_terrain_fn(k, mpc, gait, **kw),
-                (w, b, fields), (1, 0, 0))
+                (w, b, fields), (1, 0, 8))
     from biped_mpc_py_torch.parallel.sweep import art_sweep, art_sweep_fn, stack_configs
 
     configs = [dataclasses.replace(mpc, kp_hipyaw=2.4 * g, kd_hipyaw=0.3 * h, admm_rho=r)

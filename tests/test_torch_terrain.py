@@ -474,17 +474,17 @@ def test_flat_fields_rollout_bit_equal_to_none():
 
 
 def test_terrain_entry_points_check_their_fields():
-    """``batched_art_rollout_terrain`` wants one field per env; the physics
-    kernels' wrappers refuse any terrain."""
+    """``batched_art_rollout_terrain`` wants one field per env; the substep
+    kernel's wrapper, which steps a field per env, refuses a shared one."""
     _, (tm, tg, tw, tb) = _walk_setup(2)
     for bad in (tcontact.Terrain.flat(device="cpu"), tcontact.Terrain.flat(n=3, device="cpu")):
         with pytest.raises(ValueError, match="env axis"):
             tra.batched_art_rollout_terrain(tw, tb, bad, 1, tm, tg)
-    flat = tcontact.Terrain.flat(n=2, device="cpu")
+    shared = tcontact.Terrain.flat(device="cpu")
     Minv = teng.mass_matrix_inv(TM, tw.sim.q)
-    with pytest.raises(ValueError, match="flat ground"):
+    with pytest.raises(ValueError, match="shared field"):
         substep_kernel.fused_substeps(TM, tw.sim, torch.zeros(2, 10), Minv, 0.005, 5,
-                                      terrain=flat)
+                                      terrain=shared)
 
 
 def test_rough_batch_statistics():
