@@ -41,6 +41,7 @@ from biped_mpc_py_torch.sim.contact import Terrain
 from biped_mpc_py_torch.utils.convert import to_numpy
 from biped_mpc_py_torch.utils.graphs import leaves
 from tests.test_torch_convert import _assert_same, _fields
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = {"BENCH_PLATFORM": "cpu"}

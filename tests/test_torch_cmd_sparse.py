@@ -57,6 +57,7 @@ from biped_mpc_py_torch.sim import spatial as tspatial
 from biped_mpc_py_torch.utils import metrics as tmetrics
 from biped_mpc_py_torch.utils.convert import from_numpy, to_numpy
 from tests.oracle_qp import solve_qp_ipm
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 6
 ATOL = 1e-5

@@ -25,6 +25,7 @@ from biped_mpc_py_torch.parallel import rollout_art as tra
 from biped_mpc_py_torch.sim import engine as teng
 from biped_mpc_py_torch.sim import model as tmodel
 from biped_mpc_py_torch.utils.convert import from_numpy, to_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _fields(tree):

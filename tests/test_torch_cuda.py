@@ -825,7 +825,7 @@ def _assert_feedback_close(x_c, x_h):
 def test_realtime_loop_card_matches_cpu(cuda):
     """Both controllers against the port's engine on the CPU as the plant
     (chip_smoke.EnginePlant), 5 ticks."""
-    from chip_smoke import EnginePlant
+    from torch_plants import EnginePlant
     from biped_mpc_py_torch.runtime.realtime import RealtimeLoop
 
     plants, launched = [], []
@@ -1100,7 +1100,7 @@ def test_n1_graphs_on_the_card(cuda):
     ``chip_smoke.EnginePlant`` for 25 ticks (one QP launch a tick), replay's
     frames equal the eager loop's, and the demo's tick equals
     ``control_tick``."""
-    from chip_smoke import EnginePlant
+    from torch_plants import EnginePlant
     from biped_mpc_py_torch.control.controller import control_tick
     from biped_mpc_py_torch.demo import compiled_tick
     from biped_mpc_py_torch.sim.mj_driver import MjController
@@ -1140,7 +1140,7 @@ def test_realtime_loop_on_graphs_walks_engine_plant(cuda):
     against ``chip_smoke.EnginePlant`` on the card for 50 ticks: the robot
     stays up, one QP launch a tick (the plant's own 8 substep launches a
     tick beside it)."""
-    from chip_smoke import EnginePlant
+    from torch_plants import EnginePlant
     from biped_mpc_py_torch.runtime.realtime import RealtimeLoop
 
     plant = EnginePlant(torch, cuda)

@@ -56,6 +56,7 @@ from biped_mpc_py_torch.sim.engine import (
 from biped_mpc_py_torch.sim.model import hector_model
 from biped_mpc_py_torch.sim.replay import export_rollout, restore_hfield
 from biped_mpc_py_torch.utils.convert import from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 mujoco = pytest.importorskip("mujoco")
 

@@ -22,6 +22,7 @@ from biped_mpc_py_torch import demo
 from biped_mpc_py_torch.parallel import rollout, rollout_art, sweep
 from biped_mpc_py_torch.runtime.realtime import RealtimeLoop
 from biped_mpc_py_torch.sim import mj_driver, model, replay
+from torch_threads import one_torch_thread  # noqa: F401
 
 CONSTRUCTORS = {
     "init_world": (rollout.init_world, lambda **kw: rollout.init_world(fast_mpc_config(), 2, **kw)),

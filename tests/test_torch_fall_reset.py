@@ -28,6 +28,7 @@ from biped_mpc_py_torch.sim.srb_sim import SrbState
 from biped_mpc_py_torch.utils import profiling
 from biped_mpc_py_torch.utils.graphs import leaves
 from biped_mpc_py_torch.utils.metrics import RolloutMetrics
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 6
 BLOWN, BAND, KEPT = [1, 2, 3], [4], [0, 4, 5]

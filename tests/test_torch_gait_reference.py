@@ -27,6 +27,7 @@ from biped_mpc_py_torch.control import gait as tgait
 from biped_mpc_py_torch.control import reference as tref
 from biped_mpc_py_torch.control import swing as tswing
 from biped_mpc_py_torch.utils.convert import from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 XC_WALK = np.array([0, 0, 0, 0, 0, 0.55, 0, 0, 0, 0.3, 0, 0], np.float32)

@@ -54,6 +54,7 @@ from biped_mpc_py_torch.sim.engine import ArtState
 from biped_mpc_py_torch.sim.model import hector_model
 from biped_mpc_py_torch.utils import device as tdevice
 from biped_mpc_py_torch.utils.graphs import TickGraph, graphed, leaves
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 4
 CPU = torch.device("cpu")

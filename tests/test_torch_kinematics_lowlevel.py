@@ -39,6 +39,7 @@ from biped_mpc_py_torch.control import swing as tswing
 from biped_mpc_py_torch.models import biped as tbiped
 from biped_mpc_py_torch.models import kinematics as tkin
 from biped_mpc_py_torch.utils.convert import from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "tick_t0_walking.npz")
 PRESETS = {"fk": (jbiped.HECTOR_LEG_FK, tbiped.HECTOR_LEG_FK),

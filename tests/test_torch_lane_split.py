@@ -42,6 +42,7 @@ from biped_mpc_py_torch.sim import engine as teng
 from tests.test_torch_cuda import _tick_config
 from tests.test_torch_sim import TM, _perturbed
 from tests.test_torch_tick_kernel import _controls
+from torch_threads import one_torch_thread  # noqa: F401
 
 AXES = (2, 0, 1, 1, 1)  # joint axis of each level: hip yaw z, hip roll x, three pitch y
 # offsets of the model buffer (csrc/substep_device.cuh)

@@ -26,6 +26,7 @@ from biped_mpc_py_torch.models.biped import BipedParams
 from biped_mpc_py_torch.ops import linalg3 as tl3
 from biped_mpc_py_torch.ops import rotations as trot
 from biped_mpc_py_torch.utils.convert import from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 

@@ -30,6 +30,7 @@ from biped_mpc_py_torch.control.mpc import build_mpc_qp as t_build
 from biped_mpc_py_torch.models.biped import BipedParams
 from biped_mpc_py_torch.ops import qp as tqp
 from biped_mpc_py_torch.utils.convert import from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_ENVS = 8
 

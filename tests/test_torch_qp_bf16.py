@@ -73,6 +73,7 @@ from tests.test_torch_cuda import _mpc_qps
 from tests.test_torch_qp import _fields, qp_batch
 from tests.test_torch_qp_tf32 import BOUND_CONTROLS, kernel_ns_inverse
 from tests.test_torch_rollout import X_CMD, _start
+from torch_threads import one_torch_thread  # noqa: F401
 
 OFF = dict(kinv_bf16_iters=0, admm_bf16_matvec=False, ruiz_bf16_norms=False)
 N_QPS = 8

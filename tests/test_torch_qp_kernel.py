@@ -32,6 +32,7 @@ from biped_mpc_py_torch.ops import qp as tqp
 from biped_mpc_py_torch.ops.cuda import qp_kernel as tk
 from biped_mpc_py_torch.utils.convert import from_numpy
 from tests.test_torch_qp import qp_batch
+from torch_threads import one_torch_thread  # noqa: F401
 
 CORE = dict(n_iters=40, n_phases=1, ns_iters=10, polish=False)
 FULL = dict(n_iters=60, n_phases=3, ns_iters=14, polish=True)

@@ -55,6 +55,7 @@ from biped_mpc_py_torch import MpcConfig, fast_mpc_config
 from biped_mpc_py_torch.ops import qp as tqp
 from biped_mpc_py_torch.ops.cuda import qp_kernel as tk
 from tests.test_torch_cuda import _mpc_qps
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_QPS = 128
 BOUND_CONTROLS = 0.05  # N, the kernel's bench-budget bound (chip_smoke.BOUND_BENCH)

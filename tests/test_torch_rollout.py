@@ -33,6 +33,7 @@ from biped_mpc_py_torch.models.biped import BipedParams
 from biped_mpc_py_torch.ops.cuda import qp_kernel
 from biped_mpc_py_torch.parallel import rollout as troll
 from biped_mpc_py_torch.utils.convert import from_numpy, to_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 X_CMD = np.array([0, 0, 0, 0, 0, 0.55, 0, 0, 0, 0.3, 0, 0], np.float32)
 

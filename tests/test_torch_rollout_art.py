@@ -40,6 +40,7 @@ from biped_mpc_py_torch.models.biped import BipedParams
 from biped_mpc_py_torch.ops.cuda import substep_kernel
 from biped_mpc_py_torch.parallel import rollout_art as tra
 from biped_mpc_py_torch.utils.convert import from_numpy, to_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 CHAIN_BOUNDS = {"pos": 1e-4, "quat": 1e-4, "v_base": 2e-3, "q": 1e-3, "qd": 2e-2}
 
@@ -73,7 +74,8 @@ def _diff(t, j, key):
 @functools.cache
 def _jax_plain_chain(ticks, n_substeps, hold):
     """``jax.jit(batched_art_rollout_fn)`` from :func:`_setup`'s worlds, once
-    per module for each physics (the eager and the compiled port use it)."""
+    per module for each physics (the eager and the compiled plain chain and
+    the substep-kernel entry point use it)."""
     jm, jg, jw, jb = _setup()
     return jax.jit(jra.batched_art_rollout_fn(
         ticks, jm, jg, n_substeps=n_substeps, minv_ll_hold=hold))(jw, jb)
@@ -167,10 +169,8 @@ def test_kernel_entry_point_matches_jax():
     kernel's plain version) against ``batched_art_rollout_fn(n_substeps=5,
     minv_ll_hold=8)``."""
     ticks = 3
-    jm, jg, jw, jb = _setup()
-    out_j = jax.jit(jra.batched_art_rollout_fn(ticks, jm, jg, n_substeps=5, minv_ll_hold=8))(
-        jw, jb)
-    tm, tg, tw, tb = _port(jm, jg, jw, jb)
+    out_j = _jax_plain_chain(ticks, 5, 8)
+    tm, tg, tw, tb = _port(*_setup())
     before = substep_kernel.fused_substeps.launches
     out_t = tra.batched_art_rollout_kernel(tw, tb, ticks, tm, tg)
     assert substep_kernel.fused_substeps.launches == before  # CPU: no launch

@@ -16,6 +16,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from biped_mpc_py_torch import BipedParams
 from biped_mpc_py_torch.ops.cuda import build
 from biped_mpc_py_torch.utils import roofline
+from torch_threads import one_torch_thread  # noqa: F401
 
 BENCH = dict(n_iters=40, n_phases=1, ns_iters=10, polish=False)
 DEFAULT = dict(n_iters=60, n_phases=3, ns_iters=14, polish=True)

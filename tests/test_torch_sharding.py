@@ -48,6 +48,7 @@ from biped_mpc_py_torch.parallel import sharding
 from biped_mpc_py_torch.utils import checkpoint as ckpt
 from biped_mpc_py_torch.utils.convert import from_numpy, to_numpy
 from biped_mpc_py_torch.utils.struct import TensorStruct
+from torch_threads import one_torch_thread  # noqa: F401
 
 TICKS = 20
 ART_TICKS = 2
@@ -148,17 +149,6 @@ def _ranks(mesh, srb, art, ckpt_dir):
                 from_dcp=from_dcp, from_npz=from_npz, refused=refused, art=art_out,
                 art_summary=art_summary, straight_fn=straight_fn, summary_fn=summary_fn,
                 art_fn=art_fn, art_summary_fn=art_summary_fn)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """This module's torch work on one thread, as the spawned ranks run:
-    its loops are 8 envs wide, and beside the suite's other workers torch's
-    thread pool made them ~100x slower than alone."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

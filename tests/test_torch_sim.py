@@ -37,6 +37,7 @@ from biped_mpc_py_torch.sim import engine as teng
 from biped_mpc_py_torch.sim import model as tmodel
 from biped_mpc_py_torch.sim import spatial as tspatial
 from biped_mpc_py_torch.utils.convert import from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 SUBSTEP_BOUNDS = {"pos": 5e-7, "quat": 1e-6, "v_base": 5e-6, "q": 1e-6, "qd": 1e-4}
 JM, TM = jmodel.hector_model(), tmodel.hector_model(device="cpu")

@@ -32,6 +32,7 @@ from biped_mpc_py_torch.sim.contact import Terrain
 from biped_mpc_py_torch.utils import profiling
 from biped_mpc_py_torch.utils.graphs import leaves
 from tests.test_torch_sim import JM, SUBSTEP_BOUNDS, TM, _close, _perturbed
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_fused_substeps_reference_matches_pallas_kernel():

@@ -58,6 +58,7 @@ from biped_mpc_py_torch.parallel import sweep as tsweep
 from biped_mpc_py_torch.sim.engine import mass_matrix_inv
 from biped_mpc_py_torch.sim.model import hector_model
 from biped_mpc_py_torch.utils.convert import config_batch_from_numpy, from_numpy, to_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 CHAIN_BOUNDS = {"pos": 1e-4, "quat": 1e-4, "v_base": 2e-3, "q": 1e-3, "qd": 2e-2}
 # the bench budget with the JAX bf16 knobs off: both packages in f32

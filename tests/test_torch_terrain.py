@@ -52,6 +52,7 @@ from biped_mpc_py_torch.sim import engine as teng
 from biped_mpc_py_torch.utils.convert import from_numpy, to_numpy
 from tests.test_torch_rollout_art import CHAIN_BOUNDS
 from tests.test_torch_sim import JM, SUBSTEP_BOUNDS, TM, _close, _fields, _perturbed
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, RES, EXTENT = 6, 12, 4.0
 

@@ -19,6 +19,7 @@ from benchmark.reference import config as rconfig
 from benchmark.reference import entries_terrain
 from benchmark.reference.precision import matmul
 from benchmark.reference.sim import contact as rcontact
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, TICKS = 4, 2
 KW = dict(n_lowlevel=8, n_substeps=5, minv_ll_hold=8)

@@ -56,6 +56,7 @@ from biped_mpc_py_torch.sim import engine as teng
 from biped_mpc_py_torch.tools import probe_cuda_ops as probe
 from biped_mpc_py_torch.utils.convert import from_numpy, to_numpy
 from tests.test_torch_sim import JM, TM, _close, _fields, _perturbed
+from torch_threads import one_torch_thread  # noqa: F401
 
 TICK_BOUNDS = {"q": 5e-4, "pos": 5e-4, "quat": 5e-4, "qd": 2e-2}
 

@@ -35,6 +35,7 @@ from biped_mpc_py_torch.parallel import rollout_art as tra
 from biped_mpc_py_torch.utils import profiling
 from biped_mpc_py_torch.utils.graphs import leaves
 from biped_mpc_py_torch.utils.precision import f32_matmul
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 SRB_STAGES = ["mpc.build", "qp.ruiz", "qp.kernel", "qp.unscale", "srb.step", "tick.post"]

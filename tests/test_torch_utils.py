@@ -39,6 +39,7 @@ from biped_mpc_py_torch.utils.convert import from_numpy
 from biped_mpc_py_torch.utils.logging import log_event, metrics_to_dict
 from biped_mpc_py_torch.utils.metrics import RolloutMetrics
 from tests.oracle_qp import kkt_residuals
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden", "tick_t0_walking.npz")
