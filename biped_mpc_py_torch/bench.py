@@ -41,9 +41,10 @@ It reads the variables of ``bench.py`` with the same defaults:
 Where it differs from ``bench.py``:
 
 - **The path rule.** A terrain (``BENCH_TERRAIN`` > 0) takes the terrain
-  path (``batched_art_rollout_terrain_fn``: each low-level period's
-  substeps one launch of the substep kernel's field variant, the low-level
-  control plain; the tick kernel knows flat ground only). Otherwise
+  path (``batched_art_rollout_terrain_fn``: with ``BENCH_MINV_HOLD`` 8 each
+  tick's low-level loop one launch of the tick kernel's field variant,
+  otherwise each period's substeps one launch of the substep kernel's and
+  the low-level control plain). Otherwise
   ``BENCH_ART_BACKEND`` picks it, and its default is ``tick`` when
   ``BENCH_MINV_HOLD`` is 8 and ``kernel`` otherwise, at any env count:
   ``bench.py:194-200`` falls back to ``xla`` unless the envs are whole

@@ -199,8 +199,9 @@ def foot_reference(
         z1 = torch.zeros_like(fx1)
         z2 = torch.zeros_like(fx2)
     else:
-        z1 = terrain.height(fx1, fy1)
-        z2 = terrain.height(fx2, fy2)
+        # both targets in one query: one sampler's launches, not two
+        z1, z2 = terrain.height(torch.stack([fx1, fx2], -1),
+                                torch.stack([fy1, fy2], -1)).unbind(-1)
     foot_1 = torch.stack([fx1, fy1, z1, fx1, fy1, z1], -1)  # (N,6)
     foot_2 = torch.stack([fx2, fy2, z2, fx2, fy2, z2], -1)
 

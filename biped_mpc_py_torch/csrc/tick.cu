@@ -60,6 +60,33 @@
 //  - The native atan2f and asinf (the Pallas kernel's polynomials exist only
 //    because the TPU compiler lacks them). No --use_fast_math.
 // Not done: see substep.cu.
+//
+// The ground is a template parameter of the kernel, as of substep():
+// tick_kernel<Plane> is the flat kernel above (tick_launch), and
+// tick_kernel<Field> runs the same periods on a height field per env
+// (tick_field_launch). It replaces no TPU kernel: the JAX package, like the
+// port before it, runs a field with the plain chain, whose feedback and
+// low-level control are ~790 short ATen, cuBLAS and gemv launches a period
+// on this card. The field variant differs from the flat one only where the
+// plain terrain periods (rollout_art.py::_art_tick on a Terrain) differ:
+//  - the substeps are substep<Field> on the env's own field, with the
+//    NaN-safe index of Field, and each lane adds its leg's sole-point counts
+//    into the caller's ground counter, as substep_kernel<true> does;
+//  - the swing target's height adds the field's bilinear height at the
+//    target's (x, y) (control/swing.py::swing_leg_force), on each lane for
+//    its own leg's target;
+//  - the clock is the state's own t, advanced by n_substeps f32 additions of
+//    sub_dt a period and written out, and period p's control runs at that
+//    running t (the plain chain's t_ll with contact_clock off), so t stays
+//    bit-equal to the plain chain's;
+//  - the leg geometry of the control is each env's own (the plain chain
+//    reads bipeds.jac_geometry per env): eight floats an env from global
+//    memory, where the flat kernel reads one robot's from shared memory.
+// What bounds it is what bounds the flat kernel, latency, with a memory
+// round trip per substep and per swing target for the field's samples (the
+// 4096 fields of 64 x 64, 64 MB, do not fit the 50 MB L2).
+
+#include <type_traits>
 
 #include "substep_device.cuh"
 
@@ -81,6 +108,10 @@ enum Ctrl {
   kAbdY, kAbdYConst, kHipX, kHipY, kHipZ, kNCtrl
 };
 constexpr int kNTick = kTCtrl + kNCtrl;
+// The leg geometry of the Jacobian, the last eight control constants, as
+// leg_jacobian reads it: from the tick buffer (one robot) or per env.
+enum Geom { kGThigh, kGShank, kGFoot, kGAbdY, kGAbdYConst, kGHipX, kGHipY, kGHipZ, kNGeom };
+static_assert(kLThigh + kNGeom == kNCtrl && kLThigh + kGHipZ == kHipZ, "geometry block");
 // As staged in shared memory: a body's CoM and mass in one 128-bit group
 // (11 x 4 floats in the place of the 11 + 33), the rest where it was.
 constexpr int kTSBody = 0;
@@ -95,6 +126,19 @@ __device__ __forceinline__ void stage_tick_async(float* __restrict__ T,
     const int b = i >> 2, k = i & 3;
     async_copy4(T + i, tconsts + (i >= kTTipZ ? i : (k < 3 ? kTCom + 3 * b + k : kTMass + b)));
   }
+}
+
+// The bilinear height of a Field at (x, y) alone (sim/contact.py::
+// Terrain.height), as Field::contact forms each of its samples.
+__device__ __forceinline__ float field_height(const Field& f, float x, float y) {
+  float fx, fy;
+  int ix, iy;
+  grid_axis(x, f.extent, f.W, fx, ix);
+  grid_axis(y, f.extent, f.H, fy, iy);
+  const float* p = f.h + iy * f.W + ix;
+  const float c0 = __ldg(p), c1 = __ldg(p + 1), c2 = __ldg(p + f.W), c3 = __ldg(p + f.W + 1);
+  return c0 * (1.f - fx) * (1.f - fy) + c1 * fx * (1.f - fy) + c2 * (1.f - fx) * fy +
+         c3 * fx * fy;
 }
 
 __device__ __forceinline__ float clipf(float v, float lo, float hi) {
@@ -201,25 +245,25 @@ __device__ __forceinline__ void feedback(const float* __restrict__ S, const floa
 
 // Columns of the controller chain's foot-position Jacobian (jf) and joint
 // axes (ax) of the lane's leg, in the body frame (models/kinematics.py::
-// leg_jacobians): p(q) = Rz(q0) (hip + Rx(q1) (abd + pitch chain)). cs, sn:
-// cos and sin of q5.
-__device__ __forceinline__ void leg_jacobian(const float* __restrict__ K, const float q5[5],
+// leg_jacobians): p(q) = Rz(q0) (hip + Rx(q1) (abd + pitch chain)). G: the
+// leg geometry (Geom); cs, sn: cos and sin of q5.
+__device__ __forceinline__ void leg_jacobian(const float* __restrict__ G, const float q5[5],
                                              const float cs[5], const float sn[5], float side,
                                              float jf[5][3], float ax[5][3]) {
   const float c0 = cs[0], s0 = sn[0], c1 = cs[1], s1 = sn[1];
   float lc[3], ls[3];
-  lc[0] = K[kLThigh] * cs[2]; ls[0] = K[kLThigh] * sn[2];
+  lc[0] = G[kGThigh] * cs[2]; ls[0] = G[kGThigh] * sn[2];
   {
     float s, c;
     sincosf(q5[2] + q5[3], &s, &c);
-    lc[1] = K[kLShank] * c; ls[1] = K[kLShank] * s;
+    lc[1] = G[kGShank] * c; ls[1] = G[kGShank] * s;
     sincosf(q5[2] + q5[3] + q5[4], &s, &c);
-    lc[2] = K[kLFoot] * c; ls[2] = K[kLFoot] * s;
+    lc[2] = G[kGFoot] * c; ls[2] = G[kGFoot] * s;
   }
   const float u0 = -(ls[0] + ls[1] + ls[2]), u2 = -(lc[0] + lc[1] + lc[2]);
-  const float u1 = K[kAbdY] * side + K[kAbdYConst];
-  const float w0 = K[kHipX] + u0;
-  const float w1 = K[kHipY] * side + (c1 * u1 - s1 * u2);
+  const float u1 = G[kGAbdY] * side + G[kGAbdYConst];
+  const float w0 = G[kGHipX] + u0;
+  const float w1 = G[kGHipY] * side + (c1 * u1 - s1 * u2);
   jf[0][0] = -s0 * w0 - c0 * w1; jf[0][1] = c0 * w0 - s0 * w1; jf[0][2] = 0.f;
   const float du1 = -s1 * u1 - c1 * u2, du2 = c1 * u1 - s1 * u2;
   jf[1][0] = -s0 * du1; jf[1][1] = c0 * du1; jf[1][2] = du2;
@@ -237,18 +281,22 @@ __device__ __forceinline__ void leg_jacobian(const float* __restrict__ K, const 
   for (int k = 2; k < 5; ++k) { ax[k][0] = -s0 * c1; ax[k][1] = c0 * c1; ax[k][2] = s1; }
 }
 
-// Joint torques (5) of the lane's leg for one low-level period. f3, m3: the
-// leg's force and moment of u0; c_own: the leg's contact flag; flight: (1 -
-// c0[0]) (1 - c0[1]). Everything up to the leg's Jacobian reads values that
-// both lanes hold alike.
-__device__ __forceinline__ void control_tau(const float* __restrict__ T, int flags, int leg,
+// Joint torques (5) of the lane's leg for one low-level period. G: the leg
+// geometry; f3, m3: the leg's force and moment of u0; c_own: the leg's
+// contact flag; flight: (1 - c0[0]) (1 - c0[1]); ground: under the swing
+// target (on a Field the target's height adds the field's there).
+// Everything up to the leg's Jacobian reads values that both lanes hold
+// alike.
+template <class Ground>
+__device__ __forceinline__ void control_tau(const float* __restrict__ T,
+                                            const float* __restrict__ G, int flags, int leg,
                                             const float R0[3][3], const float x[12],
                                             const float sole[3], const float q5[5],
                                             const float qd5[5], const float cs[5],
                                             const float sn[5], const float f3[3],
                                             const float m3[3], float c_own, float flight,
                                             float t_ll, float cmd_yaw, const float v_int[2],
-                                            float tau5[5]) {
+                                            const Ground& ground, float tau5[5]) {
   const float* K = T + kTCtrl;
   const float yaw = x[2];
   const float yaw_des = (flags & kCmdBodyFrame) ? cmd_yaw : K[kXc2];
@@ -307,7 +355,7 @@ __device__ __forceinline__ void control_tau(const float* __restrict__ T, int fla
   // the lane's own leg
   const float side = leg == 0 ? 1.f : -1.f;
   float jf[5][3], ax[5][3];
-  leg_jacobian(K, q5, cs, sn, side, jf, ax);
+  leg_jacobian(G, q5, cs, sn, side, jf, ax);
   float jfqd[3], vf_w[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
@@ -326,7 +374,9 @@ __device__ __forceinline__ void control_tau(const float* __restrict__ T, int fla
     tx = fx - sin_td * K[kYOffset] * side;
     ty = fy + cos_td * K[kYOffset] * side;
   }
-  const float foot_des[3] = {tx - retract * cyw, ty - retract * syw, fz};
+  float fz_des = fz;
+  if constexpr (std::is_same_v<Ground, Field>) fz_des = fz + field_height(ground, tx, ty);
+  const float foot_des[3] = {tx - retract * cyw, ty - retract * syw, fz_des};
   float f_sw[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
@@ -361,6 +411,34 @@ __device__ __forceinline__ void control_tau(const float* __restrict__ T, int fla
   }
 }
 
+// What the field variant takes besides the flat kernel's inputs: the
+// heights (n_env, H, W) with the grid's extent and half-cell steps, each
+// env's leg geometry (n_env, kNGeom), t's output, and the (n_env, 2, 2)
+// int32 count of sole points below the ground, added to in place. The flat
+// kernel reads none of it.
+struct TickFieldArgs {
+  const float* __restrict__ heights;
+  const float* __restrict__ geom;
+  float* __restrict__ t_out;
+  int* __restrict__ below_count;
+  int H, W;
+  float extent, eps_x, eps_y;
+};
+
+// The env's ground: the plane, or its own height field.
+template <class Ground>
+__device__ __forceinline__ Ground ground_of(const TickFieldArgs& fa, int e);
+template <>
+__device__ __forceinline__ Plane ground_of<Plane>(const TickFieldArgs&, int) {
+  return Plane{};
+}
+template <>
+__device__ __forceinline__ Field ground_of<Field>(const TickFieldArgs& fa, int e) {
+  return Field{fa.heights + static_cast<size_t>(e) * fa.H * fa.W, fa.H, fa.W, fa.extent,
+               fa.eps_x, fa.eps_y};
+}
+
+template <class Ground>
 __global__ void __launch_bounds__(kThreads)
 tick_kernel(const float* __restrict__ consts, const float* __restrict__ tconsts,
             const float* __restrict__ pos_in, const float* __restrict__ quat_in,
@@ -372,7 +450,8 @@ tick_kernel(const float* __restrict__ consts, const float* __restrict__ tconsts,
             float* __restrict__ quat_out, float* __restrict__ vb_out,
             float* __restrict__ q_out, float* __restrict__ qd_out,
             float* __restrict__ energy_out, int n_env, double ll_dt, float sub_dt,
-            int n_lowlevel, int n_substeps, int flags) {
+            int n_lowlevel, int n_substeps, int flags, TickFieldArgs fa) {
+  constexpr bool kOnField = std::is_same_v<Ground, Field>;
   __shared__ __align__(16) float S[kNStaged];
   __shared__ __align__(16) float T[kNTick];
   __shared__ __align__(16) float M[kEnvsPerBlock * kMinvStride];
@@ -411,26 +490,46 @@ tick_kernel(const float* __restrict__ consts, const float* __restrict__ tconsts,
   const float t0 = t0_in[e], cmd_yaw = cmd_yaw_in[e];
   const float* minv = M + kMinvStride * slot;
   const float ll_dt_f = static_cast<float>(ll_dt);
+  const Ground ground = ground_of<Ground>(fa, e);
+  // the leg geometry: the tick buffer's one robot, or the env's own
+  const float* G = T + kTCtrl + kLThigh;
+  if constexpr (kOnField) G = fa.geom + kNGeom * e;
   joint_sincos(q5, cs, sn);
   async_wait<1>();  // the constants; Minv may still be on its way
 
   float energy = 0.f;
+  float t = t0;  // on a field, the running clock of the plain chain
+  int toe = 0, heel = 0;
 #pragma unroll 1
   for (int p = 0; p < n_lowlevel; ++p) {
-    // p ll_dt rounded once to f32, as the plain version adds a Python float
-    const float t_ll = t0 + static_cast<float>(p * ll_dt);
+    // flat: p ll_dt rounded once to f32, as the plain version adds a Python
+    // float; field: the running t
+    float t_ll;
+    if constexpr (kOnField)
+      t_ll = t;
+    else
+      t_ll = t0 + static_cast<float>(p * ll_dt);
     float R0[3][3], x[12], sole[3], tau5[5];
     feedback(S, T, leg, pos, quat, vb, qd5, cs, sn, R0, x, sole);
-    control_tau(T, flags, leg, R0, x, sole, q5, qd5, cs, sn, f3, m3, c_own, flight, t_ll,
-                cmd_yaw, v_int, tau5);
+    control_tau(T, G, flags, leg, R0, x, sole, q5, qd5, cs, sn, f3, m3, c_own, flight, t_ll,
+                cmd_yaw, v_int, ground, tau5);
     float work = 0.f;
 #pragma unroll
     for (int l = 0; l < 5; ++l) work += fmaxf(tau5[l] * qd5[l], 0.f);
     energy += pair_sum(work) * ll_dt_f;
     if (p == 0) async_wait<0>();
 #pragma unroll 1
-    for (int s = 0; s < n_substeps; ++s)
-      substep(S, leg, minv, pos, quat, vb, q5, qd5, cs, sn, tau5, sub_dt, true);
+    for (int s = 0; s < n_substeps; ++s) {
+      if constexpr (kOnField) {
+        const int below =
+            substep(S, leg, minv, pos, quat, vb, q5, qd5, cs, sn, tau5, sub_dt, true, ground);
+        toe += below & 1;
+        heel += below >> 1;
+        t += sub_dt;  // the plain chain's t + dt at every substep
+      } else {
+        substep(S, leg, minv, pos, quat, vb, q5, qd5, cs, sn, tau5, sub_dt, true);
+      }
+    }
   }
 
   if (e_own < n_env) {
@@ -442,11 +541,17 @@ tick_kernel(const float* __restrict__ consts, const float* __restrict__ tconsts,
 #pragma unroll
       for (int i = 0; i < 6; ++i) vb_out[6 * e + i] = vb[i];
       energy_out[e] = energy;
+      if constexpr (kOnField) fa.t_out[e] = t;
     }
 #pragma unroll
     for (int l = 0; l < 5; ++l) {
       q_out[j0 + l] = q5[l];
       qd_out[j0 + l] = qd5[l];
+    }
+    if constexpr (kOnField) {
+      int* count = fa.below_count + 4 * e + 2 * leg;  // the lane's own two entries
+      count[0] += toe;
+      count[1] += heel;
     }
   }
 }
@@ -456,6 +561,33 @@ tick_kernel(const float* __restrict__ consts, const float* __restrict__ tconsts,
 // The length of the tick constant buffer this build expects (the wrapper
 // checks it against its own layout).
 extern "C" int tick_n_consts() { return kNTick; }
+
+namespace {
+
+// Both instantiations' launch: checks, device, grid.
+template <class Ground>
+int launch(const float* consts, const float* tconsts, const float* pos, const float* quat,
+           const float* v_base, const float* q, const float* qd, const float* u0,
+           const float* c0, const float* t0, const float* cmd_yaw, const float* v_int,
+           const float* minv, float* pos_out, float* quat_out, float* v_base_out, float* q_out,
+           float* qd_out, float* energy_out, int n_env, double ll_dt, float sub_dt,
+           int n_lowlevel, int n_substeps, int flags, const TickFieldArgs& fa, int device,
+           void* stream) {
+  if (n_env < 0 || n_lowlevel < 1 || n_substeps < 1 ||
+      (reinterpret_cast<size_t>(minv) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_env == 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (n_env + kEnvsPerBlock - 1) / kEnvsPerBlock;
+  tick_kernel<Ground><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      consts, tconsts, pos, quat, v_base, q, qd, u0, c0, t0, cmd_yaw, v_int, minv, pos_out,
+      quat_out, v_base_out, q_out, qd_out, energy_out, n_env, ll_dt, sub_dt, n_lowlevel,
+      n_substeps, flags, fa);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
 
 // Launch on `stream` (a cudaStream_t) of device `device`; `minv` must be
 // 16-byte aligned. Returns the cudaError_t of the launch (0 = success); the
@@ -468,18 +600,34 @@ extern "C" int tick_launch(const float* consts, const float* tconsts, const floa
                            float* qd_out, float* energy_out, int n_env, double ll_dt,
                            float sub_dt, int n_lowlevel, int n_substeps, int flags, int device,
                            void* stream) {
-  if (n_env < 0 || n_lowlevel < 1 || n_substeps < 1 ||
-      (reinterpret_cast<size_t>(minv) & 15) != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_env == 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n_env + kEnvsPerBlock - 1) / kEnvsPerBlock;
-  tick_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      consts, tconsts, pos, quat, v_base, q, qd, u0, c0, t0, cmd_yaw, v_int, minv, pos_out,
-      quat_out, v_base_out, q_out, qd_out, energy_out, n_env, ll_dt, sub_dt, n_lowlevel,
-      n_substeps, flags);
-  return static_cast<int>(cudaGetLastError());
+  return launch<Plane>(consts, tconsts, pos, quat, v_base, q, qd, u0, c0, t0, cmd_yaw, v_int,
+                       minv, pos_out, quat_out, v_base_out, q_out, qd_out, energy_out, n_env,
+                       ll_dt, sub_dt, n_lowlevel, n_substeps, flags, TickFieldArgs{}, device,
+                       stream);
+}
+
+// The field variant's launch, as tick_launch's; t0 is the state's t, which
+// the kernel advances into t_out; `heights` is (n_env, H, W) with H, W >= 2,
+// `geom` (n_env, 8) in the order of the Geom enum, `below_count` (n_env, 2,
+// 2) int32.
+extern "C" int tick_field_launch(const float* consts, const float* tconsts, const float* pos,
+                                 const float* quat, const float* v_base, const float* q,
+                                 const float* qd, const float* u0, const float* c0,
+                                 const float* t0, const float* cmd_yaw, const float* v_int,
+                                 const float* minv, const float* heights, const float* geom,
+                                 float* pos_out, float* quat_out, float* v_base_out,
+                                 float* q_out, float* qd_out, float* energy_out, float* t_out,
+                                 int* below_count, int n_env, int H, int W, float extent,
+                                 float eps_x, float eps_y, double ll_dt, float sub_dt,
+                                 int n_lowlevel, int n_substeps, int flags, int device,
+                                 void* stream) {
+  if (H < 2 || W < 2) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<Field>(consts, tconsts, pos, quat, v_base, q, qd, u0, c0, t0, cmd_yaw, v_int,
+                       minv, pos_out, quat_out, v_base_out, q_out, qd_out, energy_out, n_env,
+                       ll_dt, sub_dt, n_lowlevel, n_substeps, flags,
+                       TickFieldArgs{heights, geom, t_out, below_count, H, W, extent, eps_x,
+                                     eps_y},
+                       device, stream);
 }
 
 extern "C" const char* tick_error_string(int code) {

@@ -125,14 +125,15 @@ def _check(state: ArtState, tau, Minv):
 
 
 def _check_field(terrain, state: ArtState, n: int, device) -> torch.Tensor:
-    """The heights of a field per env that the field kernel takes: (n, H, W)
-    with H, W >= 2, float32, contiguous, on ``device``; the kernel also
-    steps ``state.t``, (n,) float32."""
+    """The heights of a field per env that the field kernels (the substep
+    kernel's and the tick kernel's) take: (n, H, W) with H, W >= 2, float32,
+    contiguous, on ``device``; the kernels also step ``state.t``, (n,)
+    float32."""
     if state.t.dtype != torch.float32 or tuple(state.t.shape) != (n,):
         raise ValueError(f"t must be ({n},) float32, got {tuple(state.t.shape)} {state.t.dtype}")
     h = terrain.heights
     if not terrain.batched:
-        raise ValueError("the substep kernel takes a height field per env, (N, H, W), not "
+        raise ValueError("the field kernels take a height field per env, (N, H, W), not "
                          "one shared field (run art_step)")
     if h.shape[0] != n or min(h.shape[1:]) < 2:
         raise ValueError(f"terrain.heights has shape {tuple(h.shape)}, want ({n}, H, W) "

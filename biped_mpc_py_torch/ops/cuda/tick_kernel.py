@@ -21,7 +21,20 @@ The kernel reads the model, the gains and the leg geometry from constant
 buffers (:func:`~biped_mpc_py_torch.ops.cuda.substep_kernel.model_constants`
 and :func:`tick_constants`), so they are runtime inputs, one set for the
 whole batch as in JAX. Scope, as the Pallas kernel's: walking gaits
-(``flight_steps == 0``), flat ground, ``Minv`` held all tick.
+(``flight_steps == 0``), flat ground, ``Minv`` held all tick; and beyond
+it, a height field.
+
+On a height field per env (``terrain``, (N, H, W), with the per-env robots
+``bipeds``) the tick is the plain terrain periods of
+``parallel/rollout_art.py::_art_tick``: the contact and the swing apex
+follow each env's field, the low-level control reads each env's own leg
+geometry, the clock is the state's ``t`` (advanced by ``dt / n_substeps``
+at every substep, as ``sim/engine.py::art_step`` does, with period p's
+control at that running ``t``) and the sole points below the ground are
+counted. On the card that is the kernel's field instantiation
+(``tick_kernel<Field>``, one launch); on the CPU
+:func:`fused_tick_field_reference`. The JAX package runs a field on the
+plain chain only.
 """
 
 from __future__ import annotations
@@ -38,11 +51,15 @@ from biped_mpc_py_torch.control.lowlevel import low_level_control
 from biped_mpc_py_torch.models.biped import BipedParams
 from biped_mpc_py_torch.ops.cuda import build
 from biped_mpc_py_torch.ops.cuda.substep_kernel import (
+    _check_field,
     fused_substeps_reference,
     model_constants,
 )
+from biped_mpc_py_torch.sim import engine
+from biped_mpc_py_torch.sim.contact import Terrain
 from biped_mpc_py_torch.sim.engine import ArtState, feedback_and_soles
 from biped_mpc_py_torch.sim.model import ArticulatedModel
+from biped_mpc_py_torch.utils import profiling
 
 SOURCE = build.CSRC / "tick.cu"
 # The tick constant buffer: body masses (11), CoMs (11x3), the sole depth,
@@ -60,15 +77,16 @@ CONTROL_NAMES = (
 N_TICK_CONSTS = 11 + 33 + 2 + len(CONTROL_NAMES)  # 91 floats
 # the bits of the kernel's `flags` argument
 FLAG_SIN2, FLAG_CMD_BODY_FRAME, FLAG_COMPAT_FRAME, FLAG_COMPAT_YAW = 1, 2, 4, 8
+# the leg geometry, the last control constants and the columns of the field
+# variant's per-env geometry (the Geom enum of csrc/tick.cu)
 _GEOMETRY = ("l_thigh", "l_shank", "l_foot", "abd_y", "abd_y_const", "hip_x", "hip_y", "hip_z")
 
-_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_TAIL = [ctypes.c_double, _F32, _I32, _I32, _I32, _I32, _PTR]  # ll_dt ... stream
 # the library's C interface: {name: (argtypes, restype)}
 FUNCTIONS = {
-    "tick_launch": (
-        [_PTR] * 19 + [_I32, ctypes.c_double, ctypes.c_float, _I32, _I32, _I32, _I32, _PTR],
-        _I32,
-    ),
+    "tick_launch": ([_PTR] * 19 + [_I32] + _TAIL, _I32),
+    "tick_field_launch": ([_PTR] * 23 + [_I32] * 3 + [_F32] * 3 + _TAIL, _I32),
     "tick_n_consts": ([], _I32),
     "tick_error_string": ([_I32], ctypes.c_char_p),
 }
@@ -156,11 +174,12 @@ def _constants(model, biped, mpc, gait, device):
 
 
 def _check(biped, gait, state, u0, c0, t0, cmd_yaw, v_int, Minv, n_lowlevel,
-           n_substeps, terrain, x_cmd, per_env):
+           n_substeps, terrain, x_cmd, per_env, bipeds):
     if gait.flight_steps > 0:
         raise ValueError("the tick kernel runs walking gaits only (flight_steps == 0)")
-    if terrain is not None:
-        raise ValueError("the tick kernel runs on flat ground only (terrain is None)")
+    if terrain is not None and not isinstance(terrain, Terrain):
+        raise ValueError("the tick kernel runs on flat ground (terrain None) or on a "
+                         f"Terrain, not on {type(terrain).__name__}")
     if x_cmd is not None or per_env:
         raise ValueError("the tick kernel holds one config per batch: no per-env "
                          "x_cmd or gains (run art_closed_loop_tick)")
@@ -184,6 +203,20 @@ def _check(biped, gait, state, u0, c0, t0, cmd_yaw, v_int, Minv, n_lowlevel,
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
+    if terrain is not None:
+        _check_field(terrain, state, n, state.q.device)
+        if gait.contact_clock:
+            raise ValueError("on a field the tick kernel's clock is the state's t: no "
+                             "contact_clock (run art_closed_loop_tick)")
+        if bipeds is None:
+            raise ValueError("on a field the tick kernel takes each env's leg geometry: "
+                             "pass bipeds")
+        for k in _GEOMETRY:
+            g = getattr(bipeds.jac_geometry, k)
+            if g.device != state.q.device or g.dtype != torch.float32 or tuple(g.shape) != (n,):
+                raise ValueError(f"bipeds' leg geometry {k} must be ({n},) float32 on "
+                                 f"{state.q.device}, got {tuple(g.shape)} {g.dtype} on "
+                                 f"{g.device}")
     return n
 
 
@@ -191,31 +224,47 @@ def fused_tick(model: ArticulatedModel, biped: BipedParams, mpc: MpcConfig,
                gait: GaitConfig, state: ArtState, u0: torch.Tensor, c0: torch.Tensor,
                t0: torch.Tensor, cmd_yaw: torch.Tensor, v_int: torch.Tensor,
                Minv: torch.Tensor, n_lowlevel: int = 8, n_substeps: int = 5,
-               terrain=None, x_cmd=None, per_env=None) -> tuple[ArtState, torch.Tensor]:
+               terrain=None, x_cmd=None, per_env=None,
+               bipeds: BipedParams | None = None) -> tuple[ArtState, torch.Tensor]:
     """One tick below the MPC layer -> (ArtState, energy (N,)).
 
     Args:
       model: one ArticulatedModel for the whole batch.
-      biped: one robot (leading axis 1): its Jacobian leg geometry serves
-        every env's low-level control (the MPC stage takes the per-env
-        batch).
+      biped: one robot (leading axis 1): on flat ground its Jacobian leg
+        geometry serves every env's low-level control (the MPC stage takes
+        the per-env batch).
       state: ArtState with a leading env axis N (any N).
       u0: (N,12) first MPC control, held all tick; c0: (N,2) first-row
-        contact flags; t0: (N,) gait time at the tick's start; cmd_yaw: (N,)
-        the command anchor's yaw; v_int: (N,2); Minv: (N,16,16) held.
-      terrain: must be None (flat ground).
+        contact flags; t0: (N,) gait time at the tick's start (on a field the
+        state's ``t``, where the running clock starts); cmd_yaw: (N,) the
+        command anchor's yaw; v_int: (N,2); Minv: (N,16,16) held.
+      terrain: None for flat ground, or a ``sim.contact.Terrain`` with a field
+        per env: ``heights`` (N, H, W), float32, contiguous, on the state's
+        device, H and W >= 2 (walking gaits without ``contact_clock``).
       x_cmd, per_env: must be None: the constant buffer holds one config's
         command and gains for the whole batch.
+      bipeds: on a field, the N robots whose Jacobian leg geometry
+        (``jac_geometry``, (N,) float32 each) the low-level control reads per
+        env, as the plain terrain periods do.
 
-    CUDA tensors launch the kernel (and count the launch in
-    ``fused_tick.launches``; a CUDA-graph replay of a captured launch adds to it too,
-    ``utils/graphs.py``); CPU tensors run :func:`fused_tick_reference`.
-    Raises ValueError on a running gait, a terrain or per-env values.
+    CUDA tensors launch the kernel, on a field its field instantiation (and
+    count the launch in ``fused_tick.launches``; a CUDA-graph replay of a
+    captured launch adds to it too, ``utils/graphs.py``); CPU tensors run
+    :func:`fused_tick_reference`, on a field :func:`fused_tick_field_reference`.
+    On a field ``t`` is advanced as the plain chain advances it and the sole
+    points below the ground are counted (``utils/profiling.py::
+    terrain_contacts``); on flat ground ``t`` advances by ``mpc.dt``.
+    Raises ValueError on a running gait, a shared field, a field with
+    ``contact_clock`` or without ``bipeds``, or per-env values.
     """
     n = _check(biped, gait, state, u0, c0, t0, cmd_yaw, v_int, Minv, n_lowlevel,
-               n_substeps, terrain, x_cmd, per_env)
+               n_substeps, terrain, x_cmd, per_env, bipeds)
     device = state.q.device
     if device.type == "cpu":
+        if terrain is not None:
+            return fused_tick_field_reference(model, bipeds, mpc, gait, state, u0, c0, t0,
+                                              cmd_yaw, v_int, Minv, terrain, n_lowlevel,
+                                              n_substeps)
         return fused_tick_reference(model, biped, mpc, gait, state, u0, c0, t0, cmd_yaw,
                                     v_int, Minv, n_lowlevel, n_substeps)
     if device.type != "cuda":
@@ -223,23 +272,36 @@ def fused_tick(model: ArticulatedModel, biped: BipedParams, mpc: MpcConfig,
     ins = [t.contiguous() for t in (state.pos, state.quat, state.v_base, state.q, state.qd,
                                     u0, c0, t0, cmd_yaw, v_int, Minv)]
     outs = [torch.empty_like(t) for t in ins[:5]] + [torch.empty_like(ins[7])]
+    if terrain is None:
+        t = state.t + mpc.dt
+    else:
+        geom = torch.stack([getattr(bipeds.jac_geometry, k) for k in _GEOMETRY], 1)
+        t = torch.empty_like(ins[7])
+        below = profiling.ground_counter((n, 2, 2), device, n_lowlevel * n_substeps)
     if n > 0:
         lib = _load()
         model_buf, tick_buf = _constants(model, biped, mpc, gait, device)
         ll_dt = mpc.dt / n_lowlevel
-        rc = lib.tick_launch(
-            model_buf.data_ptr(), tick_buf.data_ptr(), *[t.data_ptr() for t in ins + outs],
-            n, ll_dt, float(ll_dt / n_substeps), int(n_lowlevel), int(n_substeps),
-            _flags(mpc),
-            device.index if device.index is not None else torch.cuda.current_device(),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
+        tail = (n_lowlevel, n_substeps, _flags(mpc),
+                device.index if device.index is not None else torch.cuda.current_device(),
+                torch.cuda.current_stream(device).cuda_stream)
+        if terrain is None:
+            rc = lib.tick_launch(model_buf.data_ptr(), tick_buf.data_ptr(),
+                                 *[x.data_ptr() for x in ins + outs], n, ll_dt,
+                                 float(ll_dt / n_substeps), *tail)
+        else:
+            H, W = terrain.heights.shape[1:]
+            ptrs = ins + [terrain.heights, geom] + outs + [t, below]
+            rc = lib.tick_field_launch(
+                model_buf.data_ptr(), tick_buf.data_ptr(), *[x.data_ptr() for x in ptrs],
+                n, H, W, float(terrain.extent), 0.5 * terrain.extent / (W - 1),
+                0.5 * terrain.extent / (H - 1), ll_dt, float(ll_dt / n_substeps), *tail,
+            )
         if rc != 0:
             msg = lib.tick_error_string(rc).decode()
             raise RuntimeError(f"tick kernel launch failed: {msg} ({rc})")
         fused_tick.launches += 1
-    new = ArtState(pos=outs[0], quat=outs[1], v_base=outs[2], q=outs[3], qd=outs[4],
-                   t=state.t + mpc.dt)
+    new = ArtState(pos=outs[0], quat=outs[1], v_base=outs[2], q=outs[3], qd=outs[4], t=t)
     return new, outs[5]
 
 
@@ -269,3 +331,30 @@ def fused_tick_reference(model: ArticulatedModel, biped: BipedParams, mpc: MpcCo
         energy = energy + torch.sum(torch.clamp(tau * sim.qd, min=0.0), 1) * ll_dt
         sim = fused_substeps_reference(model, sim, tau, Minv, ll_dt, n_substeps)
     return dataclasses.replace(sim, t=state.t + mpc.dt), energy
+
+
+def fused_tick_field_reference(model: ArticulatedModel, bipeds: BipedParams, mpc: MpcConfig,
+                               gait: GaitConfig, state: ArtState, u0: torch.Tensor,
+                               c0: torch.Tensor, t0: torch.Tensor, cmd_yaw: torch.Tensor,
+                               v_int: torch.Tensor, Minv: torch.Tensor, terrain: Terrain,
+                               n_lowlevel: int = 8,
+                               n_substeps: int = 5) -> tuple[ArtState, torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_tick` on a field per env: the
+    terrain periods of ``parallel/rollout_art.py::_art_tick``, from the
+    state with its clock at ``t0``. Per period, ``feedback_and_soles``,
+    ``low_level_control`` on ``terrain`` with each env's robot at the
+    running ``t`` (contact row 0 = ``c0``, command yaw = ``cmd_yaw``), the
+    positive work, and ``sim.engine.art_step(..., terrain, Minv=)``, which
+    advances ``t`` and counts the sole points below the ground."""
+    contact = c0[:, None, :]
+    cmd_ref = torch.stack([torch.zeros_like(cmd_yaw), torch.zeros_like(cmd_yaw), cmd_yaw], -1)
+    ll_dt = mpc.dt / n_lowlevel
+    energy = torch.zeros_like(t0)
+    sim = dataclasses.replace(state, t=t0)
+    for _ in range(n_lowlevel):
+        x, pf = feedback_and_soles(model, sim)
+        tau = low_level_control(x, sim.t, pf, sim.q, sim.qd, mpc, bipeds, contact, u0,
+                                gait=gait, cmd_ref=cmd_ref, terrain=terrain, v_int=v_int)
+        energy = energy + torch.sum(torch.clamp(tau * sim.qd, min=0.0), 1) * ll_dt
+        sim = engine.art_step(model, sim, tau, ll_dt, n_substeps, terrain, Minv=Minv)
+    return sim, energy

@@ -24,12 +24,14 @@ fused substep kernel once per low-level period (the counterpart of
 counterpart of ``batched_art_rollout_fn``), on the plane z = 0 or on one
 height field under every env; :func:`batched_art_rollout_terrain` runs the
 same tick with a height field per env (the counterpart of
-``batched_art_rollout_terrain_fn`` and of ``bench.py BENCH_TERRAIN``), each
-low-level period's substeps in one launch of the substep kernel's field
-variant on the card (``fused_substeps(terrain=)``; ``art_step`` on the
-CPU). The TPU kernels know flat ground only, so the JAX package runs every
-terrain on the plain chain; the port's tick kernel also knows flat ground
-only, and a shared field runs the plain chain here too.
+``batched_art_rollout_terrain_fn`` and of ``bench.py BENCH_TERRAIN``): on
+the card with one config, a walking gait and one mass-matrix inverse a
+tick, the whole low-level loop in one launch of the tick kernel's field
+variant (``fused_tick(terrain=)``), otherwise each low-level period's
+substeps in one launch of the substep kernel's (``fused_substeps(terrain=)``;
+``art_step`` on the CPU). The TPU kernels know flat ground only, so the JAX
+package runs every terrain on the plain chain; a shared field runs the
+plain chain here too.
 :func:`batched_art_rollout_tick_kernel_fn`
 and :func:`batched_art_rollout_kernel_fn` are the compiled forms of the
 two kernel paths, :func:`batched_art_rollout_fn` that of the plain chain
@@ -314,6 +316,18 @@ def art_step(model: ArticulatedModel, state: ArtState, tau: torch.Tensor, dt, n_
     return engine.art_step(model, state, tau, dt, n_substeps, terrain, Minv=Minv)
 
 
+def _tick_field_path(terrain, gait: GaitConfig, n_lowlevel: int, minv_ll_hold: int,
+                     x_cmd, per_env) -> bool:
+    """Whether a tick's low-level loop is one launch of the tick kernel's
+    field variant on the card: a field per env, one config for the batch
+    (no ``x_cmd``, no ``per_env``, so one ``dt`` too), a walking gait on the
+    tick's own clock (``flight_steps`` 0, no ``contact_clock``) and one
+    mass-matrix inverse a tick. Every other input runs the plain chain."""
+    return (terrain is not None and terrain.batched and x_cmd is None and not per_env
+            and gait.flight_steps == 0 and not gait.contact_clock
+            and minv_ll_hold == n_lowlevel)
+
+
 def art_closed_loop_tick(world: ArtWorld, mpc: MpcConfig, gait: GaitConfig,
                          biped: BipedParams, model: ArticulatedModel,
                          n_lowlevel: int = 8, n_substeps: int = 10,
@@ -331,7 +345,15 @@ def art_closed_loop_tick(world: ArtWorld, mpc: MpcConfig, gait: GaitConfig,
     tensors, ``Q`` and ``R`` as (N,13) and (N,12)) override the config's,
     as a config batched under vmap does in JAX (``parallel/sweep.py``); a
     per-env ``dt`` steps each env's physics by its own period. Each period's
-    physics is :func:`art_step`'s."""
+    physics is :func:`art_step`'s. On the card a field per env with one
+    config, a walking gait and one inverse a tick runs the low-level loop
+    as one launch of the tick kernel's field variant
+    (:func:`_tick_field_path`)."""
+    device = world.sim.q.device
+    if device.type == "cuda" and _tick_field_path(terrain, gait, n_lowlevel, minv_ll_hold,
+                                                  x_cmd, per_env):
+        return _tick_kernel_tick(world, biped, mpc, gait, model, _defaults(device)[1],
+                                 n_lowlevel, n_substeps, terrain)
 
     def physics(sim, tau, Minv, dt):
         return art_step(model, sim, tau, dt, n_substeps, terrain, Minv=Minv)
@@ -374,11 +396,14 @@ def batched_art_rollout_terrain(worlds: ArtWorld, bipeds: BipedParams,
     model, n_lowlevel, n_substeps, minv_ll_hold)(worlds, bipeds,
     terrains)``, randomized robots on randomized rough ground.
     ``terrains.heights`` is (N, H, W) with the worlds' env axis
-    (``Terrain.rough_batch``). Each low-level period's substeps are one
-    launch of the substep kernel's field variant on the card
-    (``fused_substeps(terrain=)``, ``n_lowlevel`` a tick) and ``art_step``'s
-    plain chain on the CPU, which JAX runs on either; the low-level control
-    and the MPC stage are the plain chain's."""
+    (``Terrain.rough_batch``). On the card, with ``minv_ll_hold ==
+    n_lowlevel`` and a walking gait on the tick's own clock, each tick's
+    low-level loop (control and substeps) is one launch of the tick
+    kernel's field variant (``fused_tick(terrain=)``); with another hold or
+    gait each period's substeps are one launch of the substep kernel's
+    (``fused_substeps(terrain=)``) after the plain low-level control; on the
+    CPU it is ``art_step``'s plain chain, which JAX runs on either. The MPC
+    stage is the plain chain's."""
     _check_terrains(worlds, terrains)
     step = _plain_step(mpc, gait, model, n_lowlevel, n_substeps, minv_ll_hold)
     w = worlds
@@ -441,8 +466,8 @@ def batched_art_rollout_terrain_fn(n_steps: int, mpc: MpcConfig, gait: GaitConfi
                                    n_lowlevel: int = 8, n_substeps: int = 10,
                                    minv_ll_hold: int = 1):
     """``fn(worlds, bipeds, terrains) -> worlds``: ``n_steps`` ticks with a
-    height field per env (each period's substeps one field-kernel launch on
-    the card, as :func:`batched_art_rollout_terrain`), the counterpart of
+    height field per env (on the card the field kernels of
+    :func:`batched_art_rollout_terrain`), the counterpart of
     ``jax.jit(batched_art_rollout_terrain_fn(n_steps, mpc, gait, model,
     n_lowlevel, n_substeps, minv_ll_hold))``. ``terrains`` (N, H, W) is an
     input of the graph, as the JAX function's argument: new fields of the
@@ -486,13 +511,19 @@ def _substep_kernel_tick(w: ArtWorld, bipeds: BipedParams, mpc: MpcConfig,
 
 def _tick_kernel_tick(w: ArtWorld, bipeds: BipedParams, mpc: MpcConfig, gait: GaitConfig,
                       model: ArticulatedModel, biped: BipedParams, n_lowlevel: int,
-                      n_substeps: int) -> ArtWorld:
+                      n_substeps: int, terrain: Terrain | None = None) -> ArtWorld:
     """One tick of the tick-kernel path: the MPC stage, one mass-matrix
     inverse, one ``fused_tick``, the post stage (stages ``art.feedback``,
     ``mpc.build``, ``qp.ruiz``, ``qp.kernel``, ``qp.unscale``,
-    ``art.minv``, ``art.tick_kernel``, ``tick.post``)."""
-    x_fb, t_g, hold, contact, sol = _art_control_stage(w, bipeds, mpc, gait, model)
+    ``art.minv``, ``art.tick_kernel``, ``tick.post``). On a field per env
+    (``terrain``, the terrain path on the card: :func:`_tick_field_path`)
+    the kernel's field variant, with each env's robot of ``bipeds`` in the
+    low-level control and the ground count started: the same tick as
+    :func:`_art_tick`'s plain periods, up to the kernel's rounding."""
     sim = w.sim
+    if terrain is not None:
+        start_ground_count(sim.q.device)
+    x_fb, t_g, hold, contact, sol = _art_control_stage(w, bipeds, mpc, gait, model, terrain)
     t0 = t_g if gait.contact_clock else sim.t
     with stage("art.minv", sim.q.device):
         Minv = mass_matrix_inv(model, sim.q)
@@ -500,6 +531,7 @@ def _tick_kernel_tick(w: ArtWorld, bipeds: BipedParams, mpc: MpcConfig, gait: Ga
         sim_new, energy = fused_tick(
             model, biped, mpc, gait, sim, sol.controls[:, 0], contact[:, 0, 0:2], t0,
             w.ctrl.cmd_ref[:, 2], w.ctrl.v_int, Minv, n_lowlevel, n_substeps,
+            terrain=terrain, bipeds=bipeds,
         )
     return _art_post_stage(w, sim_new, energy, x_fb, sol, t_g, hold, mpc)
 

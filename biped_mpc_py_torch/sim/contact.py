@@ -84,6 +84,7 @@ class Terrain(TensorStruct):
         # NaN through fx, fy; a finite query's indices are on the grid already
         x0 = x0f.to(torch.int64).clamp_(0, W - 2)
         y0 = y0f.to(torch.int64).clamp_(0, H - 2)
+        x1, y1 = x0 + 1, y0 + 1
         if self.batched:
             n = self.heights.shape[0]
             if x.dim() == 0 or x.shape[0] != n:
@@ -93,20 +94,17 @@ class Terrain(TensorStruct):
                 )
             env = torch.arange(n, device=x.device).reshape((n,) + (1,) * (x.dim() - 1))
             h00 = self.heights[env, y0, x0]
-            h01 = self.heights[env, y0, x0 + 1]
-            h10 = self.heights[env, y0 + 1, x0]
-            h11 = self.heights[env, y0 + 1, x0 + 1]
+            h01 = self.heights[env, y0, x1]
+            h10 = self.heights[env, y1, x0]
+            h11 = self.heights[env, y1, x1]
         else:
             h00 = self.heights[y0, x0]
-            h01 = self.heights[y0, x0 + 1]
-            h10 = self.heights[y0 + 1, x0]
-            h11 = self.heights[y0 + 1, x0 + 1]
-        return (
-            h00 * (1 - fx) * (1 - fy)
-            + h01 * fx * (1 - fy)
-            + h10 * (1 - fx) * fy
-            + h11 * fx * fy
-        )
+            h01 = self.heights[y0, x1]
+            h10 = self.heights[y1, x0]
+            h11 = self.heights[y1, x1]
+        # each weight made once (a kernel apiece on the card)
+        wx, wy = 1 - fx, 1 - fy
+        return h00 * wx * wy + h01 * fx * wy + h10 * wx * fy + h11 * fx * fy
 
     def height_and_normal(self, x: torch.Tensor, y: torch.Tensor):
         """(height (...), unit outward surface normal (..., 3)) at world

@@ -53,9 +53,9 @@ Phases, each printed on its own lines:
 10. terrain slice: 1024 domain-randomized robots on per-env rough height
    fields (``Terrain.rough_batch``, amplitude 0.03 m, 64 x 64 cells) x 50
    ticks (2 s) through ``batched_art_rollout_terrain`` at the bench budget
-   (5 substeps, the mass-matrix inverse held all tick): each low-level
-   period's substeps one launch of the substep kernel's field variant.
-   Finite states, launch counts (50 QP, 0 tick, 400 substep), the stance
+   (5 substeps, the mass-matrix inverse held all tick): each tick's
+   low-level loop one launch of the tick kernel's field variant.
+   Finite states, launch counts (50 QP, 50 tick, 0 substep), the stance
    soles' mean gap to their ground, and falls, distance, attitude and
    residual as reported figures; then on flat per-env fields against no
    terrain: one launch of the field kernel against one of the flat kernel
@@ -67,7 +67,13 @@ Phases, each printed on its own lines:
    states, within ``SUBSTEP_BOUNDS``, ``t`` bit-equal, the ground count
    within 1 of the plain chain's in at most 4 entries; its device time at
    4096 envs beside the plain chain's and its bound -> the kernels line's
-   ``fused_substeps_field`` entry;
+   ``fused_substeps_field`` entry; then the tick kernel's field variant
+   (``tick_field_check``) at 1024 and 4096 envs on such fields, one tick
+   from ``tick_inputs``' states and controls against its plain version
+   (the terrain periods of ``_art_tick``), within ``TICK_BOUNDS``, ``t``
+   bit-equal, the ground count as above; its device time at 4096 envs
+   beside the plain version's and its bound (``bound_tick_field``) -> the
+   kernels line's ``fused_tick_field`` entry;
 11. per-env commands: 1024 envs x 50 ticks of ``batched_cmd_rollout`` (SRB)
    with each env's forward command spread over 0-0.4 m/s: zero falls, and
    the distance covered ordered with the command;
@@ -157,7 +163,7 @@ Phases, each printed on its own lines:
    and load ms;
 22. graphs: the compiled entry points (``batched_rollout_fn``,
    ``batched_art_rollout_tick_kernel_fn``, ``batched_art_rollout_kernel_fn``,
-   ``batched_art_rollout_terrain_fn`` (the substep kernel's field variant),
+   ``batched_art_rollout_terrain_fn`` (the tick kernel's field variant),
    and on the plain chain ``batched_art_rollout_fn`` and ``art_sweep_fn``:
    one tick captured
    as a CUDA graph and replayed) at 1024 envs and the bench budget (the
@@ -1546,11 +1552,108 @@ def field_kernel_check(torch, device, model, n, dt):
     return errs, fields, (sc, tc, Minv)
 
 
+# The tick kernel's field variant beyond the flat tick's operations: the
+# substeps' contact on the field (FIELD_CONTACT_OPS a sole point and
+# substep) and one bilinear sample and add a leg and period for the swing
+# target's height.
+SWING_SAMPLE_OPS = 2 * 6 + 15 + 1
+
+
+def _tick_field_inputs(torch, device, model, n):
+    """``n`` envs of ``tick_inputs`` on the card (the state's t the tick's
+    start), each on its own rough field as the terrain slice draws them, the
+    nominal robot per env and Minv -> (state, args, fields, bipeds, Minv)."""
+    from biped_mpc_py_torch import BipedParams
+    from biped_mpc_py_torch.sim.contact import Terrain
+    from biped_mpc_py_torch.sim.engine import mass_matrix_inv
+
+    fields = Terrain.rough_batch(
+        torch.Generator(device=device).manual_seed(SEED + 1), n,
+        amplitude=TERRAIN_AMPLITUDE, res=TERRAIN_RES, device=device,
+    )
+    state, args = tick_inputs(torch, n, SEED)
+    sc, ac = state.to(device), [a.to(device) for a in args]
+    return sc, ac, fields, BipedParams().expand(n).to(device), mass_matrix_inv(model, sc.q)
+
+
+def bound_tick_field(torch, device, n):
+    """(bound ms, what sets it) of one field-variant tick call at ``n`` envs
+    (8 periods of 5 substeps): the flat tick's operations, plus
+    ``FIELD_CONTACT_OPS`` a sole point and substep and ``SWING_SAMPLE_OPS``
+    a leg and period; bytes of the flat tick's inputs and outputs, the
+    leg geometry, ``t`` written, the ground count read and written, and
+    every height-corner load as issued (20 a sole point and substep, 4 a
+    swing target), as though none hit a cache."""
+    from biped_mpc_py_torch.sim.model import hector_model
+    from biped_mpc_py_torch.utils import roofline
+
+    model = hector_model(device=device)
+    sc, ac, fields, _, Minv = _tick_field_inputs(torch, device, model, n)
+    count = torch.zeros(n, 2, 2, dtype=torch.int32)
+    geom = torch.zeros(n, 8)
+    corners = n * 8 * (4 * 5 * 20 + 2 * 4) * fields.heights.element_size()
+    return roofline.bound_ms(
+        roofline.tick_ops(n, 8, 5) + n * 8 * (4 * 5 * FIELD_CONTACT_OPS + 2 * SWING_SAMPLE_OPS),
+        roofline.tensor_bytes(sc, ac, Minv, model, sc, sc.t, sc.t, count, count, geom) + corners)
+
+
+def tick_field_check(torch, device, model, n):
+    """The tick kernel's field variant against its plain version
+    (``fused_tick_field_reference``: the terrain periods of ``_art_tick``) on
+    the card: ``n`` perturbed in-contact envs with random clocks, flags and
+    controls (``tick_inputs``), each on its own rough field, one tick of 8
+    periods of 5 substeps at the bench config, the low-level control on each
+    env's robot. Raises unless every state field is within ``TICK_BOUNDS``,
+    the energy within rtol 2e-3 / atol 1e-3, ``t`` bit-equal and the count
+    of sole points below the ground within 1 of the plain chain's in at most
+    4 entries. -> (max |err| per field, the inputs)."""
+    from biped_mpc_py_torch import BipedParams
+    from biped_mpc_py_torch.ops.cuda.tick_kernel import fused_tick, fused_tick_field_reference
+    from biped_mpc_py_torch.utils import profiling
+
+    mpc, gait = _art_config()
+    inputs = _tick_field_inputs(torch, device, model, n)
+    sc, ac, fields, bipeds, Minv = inputs
+    u0, c0, _, cmd_yaw, v_int = ac
+
+    def counted(fn):
+        profiling.start_ground_count(device)
+        out = fn()
+        return out, profiling._ground[profiling._indexed(device)].below.clone()
+
+    (out_p, e_p), count_p = counted(lambda: fused_tick_field_reference(
+        model, bipeds, mpc, gait, sc, u0, c0, sc.t, cmd_yaw, v_int, Minv, fields))
+    (out_k, e_k), count_k = counted(lambda: fused_tick(
+        model, BipedParams().to(device), mpc, gait, sc, u0, c0, sc.t, cmd_yaw, v_int, Minv,
+        terrain=fields, bipeds=bipeds))
+    errs = _max_diff(out_k, out_p, TICK_BOUNDS)
+    errs["energy"] = float((e_k - e_p).abs().max())
+    energy_ok = bool(torch.allclose(e_k, e_p, rtol=2e-3, atol=1e-3))
+    finite = all(bool(torch.isfinite(getattr(out_k, k)).all()) for k in TICK_BOUNDS)
+    t_equal = bool(torch.equal(out_k.t, out_p.t))
+    diff = (count_k - count_p).abs()
+    flips, worst = int((diff > 0).sum()), int(diff.max())
+    log(f"[terrain] tick field kernel vs its plain version on rough per-env fields, {n} envs, "
+        f"8 periods of 5 substeps: max|err| {json.dumps(errs)} (bounds "
+        f"{json.dumps(TICK_BOUNDS)}, energy rtol 2e-3), finite {finite}, t bit-equal {t_equal}; "
+        f"sole-point substeps below the ground {int(count_k.sum())} (plain "
+        f"{int(count_p.sum())} of {4 * 40 * n}), entries that differ {flips}, by at most {worst}")
+    if (any(not errs[k] < b for k, b in TICK_BOUNDS.items()) or not energy_ok or not finite
+            or not t_equal):
+        raise AssertionError(f"the tick field kernel left its bounds at {n} envs")
+    if int(count_p.sum()) == 0 or worst > 1 or flips > 4:
+        raise AssertionError(f"the tick field kernel's ground count departs from the plain "
+                             f"chain's at {n} envs")
+    return errs, inputs
+
+
 def phase_terrain(torch, device):
     """The rough-terrain articulated path at full width, flat per-env fields
-    against no terrain, then the field kernel against the plain chain on
-    rough fields (``field_kernel_check``) at 1024 and 4096 envs, timed at
-    4096. Returns (launch counts, seconds, the field kernel's figures for the
+    against no terrain, then the substep kernel's field variant against the
+    plain chain on rough fields (``field_kernel_check``) and the tick
+    kernel's against its plain version (``tick_field_check``), each at 1024
+    and 4096 envs, timed at 4096. Returns (launch counts, seconds, the field
+    substep kernel's figures, the field tick kernel's figures: each for the
     kernels line)."""
     import dataclasses
 
@@ -1595,8 +1698,8 @@ def phase_terrain(torch, device):
         f"{float(m.res_prim_max.max()):.3e}, height [{float(s.pos[:, 2].min()):.4f}, "
         f"{float(s.pos[:, 2].max()):.4f}]; stance sole gap mean {gap[0]:.5f} m "
         f"[{gap[1]:.5f}, {gap[2]:.5f}] (bound on the mean {STANCE_GAP_RANGE})")
-    if launches != {"fused_qp_solve": N_TERRAIN_TICKS, "fused_tick": 0,
-                    "fused_substeps": 8 * N_TERRAIN_TICKS}:
+    if launches != {"fused_qp_solve": N_TERRAIN_TICKS, "fused_tick": N_TERRAIN_TICKS,
+                    "fused_substeps": 0}:
         raise AssertionError(f"terrain path launch counts {launches} in {N_TERRAIN_TICKS} ticks")
     if not finite:
         raise AssertionError("the terrain path produced non-finite states")
@@ -1648,7 +1751,30 @@ def phase_terrain(torch, device):
     field = {"launches": launches["fused_substeps"],
              "max_abs_err": max(max(e.values()) for e in errs.values()),
              "ms": ms_k, "plain_ms": ms_p, "bound": (bound, by)}
-    return launches, sec, field
+
+    # the tick kernel's field variant against its plain version, at the
+    # slice's width and the cell's; timed at the cell's
+    from biped_mpc_py_torch import BipedParams
+    from biped_mpc_py_torch.ops.cuda.tick_kernel import fused_tick, fused_tick_field_reference
+
+    errs = {n: tick_field_check(torch, device, model, n) for n in (N_ENVS, 4096)}
+    sc, ac, fields, bipeds, Mv = errs[4096][1]
+    u0, c0, _, cmd_yaw, v_int = ac
+    biped = BipedParams().to(device)
+    ms_k, = _device_ms(torch, lambda: fused_tick(model, biped, mpc, gait, sc, u0, c0, sc.t,
+                                                 cmd_yaw, v_int, Mv, terrain=fields,
+                                                 bipeds=bipeds), ("tick_kernel",), 50)
+    ms_p = _timed(torch, lambda: fused_tick_field_reference(model, bipeds, mpc, gait, sc, u0, c0,
+                                                            sc.t, cmd_yaw, v_int, Mv, fields), 3)
+    bound, by = bound_tick_field(torch, device, 4096)
+    log(f"[times] tick field kernel (4096 envs, 8 periods of 5 substeps): {ms_k:.4f} ms of "
+        f"device time (torch.profiler), plain terrain periods {ms_p:.3f} ms (CUDA events, eager), "
+        f"bound {bound:.4f} ms ({by}, share {bound / ms_k:.3f})")
+    tick_field = {"launches": launches["fused_tick"],
+                  "max_abs_err": max(max(v for k, v in e.items() if k != "energy")
+                                     for e, _ in errs.values()),
+                  "ms": ms_k, "plain_ms": ms_p, "bound": (bound, by)}
+    return launches, sec, field, tick_field
 
 
 def _device_kernels(torch, fn):
@@ -1667,14 +1793,16 @@ def _device_kernels(torch, fn):
 
 def time_terrain(torch, device, sec_terrain, sec_chain):
     """One tick split into its stages (host clock, synchronized after each
-    stage, mean of 3 ticks after 2), on the terrain slice's fields (each
-    period's substeps one field-kernel launch, as the terrain path) and on
-    no terrain (the plain chain) from the same worlds and robots, in turns
+    stage, mean of 3 ticks after 2), on the terrain slice's fields (the
+    low-level loop one launch of the tick kernel's field variant, as the
+    terrain path) and on no terrain (the plain chain) from the same worlds
+    and robots, in turns
     (terrain, flat, flat, terrain: the host's speed drifts within a call),
     with the two rates; and the device kernels one plain substep and one
     low-level stage launch with and without a terrain, the cost of the
     height gathers on the plain chain that does not depend on the host."""
-    from biped_mpc_py_torch.ops.cuda.substep_kernel import fused_substeps
+    from biped_mpc_py_torch import BipedParams
+    from biped_mpc_py_torch.ops.cuda.tick_kernel import fused_tick
     from biped_mpc_py_torch.parallel import rollout_art as ra
     from biped_mpc_py_torch.sim.engine import art_step, art_substep, mass_matrix_inv
     from biped_mpc_py_torch.sim.model import hector_model
@@ -1682,9 +1810,10 @@ def time_terrain(torch, device, sec_terrain, sec_chain):
     mpc, gait = _art_config()
     model = hector_model(device=device)
     w0, bipeds, terrains = terrain_setup(torch, device)
-    names = ("control stage (MPC)", "Minv", "low-level x 8",
-             "substeps x 8 (field kernel; flat: plain)", "post")
+    names = ("control stage (MPC)", "Minv",
+             "low-level loop (tick field kernel; flat: plain control and substeps x 8)", "post")
     ll_dt = mpc.dt / 8
+    biped = BipedParams().to(device)
 
     def chain_tick(terrain):
         def tick(w, mark):
@@ -1695,19 +1824,20 @@ def time_terrain(torch, device, sec_terrain, sec_chain):
             sim = w.sim
             Minv = mass_matrix_inv(model, sim.q)
             mark(names[1])
-            energy = torch.zeros_like(sim.t)
-            for _ in range(8):
-                tau = ra._lowlevel_stage(model, sim, sim.t, contact, u0, w, bipeds, mpc, gait,
-                                         terrain)
-                energy = energy + torch.sum(torch.clamp(tau * sim.qd, min=0.0), 1) * ll_dt
-                mark(names[2])
-                if terrain is None:
+            if terrain is None:
+                energy = torch.zeros_like(sim.t)
+                for _ in range(8):
+                    tau = ra._lowlevel_stage(model, sim, sim.t, contact, u0, w, bipeds, mpc,
+                                             gait)
+                    energy = energy + torch.sum(torch.clamp(tau * sim.qd, min=0.0), 1) * ll_dt
                     sim = art_step(model, sim, tau, ll_dt, 5, Minv=Minv)
-                else:
-                    sim = fused_substeps(model, sim, tau, Minv, ll_dt, 5, terrain=terrain)
-                mark(names[3])
+            else:
+                sim, energy = fused_tick(model, biped, mpc, gait, sim, u0, contact[:, 0, 0:2],
+                                         sim.t, w.ctrl.cmd_ref[:, 2], w.ctrl.v_int, Minv,
+                                         terrain=terrain, bipeds=bipeds)
+            mark(names[2])
             w = ra._art_post_stage(w, sim, energy, x_fb, sol, t_g, hold, mpc)
-            mark(names[4])
+            mark(names[3])
             return w
 
         return tick
@@ -2884,12 +3014,13 @@ def _graph_paths(torch, device):
     n = GRAPH_TICKS
     qp_only = {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 0}
     per_period = {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 8}
+    per_tick = {"fused_qp_solve": 1, "fused_tick": 1, "fused_substeps": 0}
     return {
         "srb": (lambda k: r.batched_rollout(w_srb, b_srb, k, srb, GaitConfig()),
                 r.batched_rollout_fn(n["srb"], srb, GaitConfig()), (w_srb, b_srb), qp_only),
         "tick": (lambda k: ra.batched_art_rollout_tick_kernel(w_art, b_art, k, mpc, gait),
                  ra.batched_art_rollout_tick_kernel_fn(n["tick"], mpc, gait), (w_art, b_art),
-                 {"fused_qp_solve": 1, "fused_tick": 1, "fused_substeps": 0}),
+                 per_tick),
         "substep": (lambda k: ra.batched_art_rollout_kernel(w_art, b_art, k, mpc, gait),
                     ra.batched_art_rollout_kernel_fn(n["substep"], mpc, gait), (w_art, b_art),
                     per_period),
@@ -2899,7 +3030,7 @@ def _graph_paths(torch, device):
         "terrain": (lambda k: ra.batched_art_rollout_terrain(w_ter, b_ter, fields, k, mpc, gait,
                                                              **kw),
                     ra.batched_art_rollout_terrain_fn(n["terrain"], mpc, gait, **kw),
-                    (w_ter, b_ter, fields), per_period),
+                    (w_ter, b_ter, fields), per_tick),
         "sweep": (lambda k: sw.art_sweep(w_sw, b_sw, k, mpc_s, gait_s, per_env, **kw),
                   sw.art_sweep_fn(n["sweep"], mpc_s, gait_s, **kw), (w_sw, b_sw, per_env),
                   qp_only),
@@ -3081,7 +3212,7 @@ BENCH_LAUNCHES = {
     "tick": {"fused_qp_solve": 1, "fused_tick": 1, "fused_substeps": 0, "fused_ruiz": 1},
     "kernel": {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 8, "fused_ruiz": 1},
     "plain": {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 0, "fused_ruiz": 1},
-    "terrain": {"fused_qp_solve": 1, "fused_tick": 0, "fused_substeps": 8, "fused_ruiz": 1},
+    "terrain": {"fused_qp_solve": 1, "fused_tick": 1, "fused_substeps": 0, "fused_ruiz": 1},
 }
 
 
@@ -3308,7 +3439,7 @@ def main() -> int:
         probe = phase_probe(torch, device)
         tick_err = phase_tick_kernel(torch, device)
         tick_launches, sec_tick = phase_tick_path(torch, device, w25_substep)
-        _, sec_terrain, field = phase_terrain(torch, device)
+        _, sec_terrain, field, tick_field = phase_terrain(torch, device)
         phase_cmd_rollout(torch, device)
         solve_ms = time_solves(torch, device)
         phase_bench_accuracy(w_bench, time_default_rollouts(torch, device))
@@ -3333,7 +3464,8 @@ def main() -> int:
                   "fused_tick": bound_tick(torch, device),
                   "probe_ops": bound_probe(torch, device),
                   "fused_ruiz": ruiz["bound"],
-                  "fused_substeps_field": field["bound"]}
+                  "fused_substeps_field": field["bound"],
+                  "fused_tick_field": tick_field["bound"]}
     log("[bounds] " + json.dumps(bounds))
     rate_k = N_ENVS * N_TICKS / sec_k
     rate_p = N_ENVS * N_TICKS / sec_p
@@ -3384,13 +3516,30 @@ def main() -> int:
             # none: the JAX package steps a height field with the plain chain
             # (biped_mpc_py_tpu/sim/engine.py::art_step)
             "replaces": None,
-            # phase 10's 50 terrain ticks, 8 a tick
+            # phase 10's 50 terrain ticks: none since the terrain path runs
+            # the tick kernel's field variant (fused_tick_field)
             "launches": field["launches"],
             # rough fields at 1024 and 4096 envs against art_step
             "max_abs_err": field["max_abs_err"],
             # 4096 envs
             "ms": field["ms"],
             "plain_ms": field["plain_ms"],
+        },
+        {
+            "name": "fused_tick_field",
+            "route": "cuda",
+            "source": "biped_mpc_py_torch/csrc/tick.cu",
+            # none: the JAX package runs a height field on the plain chain
+            # (biped_mpc_py_tpu/parallel/rollout_art.py, art_step and the
+            # plain low-level control)
+            "replaces": None,
+            # phase 10's 50 terrain ticks, 1 a tick
+            "launches": tick_field["launches"],
+            # rough fields at 1024 and 4096 envs against its plain version
+            "max_abs_err": tick_field["max_abs_err"],
+            # 4096 envs
+            "ms": tick_field["ms"],
+            "plain_ms": tick_field["plain_ms"],
         },
         {
             "name": "fused_tick",

@@ -72,16 +72,30 @@ leaves its neighbours bit-unchanged. The terrain path launches it once per
 low-level period: 64 envs x 2 ticks of ``batched_art_rollout_terrain`` on
 the card against the same rollout on the CPU (pos 1e-3, q 1e-2, qd 1.0: the
 QP kernel and its plain version differ by up to 0.05 N per solve, and stiff
-contact grows that), 2 QP and 16 substep launches; the substep wrapper
-raises on a shared field and on a per-env ``dt``, the tick kernel on any
-terrain, before they launch.
+contact grows that), 2 QP and 2 tick launches (the terrain path's
+low-level loop is the tick kernel's field variant since it exists) and no
+substep launch; the substep wrapper raises on a shared field and on a
+per-env ``dt``, the tick kernel on a shared field and on a field without
+its robots, before they launch.
+
+The tick kernel's field variant (``fused_tick(terrain=)``): at 4096, 1024
+and 17 envs from perturbed in-contact states with random clocks, flags and
+controls, each on a 4 cm ``Terrain.rough_batch`` field of 64 x 64 (the
+terrain cell's draw), one tick against its plain version
+(``fused_tick_field_reference``, the terrain periods of ``_art_tick``)
+within the flat tick kernel's bounds above, ``t`` bit-equal (the plain
+chain's 40 f32 additions), the energy within the same rtol / atol and the
+ground count within 1 of the plain chain's in at most 4 entries, one tick
+launch and no substep launch; a batch on two leg geometries (even envs
+FK, odd envs Jacobian) holds its plain version and equals, env by env and
+bit for bit, the launches whose robots all share one geometry.
 
 The compiled entry points (``*_fn``, one tick captured as a CUDA graph): at
 1024 envs and the bench budget, a replay bit-equal to the eager loop on
 every leaf (SRB and the tick path 10 ticks, the substep path 5), with the
 launch counters reading the replays' launches (the plain chain, the
 per-env terrain walk and the 4 x 4 x 64 sweep 3 ticks each: the terrain
-walk's substep-kernel launches 8 a tick, the other two's none); the sharded ``*_fn`` on one NCCL rank bit-equal
+walk's tick-kernel launches 1 a tick, the other two's none); the sharded ``*_fn`` on one NCCL rank bit-equal
 to the eager sharded loops; ``RealtimeLoop`` on its two graphs, and the
 MuJoCo loop's ``MjController`` on its three, walk
 ``chip_smoke.EnginePlant``; replay's graphed frames and the demo's graphed
@@ -649,6 +663,77 @@ def test_tick_kernel_neighbour_envs(cuda, contact):
     _tick_case(cuda, "walk", _deep_and_airborne(_perturbed_states(64, cuda)[0]), contact)
 
 
+def _tick_field_case(cuda, n, bipeds=None):
+    """The tick kernel's field variant against its plain version
+    (``fused_tick_field_reference``: the terrain periods of ``_art_tick``)
+    on the card, one tick of 8 periods x 5 substeps from ``n`` perturbed
+    in-contact envs with random clocks and controls, each on its own rough
+    field drawn as the terrain cell's (``Terrain.rough_batch``, 0.04 m, 64
+    x 64 over 8 m), on the nominal robot per env or on ``bipeds``. Holds the
+    state to ``TICK_BOUNDS``, the energy to rtol 2e-3 / atol 1e-3, ``t`` bit
+    for bit, the ground count within 1 of the plain chain's in at most 4
+    entries, and the launch to one tick launch and no substep launch.
+    Returns the kernel's state."""
+    model = hector_model(device=cuda)
+    mpc, gait = _tick_config("walk"), GaitConfig(steps_per_phase=5)
+    bipeds = BipedParams().expand(n).to(cuda) if bipeds is None else bipeds
+    state = _perturbed_states(n, cuda)[0]
+    u0, c0, t0, cmd_yaw, v_int = _tick_controls(n, cuda)
+    state = dataclasses.replace(state, t=t0.clone())
+    fields = Terrain.rough_batch(torch.Generator().manual_seed(2), n, amplitude=0.04,
+                                 device=cuda)
+    Minv = mass_matrix_inv(model, state.q)
+    profiling.start_ground_count(cuda)
+    out_p, e_p = tick.fused_tick_field_reference(model, bipeds, mpc, gait, state, u0, c0,
+                                                 state.t, cmd_yaw, v_int, Minv, fields)
+    count_p = _ground_count(cuda)
+    profiling.start_ground_count(cuda)
+    before = (tick.fused_tick.launches, sk.fused_substeps.launches)
+    out_k, e_k = tick.fused_tick(model, BipedParams().to(cuda), mpc, gait, state, u0, c0,
+                                 state.t, cmd_yaw, v_int, Minv, terrain=fields, bipeds=bipeds)
+    torch.cuda.synchronize()
+    assert (tick.fused_tick.launches, sk.fused_substeps.launches) == (before[0] + 1, before[1])
+    count_k = _ground_count(cuda)
+    for name, tol in TICK_BOUNDS.items():
+        k, p = getattr(out_k, name), getattr(out_p, name)
+        assert k.shape == p.shape and torch.isfinite(k).all(), name
+        err = float((k - p).abs().max())
+        assert err < tol, (name, err)
+    assert e_k.shape == (n,) and torch.allclose(e_k, e_p, rtol=2e-3, atol=1e-3)
+    assert torch.equal(out_k.t, out_p.t)
+    assert count_k.shape == (n, 2, 2) and int(count_p.sum()) > 0
+    diff = (count_k - count_p).abs()
+    assert int(diff.max()) <= 1 and int((diff > 0).sum()) <= 4, int(diff.sum())
+    return out_k, (model, mpc, gait, state, u0, c0, cmd_yaw, v_int, Minv, fields)
+
+
+@pytest.mark.parametrize("n", [4096, 1024, 17])
+def test_tick_field_kernel_matches_plain(cuda, n):
+    _tick_field_case(cuda, n)
+
+
+def test_tick_field_kernel_reads_each_envs_leg_geometry(cuda):
+    """Even envs on the FK leg geometry, odd envs on the Jacobian one: the
+    kernel holds its plain version with the same robots, and each env's
+    result is bit for bit that of the launch whose robots all share its
+    geometry (an env's lanes read no other env)."""
+    from biped_mpc_py_torch.models.biped import HECTOR_LEG_FK, HECTOR_LEG_JAC
+
+    n = 256
+    fk = BipedParams(leg_jac=HECTOR_LEG_FK).expand(n).to(cuda)
+    jac = BipedParams(leg_jac=HECTOR_LEG_JAC).expand(n).to(cuda)
+    odd = torch.arange(n, device=cuda) % 2 == 1
+    mixed, (model, mpc, gait, state, u0, c0, cmd_yaw, v_int, Minv, fields) = _tick_field_case(
+        cuda, n, fk.where(odd, jac))
+    for robots, envs in ((fk, slice(0, None, 2)), (jac, slice(1, None, 2))):
+        alone, _ = tick.fused_tick(model, BipedParams().to(cuda), mpc, gait, state, u0, c0,
+                                   state.t, cmd_yaw, v_int, Minv, terrain=fields,
+                                   bipeds=robots)
+        for name in ("pos", "quat", "v_base", "q", "qd", "t"):
+            assert torch.equal(getattr(mixed, name)[envs], getattr(alone, name)[envs]), name
+    assert float((mixed.q[0::2] - mixed.q[1::2]).abs().max()) > 0
+
+
 def test_art_rollout_launches_tick_kernel(cuda):
     mpc, gait = ra.art_config_for_speed(0.3, n_admm_iters=40, admm_rho_phases=1,
                                         admm_polish=False, kinv_ns_iters=10)
@@ -683,7 +768,7 @@ def test_terrain_rollout_card_matches_cpu(cuda):
                                          ticks, mpc, gait, **kw)
     torch.cuda.synchronize()
     after = (tk.fused_qp_solve.launches, tick.fused_tick.launches, sk.fused_substeps.launches)
-    assert [a - b for a, b in zip(after, before)] == [ticks, 0, 8 * ticks]
+    assert [a - b for a, b in zip(after, before)] == [ticks, ticks, 0]
     assert out.sim.pos.device.type == "cuda"
     for name, tol in (("pos", 1e-3), ("q", 1e-2), ("qd", 1.0)):
         err = float((getattr(out.sim, name).cpu() - getattr(out_cpu.sim, name)).abs().max())
@@ -709,7 +794,8 @@ def test_terrain_constructors_build_on_the_card(cuda):
 
 def test_physics_wrappers_raise_on_terrain(cuda):
     """The substep wrapper refuses a shared field, and a per-env ``dt`` on a
-    field per env; the tick kernel any terrain; neither launches."""
+    field per env; the tick kernel a shared field and a field per env
+    without its robots; neither launches."""
     mpc, gait = _bench_art_config()
     n = 16
     model, biped = hector_model(device=cuda), BipedParams().to(cuda)
@@ -723,10 +809,13 @@ def test_physics_wrappers_raise_on_terrain(cuda):
     with pytest.raises(ValueError, match="one dt"):
         sk.fused_substeps(model, state, tau, Minv, torch.full((n,), 0.005, device=cuda), 5,
                           terrain=flat)
-    with pytest.raises(ValueError, match="flat ground"):
-        tick.fused_tick(model, biped, mpc, gait, state, torch.zeros(n, 12, device=cuda),
-                        torch.ones(n, 2, device=cuda), state.t, torch.zeros(n, device=cuda),
-                        torch.zeros(n, 2, device=cuda), Minv, terrain=flat)
+    args = (model, biped, mpc, gait, state, torch.zeros(n, 12, device=cuda),
+            torch.ones(n, 2, device=cuda), state.t, torch.zeros(n, device=cuda),
+            torch.zeros(n, 2, device=cuda), Minv)
+    with pytest.raises(ValueError, match="shared field"):
+        tick.fused_tick(*args, terrain=Terrain.flat(), bipeds=BipedParams().expand(n).to(cuda))
+    with pytest.raises(ValueError, match="bipeds"):
+        tick.fused_tick(*args, terrain=flat)
     assert (tick.fused_tick.launches, sk.fused_substeps.launches) == before
 
 
@@ -1036,7 +1125,7 @@ def _graph_case(path, device):
                                      device=device)
         return (lambda k: ra.batched_art_rollout_terrain(w, b, fields, k, mpc, gait, **kw),
                 lambda k: ra.batched_art_rollout_terrain_fn(k, mpc, gait, **kw),
-                (w, b, fields), (1, 0, 8))
+                (w, b, fields), (1, 1, 0))
     from biped_mpc_py_torch.parallel.sweep import art_sweep, art_sweep_fn, stack_configs
 
     configs = [dataclasses.replace(mpc, kp_hipyaw=2.4 * g, kd_hipyaw=0.3 * h, admm_rho=r)

@@ -14,8 +14,10 @@ On the card (``cuda``-marked; the file imports no JAX):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_tracing.py
 
-After a replay (the SRB tick, the tick path and the plain chain on a field
-per env) every stage reads > 0 ms and the stages add up, within 5%,
+After a replay (the SRB tick, the tick path and the terrain path on a
+field per env, which on the card takes the tick path's eight stages: its
+low-level loop is the one ``tick_kernel<Field>`` launch in
+``art.tick_kernel``) every stage reads > 0 ms and the stages add up, within 5%,
 to the replay's time between its first and last boundary; the QP kernel's
 stage is within 3% of the kernel's device time in a profiler trace of the
 same graph; a capture with the marks steps bit-equal to one without; and
@@ -222,7 +224,7 @@ def _graph(path, n, device, ticks=3):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("path, names", [("srb", SRB_STAGES), ("tick", ART_STAGES),
-                                         ("terrain", PLAIN_STAGES)])
+                                         ("terrain", ART_STAGES)])
 def test_stage_ms_after_a_replay(cuda, path, names):
     _, _, g = _graph(path, 1024, cuda)
     g.replay()
