@@ -31,10 +31,12 @@ either form. A Python branch on such a field becomes a tensor expression
 where the field is per env, as under JAX's vmap; a per-env ``dt`` divides
 where the shared one multiplies by its folded reciprocal
 (``control/gait.py``). ``parallel/sweep.py::stack_configs`` builds both
-from a list of configs. The physics kernels' constant buffers and their
-``dt`` hold one config per batch: ``fused_tick`` and ``fused_substeps``
-raise on per-env values; the QP kernel takes per-env ``rho``, ``sigma``
-and ``alpha``.
+from a list of configs. The QP kernel takes per-env ``rho``, ``sigma``
+and ``alpha``; the tick kernel's per-env variant takes every per-env
+field but ``dt`` (``fused_tick(x_cmd=, per_env=)``, its constants from a
+table per env), on flat ground; ``fused_substeps``, and ``fused_tick`` on
+a field, hold one config per batch and raise on per-env values, and every
+kernel steps one ``dt``.
 
 State convention (13,): ``[roll, pitch, yaw, px, py, pz, wx, wy, wz, vx, vy,
 vz, 1]`` with angular and linear velocity in the world frame; R =

@@ -85,6 +85,19 @@
 // What bounds it is what bounds the flat kernel, latency, with a memory
 // round trip per substep and per swing target for the field's samples (the
 // 4096 fields of 64 x 64, 64 MB, do not fit the 50 MB L2).
+//
+// A config per env (a gain, command, weight or ADMM sweep: parallel/sweep.py)
+// is the third instantiation, tick_kernel<PlaneTable> (tick_table_launch):
+// the flat kernel with each env's control constants, the Ctrl block of the
+// tick buffer, read from a table (n_env, kNCtrl) that the wrapper forms with
+// the plain chain's own expressions (ops/cuda/tick_kernel.py::tick_table),
+// the leg geometry its last eight columns. A block stages its 16 envs' rows
+// into shared memory with the constants, so a lane reads its env's row where
+// the shared kernels read the staged Ctrl block; the model part of the tick
+// buffer (masses, CoMs, sole depth) stays shared, and so do the clock's dt
+// and the four switches of `flags`. The JAX package runs such a sweep on its
+// plain chain (the Pallas kernel closes over one config); the port did too
+// before this variant, ~800 ATen and cuBLAS launches a low-level period.
 
 #include <type_traits>
 
@@ -125,6 +138,18 @@ __device__ __forceinline__ void stage_tick_async(float* __restrict__ T,
   for (int i = threadIdx.x; i < kNTick; i += kThreads) {
     const int b = i >> 2, k = i & 3;
     async_copy4(T + i, tconsts + (i >= kTTipZ ? i : (k < 3 ? kTCom + 3 * b + k : kTMass + b)));
+  }
+}
+
+// Start staging the block's rows of a per-env control table (envs e0 ..
+// e0 + 15, clamped to the batch, as stage_minv_async's) into K, kNCtrl floats
+// an env.
+__device__ __forceinline__ void stage_table_async(float* __restrict__ K,
+                                                  const float* __restrict__ table, int e0,
+                                                  int n_env) {
+  for (int i = threadIdx.x; i < kEnvsPerBlock * kNCtrl; i += kThreads) {
+    const int slot = i / kNCtrl, c = i - slot * kNCtrl;
+    async_copy4(K + i, table + static_cast<size_t>(min(e0 + slot, n_env - 1)) * kNCtrl + c);
   }
 }
 
@@ -281,14 +306,15 @@ __device__ __forceinline__ void leg_jacobian(const float* __restrict__ G, const 
   for (int k = 2; k < 5; ++k) { ax[k][0] = -s0 * c1; ax[k][1] = c0 * c1; ax[k][2] = s1; }
 }
 
-// Joint torques (5) of the lane's leg for one low-level period. G: the leg
-// geometry; f3, m3: the leg's force and moment of u0; c_own: the leg's
-// contact flag; flight: (1 - c0[0]) (1 - c0[1]); ground: under the swing
-// target (on a Field the target's height adds the field's there).
+// Joint torques (5) of the lane's leg for one low-level period. K: the
+// control constants (Ctrl); G: the leg geometry; f3, m3: the leg's force and
+// moment of u0; c_own: the leg's contact flag; flight: (1 - c0[0]) (1 -
+// c0[1]); ground: under the swing target (on a Field the target's height
+// adds the field's there).
 // Everything up to the leg's Jacobian reads values that both lanes hold
 // alike.
 template <class Ground>
-__device__ __forceinline__ void control_tau(const float* __restrict__ T,
+__device__ __forceinline__ void control_tau(const float* __restrict__ K,
                                             const float* __restrict__ G, int flags, int leg,
                                             const float R0[3][3], const float x[12],
                                             const float sole[3], const float q5[5],
@@ -297,7 +323,6 @@ __device__ __forceinline__ void control_tau(const float* __restrict__ T,
                                             const float m3[3], float c_own, float flight,
                                             float t_ll, float cmd_yaw, const float v_int[2],
                                             const Ground& ground, float tau5[5]) {
-  const float* K = T + kTCtrl;
   const float yaw = x[2];
   const float yaw_des = (flags & kCmdBodyFrame) ? cmd_yaw : K[kXc2];
   float sdy, cdy;
@@ -414,7 +439,8 @@ __device__ __forceinline__ void control_tau(const float* __restrict__ T,
 // What the field variant takes besides the flat kernel's inputs: the
 // heights (n_env, H, W) with the grid's extent and half-cell steps, each
 // env's leg geometry (n_env, kNGeom), t's output, and the (n_env, 2, 2)
-// int32 count of sole points below the ground, added to in place. The flat
+// int32 count of sole points below the ground, added to in place; last, what
+// the per-env variant takes: its control table (n_env, kNCtrl). The flat
 // kernel reads none of it.
 struct TickFieldArgs {
   const float* __restrict__ heights;
@@ -423,7 +449,13 @@ struct TickFieldArgs {
   int* __restrict__ below_count;
   int H, W;
   float extent, eps_x, eps_y;
+  const float* __restrict__ table;
 };
+
+// The plane under envs that each run their own config: tick_kernel<PlaneTable>
+// steps the plane's physics (substep() on its Plane base) with the control
+// constants of each env's row of TickFieldArgs::table.
+struct PlaneTable : Plane {};
 
 // The env's ground: the plane, or its own height field.
 template <class Ground>
@@ -431,6 +463,10 @@ __device__ __forceinline__ Ground ground_of(const TickFieldArgs& fa, int e);
 template <>
 __device__ __forceinline__ Plane ground_of<Plane>(const TickFieldArgs&, int) {
   return Plane{};
+}
+template <>
+__device__ __forceinline__ PlaneTable ground_of<PlaneTable>(const TickFieldArgs&, int) {
+  return PlaneTable{};
 }
 template <>
 __device__ __forceinline__ Field ground_of<Field>(const TickFieldArgs& fa, int e) {
@@ -458,6 +494,13 @@ tick_kernel(const float* __restrict__ consts, const float* __restrict__ tconsts,
   const int e0 = blockIdx.x * kEnvsPerBlock;
   stage_model_async(S, consts);
   stage_tick_async(T, tconsts);
+  // the control constants: the tick buffer's one config, or the env's own row
+  const float* K = T + kTCtrl;
+  if constexpr (std::is_same_v<Ground, PlaneTable>) {
+    __shared__ __align__(16) float KE[kEnvsPerBlock * kNCtrl];
+    stage_table_async(KE, fa.table, e0, n_env);
+    K = KE + kNCtrl * (threadIdx.x >> 1);
+  }
   async_commit();
   stage_minv_async(M, minv_in, e0, n_env);
   async_commit();
@@ -491,8 +534,9 @@ tick_kernel(const float* __restrict__ consts, const float* __restrict__ tconsts,
   const float* minv = M + kMinvStride * slot;
   const float ll_dt_f = static_cast<float>(ll_dt);
   const Ground ground = ground_of<Ground>(fa, e);
-  // the leg geometry: the tick buffer's one robot, or the env's own
-  const float* G = T + kTCtrl + kLThigh;
+  // the leg geometry: the control constants' (the tick buffer's one robot or
+  // the env's row), or on a field the env's own
+  const float* G = K + kLThigh;
   if constexpr (kOnField) G = fa.geom + kNGeom * e;
   joint_sincos(q5, cs, sn);
   async_wait<1>();  // the constants; Minv may still be on its way
@@ -511,7 +555,7 @@ tick_kernel(const float* __restrict__ consts, const float* __restrict__ tconsts,
       t_ll = t0 + static_cast<float>(p * ll_dt);
     float R0[3][3], x[12], sole[3], tau5[5];
     feedback(S, T, leg, pos, quat, vb, qd5, cs, sn, R0, x, sole);
-    control_tau(T, G, flags, leg, R0, x, sole, q5, qd5, cs, sn, f3, m3, c_own, flight, t_ll,
+    control_tau(K, G, flags, leg, R0, x, sole, q5, qd5, cs, sn, f3, m3, c_own, flight, t_ll,
                 cmd_yaw, v_int, ground, tau5);
     float work = 0.f;
 #pragma unroll
@@ -562,9 +606,12 @@ tick_kernel(const float* __restrict__ consts, const float* __restrict__ tconsts,
 // checks it against its own layout).
 extern "C" int tick_n_consts() { return kNTick; }
 
+// The columns of the per-env variant's control table.
+extern "C" int tick_n_ctrl() { return kNCtrl; }
+
 namespace {
 
-// Both instantiations' launch: checks, device, grid.
+// Every instantiation's launch: checks, device, grid.
 template <class Ground>
 int launch(const float* consts, const float* tconsts, const float* pos, const float* quat,
            const float* v_base, const float* q, const float* qd, const float* u0,
@@ -628,6 +675,25 @@ extern "C" int tick_field_launch(const float* consts, const float* tconsts, cons
                        TickFieldArgs{heights, geom, t_out, below_count, H, W, extent, eps_x,
                                      eps_y},
                        device, stream);
+}
+
+// The per-env variant's launch, as tick_launch's, with `table` (n_env,
+// kNCtrl) in the order of the Ctrl enum: each env's control constants.
+extern "C" int tick_table_launch(const float* consts, const float* tconsts, const float* pos,
+                                 const float* quat, const float* v_base, const float* q,
+                                 const float* qd, const float* u0, const float* c0,
+                                 const float* t0, const float* cmd_yaw, const float* v_int,
+                                 const float* minv, const float* table, float* pos_out,
+                                 float* quat_out, float* v_base_out, float* q_out,
+                                 float* qd_out, float* energy_out, int n_env, double ll_dt,
+                                 float sub_dt, int n_lowlevel, int n_substeps, int flags,
+                                 int device, void* stream) {
+  TickFieldArgs fa{};
+  fa.table = table;
+  return launch<PlaneTable>(consts, tconsts, pos, quat, v_base, q, qd, u0, c0, t0, cmd_yaw,
+                            v_int, minv, pos_out, quat_out, v_base_out, q_out, qd_out,
+                            energy_out, n_env, ll_dt, sub_dt, n_lowlevel, n_substeps, flags, fa,
+                            device, stream);
 }
 
 extern "C" const char* tick_error_string(int code) {

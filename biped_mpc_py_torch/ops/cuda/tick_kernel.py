@@ -18,11 +18,12 @@ low_level_control`` and ``fused_substeps_reference``. Nothing else chooses
 between the two.
 
 The kernel reads the model, the gains and the leg geometry from constant
-buffers (:func:`~biped_mpc_py_torch.ops.cuda.substep_kernel.model_constants`
-and :func:`tick_constants`), so they are runtime inputs, one set for the
-whole batch as in JAX. Scope, as the Pallas kernel's: walking gaits
-(``flight_steps == 0``), flat ground, ``Minv`` held all tick; and beyond
-it, a height field.
+buffers
+(:func:`~biped_mpc_py_torch.ops.cuda.substep_kernel.model_constants` and
+:func:`tick_constants`), so they are runtime inputs, one set for the whole
+batch as in JAX (or, below, one set of gains per env). Scope, as the Pallas
+kernel's: walking gaits (``flight_steps == 0``), flat ground, ``Minv`` held
+all tick; and beyond it, a height field.
 
 On a height field per env (``terrain``, (N, H, W), with the per-env robots
 ``bipeds``) the tick is the plain terrain periods of
@@ -35,6 +36,17 @@ counted. On the card that is the kernel's field instantiation
 (``tick_kernel<Field>``, one launch); on the CPU
 :func:`fused_tick_field_reference`. The JAX package runs a field on the
 plain chain only.
+
+With a config per env on flat ground (``x_cmd`` and ``per_env``, as
+``parallel/sweep.py`` hands them: commands, low-level and swing gains,
+Raibert gains; the MPC's weights and ADMM numerics reach the MPC stage
+only) the tick is the plain per-env periods: the low-level control reads
+each env's command and gains and each env's robot of ``bipeds``. On the
+card that is the kernel's third instantiation (``tick_kernel<PlaneTable>``,
+one launch), which reads each env's control constants from the table
+:func:`tick_table` forms; on the CPU :func:`fused_tick_reference` with the
+same values. A per-env ``dt`` stays on the plain chain: the clock's period
+and rates fold it in. The JAX package runs a sweep on the plain chain.
 """
 
 from __future__ import annotations
@@ -45,7 +57,15 @@ import math
 
 import torch
 
-from biped_mpc_py_torch.config import GaitConfig, MpcConfig
+from biped_mpc_py_torch.config import (
+    MPC_PER_ENV_FIELDS,
+    PER_ENV_FIELDS,
+    GaitConfig,
+    MpcConfig,
+    cmd_entry,
+    config_value,
+    device_constant,
+)
 from biped_mpc_py_torch.control.gait import phase_time
 from biped_mpc_py_torch.control.lowlevel import low_level_control
 from biped_mpc_py_torch.models.biped import BipedParams
@@ -80,6 +100,12 @@ FLAG_SIN2, FLAG_CMD_BODY_FRAME, FLAG_COMPAT_FRAME, FLAG_COMPAT_YAW = 1, 2, 4, 8
 # the leg geometry, the last control constants and the columns of the field
 # variant's per-env geometry (the Geom enum of csrc/tick.cu)
 _GEOMETRY = ("l_thigh", "l_shank", "l_foot", "abd_y", "abd_y_const", "hip_x", "hip_y", "hip_z")
+# The per-env fields the kernel path takes (config.PER_ENV_FIELDS and
+# config.MPC_PER_ENV_FIELDS but dt, which t_p and the rates fold in): the MPC
+# and post stages read each env's value, and each one that the walking
+# low-level control reads is in a column of tick_table (swing_land_frac is
+# read by running gaits only).
+TABLE_FIELDS = tuple(f for f in PER_ENV_FIELDS + MPC_PER_ENV_FIELDS if f != "dt")
 
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _TAIL = [ctypes.c_double, _F32, _I32, _I32, _I32, _I32, _PTR]  # ll_dt ... stream
@@ -87,7 +113,9 @@ _TAIL = [ctypes.c_double, _F32, _I32, _I32, _I32, _I32, _PTR]  # ll_dt ... strea
 FUNCTIONS = {
     "tick_launch": ([_PTR] * 19 + [_I32] + _TAIL, _I32),
     "tick_field_launch": ([_PTR] * 23 + [_I32] * 3 + [_F32] * 3 + _TAIL, _I32),
+    "tick_table_launch": ([_PTR] * 20 + [_I32] + _TAIL, _I32),
     "tick_n_consts": ([], _I32),
+    "tick_n_ctrl": ([], _I32),
     "tick_error_string": ([_I32], ctypes.c_char_p),
 }
 
@@ -102,10 +130,11 @@ def _load():
     global _lib
     if _lib is None:
         lib = build.load(SOURCE, FUNCTIONS)
-        if lib.tick_n_consts() != N_TICK_CONSTS:
+        if lib.tick_n_consts() != N_TICK_CONSTS or lib.tick_n_ctrl() != len(CONTROL_NAMES):
             raise RuntimeError(
-                f"csrc/tick.cu expects {lib.tick_n_consts()} tick constants, "
-                f"the wrapper packs {N_TICK_CONSTS}"
+                f"csrc/tick.cu expects {lib.tick_n_consts()} tick constants and "
+                f"{lib.tick_n_ctrl()} table columns, the wrapper packs {N_TICK_CONSTS} and "
+                f"{len(CONTROL_NAMES)}"
             )
         _lib = lib
     return _lib
@@ -156,6 +185,64 @@ def tick_constants(model: ArticulatedModel, biped: BipedParams, mpc: MpcConfig,
     return buf.to(device)
 
 
+def tick_table(bipeds: BipedParams, mpc: MpcConfig, gait: GaitConfig,
+               x_cmd: torch.Tensor | None = None,
+               per_env: dict | None = None) -> torch.Tensor:
+    """The per-env variant's control table (N, len(CONTROL_NAMES)), f32 on
+    ``bipeds``' device: row e holds env e's control constants in the order
+    of CONTROL_NAMES. A constant that depends on a value of ``x_cmd`` ((12,)
+    or (N,12)) or ``per_env`` is formed by the tensor expression the plain
+    chain forms it by (``control/swing.py``, ``control/reference.py``,
+    ``control/lowlevel.py``: a per-env value times a config float in f32, as
+    there); one that depends on none is the config's, rounded as
+    :func:`tick_constants` rounds it; the leg geometry is each env's of
+    ``bipeds.jac_geometry`` ((N,) each). Raises ValueError on a per-env
+    ``dt``."""
+    if per_env and "dt" in per_env:
+        raise ValueError("a per-env dt folds into t_p and the rates: the tick kernel's "
+                         "table takes one dt (run the plain chain, art_closed_loop_tick)")
+    geom = bipeds.jac_geometry
+    n, device = geom.l_thigh.shape[0], geom.l_thigh.device
+
+    def f(name):
+        return config_value(mpc, name, per_env)
+
+    def xc(i):
+        return cmd_entry(mpc, x_cmd, i)
+
+    t_p = phase_time(mpc, gait)
+    rate = math.pi / t_p
+    if x_cmd is None:
+        kc_base = math.sqrt(max(mpc.x_cmd[5], 0.0) / 9.81)
+    else:
+        kc_base = torch.sqrt(torch.clamp(x_cmd[..., 5], min=0.0) / 9.81)
+    control = {
+        "t_p": t_p, "rate": rate, "two_rate": 2.0 * rate,
+        "xc2": xc(2), "xc3": xc(3), "xc4": xc(4), "xc8": xc(8), "xc9": xc(9),
+        "xc10": xc(10), "kv": f("kv"), "kp": f("kp_swing"), "kd": f("kd_swing"),
+        "H": f("swing_height"), "H_rate": f("swing_height") * rate,
+        "tff": f("swing_track_ff"), "td_damp": f("swing_td_damp"),
+        "kp_over": f("kp_swing") * f("swing_td_overdrive"),
+        "retract": f("swing_retract"), "y_offset": f("swing_y_offset"),
+        "capture_gain": f("raibert_capture_gain"), "capture_sched": f("capture_sched"),
+        "kc_base": kc_base, "am_y": f("raibert_am_y"), "am_x": f("raibert_am_x"),
+        "pitch_place": f("raibert_pitch_place"), "pitch_nom": f("raibert_pitch_nom"),
+        "ff": 0.5 * t_p * f("raibert_ff_scale"), "vint": f("raibert_vint"),
+        "yaw_lead": xc(8) * 0.5 * t_p, "kp_hipyaw": f("kp_hipyaw"),
+        "kd_hipyaw": f("kd_hipyaw"), "hipyaw_clip": f("hipyaw_target_clip"),
+        "hipyaw_lead": f("hipyaw_rate_lead"), "tau_yaw_clip": f("tau_yaw_clip"),
+        "flight_yaw_kd": f("flight_yaw_kd"), "kp_pivot": f("kp_pivot"),
+        "kd_pivot": f("kd_pivot"), **{k: getattr(geom, k) for k in _GEOMETRY},
+    }
+    values = [control[k] for k in CONTROL_NAMES]
+    # the shared constants in one memoized buffer (a column's place is 0 where
+    # it is per env), each column a view of it or the env's values
+    shared = device_constant([0.0 if isinstance(v, torch.Tensor) else v for v in values],
+                             device)
+    return torch.stack([torch.broadcast_to(v, (n,)) if isinstance(v, torch.Tensor)
+                        else shared[i].expand(n) for i, v in enumerate(values)], 1)
+
+
 def _flags(mpc: MpcConfig) -> int:
     return (FLAG_SIN2 * mpc.swing_z_sin2 + FLAG_CMD_BODY_FRAME * mpc.cmd_body_frame
             + FLAG_COMPAT_FRAME * mpc.compat_swing_frame_bug
@@ -174,15 +261,26 @@ def _constants(model, biped, mpc, gait, device):
 
 
 def _check(biped, gait, state, u0, c0, t0, cmd_yaw, v_int, Minv, n_lowlevel,
-           n_substeps, terrain, x_cmd, per_env, bipeds):
+           n_substeps, terrain, x_cmd, per_env, bipeds, table):
     if gait.flight_steps > 0:
-        raise ValueError("the tick kernel runs walking gaits only (flight_steps == 0)")
+        raise ValueError("the tick kernel runs walking gaits only (flight_steps == 0): a "
+                         "running gait runs the plain chain (art_closed_loop_tick)")
     if terrain is not None and not isinstance(terrain, Terrain):
         raise ValueError("the tick kernel runs on flat ground (terrain None) or on a "
                          f"Terrain, not on {type(terrain).__name__}")
-    if x_cmd is not None or per_env:
-        raise ValueError("the tick kernel holds one config per batch: no per-env "
-                         "x_cmd or gains (run art_closed_loop_tick)")
+    per_env_values = x_cmd is not None or bool(per_env)
+    if per_env_values and terrain is not None:
+        raise ValueError("the tick kernel's field variant holds one config: per-env x_cmd "
+                         "or gains on a Terrain run the plain chain (art_closed_loop_tick)")
+    if per_env and "dt" in per_env:
+        raise ValueError("the tick kernel takes one dt (t_p and the rates fold it in): "
+                         "a per-env dt runs the plain chain (art_closed_loop_tick)")
+    other = sorted(set(per_env or ()) - set(TABLE_FIELDS))
+    if other:
+        raise ValueError(f"the tick kernel takes no per-env {other} (run the plain "
+                         "chain, art_closed_loop_tick)")
+    if table is not None and not per_env_values:
+        raise ValueError("a table is the per-env variant's: pass x_cmd or per_env with it")
     if n_lowlevel < 1 or n_substeps < 1:
         raise ValueError("n_lowlevel and n_substeps must be >= 1")
     if biped.jac_geometry.l_thigh.shape[0] != 1:
@@ -196,6 +294,13 @@ def _check(biped, gait, state, u0, c0, t0, cmd_yaw, v_int, Minv, n_lowlevel,
         "c0": (c0, (n, 2)), "t0": (t0, (n,)), "cmd_yaw": (cmd_yaw, (n,)),
         "v_int": (v_int, (n, 2)), "Minv": (Minv, (n, 16, 16)),
     }
+    if per_env_values:
+        if x_cmd is not None:
+            want["x_cmd"] = (x_cmd, (n, 12) if x_cmd.dim() == 2 else (12,))
+        for k, v in (per_env or {}).items():
+            want[k] = (v, (n,) + tuple(v.shape[1:]))
+        if table is not None:
+            want["table"] = (table, (n, len(CONTROL_NAMES)))
     for name, (t, shape) in want.items():
         if t.device != state.q.device:
             raise ValueError(f"{name} is on {t.device}, q on {state.q.device}")
@@ -208,9 +313,10 @@ def _check(biped, gait, state, u0, c0, t0, cmd_yaw, v_int, Minv, n_lowlevel,
         if gait.contact_clock:
             raise ValueError("on a field the tick kernel's clock is the state's t: no "
                              "contact_clock (run art_closed_loop_tick)")
+    if terrain is not None or per_env_values:
         if bipeds is None:
-            raise ValueError("on a field the tick kernel takes each env's leg geometry: "
-                             "pass bipeds")
+            raise ValueError("on a field or with per-env values the tick kernel takes each "
+                             "env's leg geometry: pass bipeds")
         for k in _GEOMETRY:
             g = getattr(bipeds.jac_geometry, k)
             if g.device != state.q.device or g.dtype != torch.float32 or tuple(g.shape) != (n,):
@@ -225,14 +331,15 @@ def fused_tick(model: ArticulatedModel, biped: BipedParams, mpc: MpcConfig,
                t0: torch.Tensor, cmd_yaw: torch.Tensor, v_int: torch.Tensor,
                Minv: torch.Tensor, n_lowlevel: int = 8, n_substeps: int = 5,
                terrain=None, x_cmd=None, per_env=None,
-               bipeds: BipedParams | None = None) -> tuple[ArtState, torch.Tensor]:
+               bipeds: BipedParams | None = None,
+               table: torch.Tensor | None = None) -> tuple[ArtState, torch.Tensor]:
     """One tick below the MPC layer -> (ArtState, energy (N,)).
 
     Args:
       model: one ArticulatedModel for the whole batch.
-      biped: one robot (leading axis 1): on flat ground its Jacobian leg
-        geometry serves every env's low-level control (the MPC stage takes
-        the per-env batch).
+      biped: one robot (leading axis 1): on flat ground with one config its
+        Jacobian leg geometry serves every env's low-level control (the MPC
+        stage takes the per-env batch).
       state: ArtState with a leading env axis N (any N).
       u0: (N,12) first MPC control, held all tick; c0: (N,2) first-row
         contact flags; t0: (N,) gait time at the tick's start (on a field the
@@ -241,30 +348,45 @@ def fused_tick(model: ArticulatedModel, biped: BipedParams, mpc: MpcConfig,
       terrain: None for flat ground, or a ``sim.contact.Terrain`` with a field
         per env: ``heights`` (N, H, W), float32, contiguous, on the state's
         device, H and W >= 2 (walking gaits without ``contact_clock``).
-      x_cmd, per_env: must be None: the constant buffer holds one config's
-        command and gains for the whole batch.
-      bipeds: on a field, the N robots whose Jacobian leg geometry
-        (``jac_geometry``, (N,) float32 each) the low-level control reads per
-        env, as the plain terrain periods do.
+      x_cmd, per_env: None for one config (the constant buffer's), or on
+        flat ground a config per env as ``art_closed_loop_tick`` takes it:
+        ``x_cmd`` (12,) or (N,12) and ``per_env`` of :data:`TABLE_FIELDS`
+        ((N,) each, ``Q`` (N,13), ``R`` (N,12)), float32 on the state's
+        device; no per-env ``dt``.
+      bipeds: on a field or with per-env values, the N robots whose Jacobian
+        leg geometry (``jac_geometry``, (N,) float32 each) the low-level
+        control reads per env, as the plain periods do.
+      table: with per-env values, ``tick_table(bipeds, mpc, gait, x_cmd,
+        per_env)`` (the kernel's constants, formed by the caller in a stage
+        of its own), or None to form it here.
 
-    CUDA tensors launch the kernel, on a field its field instantiation (and
-    count the launch in ``fused_tick.launches``; a CUDA-graph replay of a
-    captured launch adds to it too, ``utils/graphs.py``); CPU tensors run
-    :func:`fused_tick_reference`, on a field :func:`fused_tick_field_reference`.
+    CUDA tensors launch the kernel, on a field its field instantiation, with
+    per-env values its table instantiation (and count the launch in
+    ``fused_tick.launches``; a CUDA-graph replay of a captured launch adds to
+    it too, ``utils/graphs.py``); CPU tensors run :func:`fused_tick_reference`
+    (with per-env values the plain per-env periods, which form the table's
+    constants themselves), on a field :func:`fused_tick_field_reference`.
     On a field ``t`` is advanced as the plain chain advances it and the sole
     points below the ground are counted (``utils/profiling.py::
     terrain_contacts``); on flat ground ``t`` advances by ``mpc.dt``.
     Raises ValueError on a running gait, a shared field, a field with
-    ``contact_clock`` or without ``bipeds``, or per-env values.
+    ``contact_clock`` or without ``bipeds``, per-env values on a field, a
+    per-env ``dt`` or a per-env field outside :data:`TABLE_FIELDS`, and per-env
+    values without ``bipeds``, or a ``table`` without them.
     """
     n = _check(biped, gait, state, u0, c0, t0, cmd_yaw, v_int, Minv, n_lowlevel,
-               n_substeps, terrain, x_cmd, per_env, bipeds)
+               n_substeps, terrain, x_cmd, per_env, bipeds, table)
+    per_env_values = x_cmd is not None or bool(per_env)
     device = state.q.device
     if device.type == "cpu":
         if terrain is not None:
             return fused_tick_field_reference(model, bipeds, mpc, gait, state, u0, c0, t0,
                                               cmd_yaw, v_int, Minv, terrain, n_lowlevel,
                                               n_substeps)
+        if per_env_values:
+            return fused_tick_reference(model, biped, mpc, gait, state, u0, c0, t0, cmd_yaw,
+                                        v_int, Minv, n_lowlevel, n_substeps, x_cmd=x_cmd,
+                                        per_env=per_env, bipeds=bipeds)
         return fused_tick_reference(model, biped, mpc, gait, state, u0, c0, t0, cmd_yaw,
                                     v_int, Minv, n_lowlevel, n_substeps)
     if device.type != "cuda":
@@ -272,6 +394,8 @@ def fused_tick(model: ArticulatedModel, biped: BipedParams, mpc: MpcConfig,
     ins = [t.contiguous() for t in (state.pos, state.quat, state.v_base, state.q, state.qd,
                                     u0, c0, t0, cmd_yaw, v_int, Minv)]
     outs = [torch.empty_like(t) for t in ins[:5]] + [torch.empty_like(ins[7])]
+    if per_env_values and table is None:
+        table = tick_table(bipeds, mpc, gait, x_cmd, per_env)
     if terrain is None:
         t = state.t + mpc.dt
     else:
@@ -285,7 +409,11 @@ def fused_tick(model: ArticulatedModel, biped: BipedParams, mpc: MpcConfig,
         tail = (n_lowlevel, n_substeps, _flags(mpc),
                 device.index if device.index is not None else torch.cuda.current_device(),
                 torch.cuda.current_stream(device).cuda_stream)
-        if terrain is None:
+        if table is not None:
+            rc = lib.tick_table_launch(model_buf.data_ptr(), tick_buf.data_ptr(),
+                                       *[x.data_ptr() for x in ins + [table.contiguous()] + outs],
+                                       n, ll_dt, float(ll_dt / n_substeps), *tail)
+        elif terrain is None:
             rc = lib.tick_launch(model_buf.data_ptr(), tick_buf.data_ptr(),
                                  *[x.data_ptr() for x in ins + outs], n, ll_dt,
                                  float(ll_dt / n_substeps), *tail)
@@ -312,13 +440,17 @@ def fused_tick_reference(model: ArticulatedModel, biped: BipedParams, mpc: MpcCo
                          gait: GaitConfig, state: ArtState, u0: torch.Tensor,
                          c0: torch.Tensor, t0: torch.Tensor, cmd_yaw: torch.Tensor,
                          v_int: torch.Tensor, Minv: torch.Tensor, n_lowlevel: int = 8,
-                         n_substeps: int = 5) -> tuple[ArtState, torch.Tensor]:
-    """Plain PyTorch version of :func:`fused_tick`: per period,
-    ``feedback_and_soles``, ``low_level_control`` at ``t0 + p ll_dt`` (contact
-    row 0 = ``c0``, command yaw = ``cmd_yaw``), the positive work, and
-    ``fused_substeps_reference``; then ``t + mpc.dt``."""
+                         n_substeps: int = 5, x_cmd: torch.Tensor | None = None,
+                         per_env: dict | None = None,
+                         bipeds: BipedParams | None = None) -> tuple[ArtState, torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_tick` on flat ground: per
+    period, ``feedback_and_soles``, ``low_level_control`` at ``t0 + p ll_dt``
+    (contact row 0 = ``c0``, command yaw = ``cmd_yaw``), the positive work,
+    and ``fused_substeps_reference``; then ``t + mpc.dt``. The low-level
+    control takes ``x_cmd`` and ``per_env`` where given (the per-env
+    variant's), and ``bipeds``' leg geometry per env, else ``biped``'s."""
     n = state.q.shape[0]
-    bipeds = biped.expand(n)
+    bipeds = biped.expand(n) if bipeds is None else bipeds
     contact = c0[:, None, :]
     cmd_ref = torch.stack([torch.zeros_like(cmd_yaw), torch.zeros_like(cmd_yaw), cmd_yaw], -1)
     ll_dt = mpc.dt / n_lowlevel
@@ -327,7 +459,8 @@ def fused_tick_reference(model: ArticulatedModel, biped: BipedParams, mpc: MpcCo
     for p in range(n_lowlevel):
         x, pf = feedback_and_soles(model, sim)
         tau = low_level_control(x, t0 + p * ll_dt, pf, sim.q, sim.qd, mpc, bipeds, contact,
-                                u0, gait=gait, cmd_ref=cmd_ref, v_int=v_int)
+                                u0, gait=gait, cmd_ref=cmd_ref, v_int=v_int, x_cmd=x_cmd,
+                                per_env=per_env)
         energy = energy + torch.sum(torch.clamp(tau * sim.qd, min=0.0), 1) * ll_dt
         sim = fused_substeps_reference(model, sim, tau, Minv, ll_dt, n_substeps)
     return dataclasses.replace(sim, t=state.t + mpc.dt), energy

@@ -31,7 +31,11 @@ variant (``fused_tick(terrain=)``), otherwise each low-level period's
 substeps in one launch of the substep kernel's (``fused_substeps(terrain=)``;
 ``art_step`` on the CPU). The TPU kernels know flat ground only, so the JAX
 package runs every terrain on the plain chain; a shared field runs the
-plain chain here too.
+plain chain here too. A config per env on flat ground
+(:func:`art_closed_loop_tick`'s ``x_cmd`` and ``per_env``, the sweeps of
+``parallel/sweep.py``) runs, on the card with one ``dt``, a walking gait and
+one inverse a tick, the tick-kernel path with each env's constants
+(:func:`_tick_table_path`), and the plain chain otherwise.
 :func:`batched_art_rollout_tick_kernel_fn`
 and :func:`batched_art_rollout_kernel_fn` are the compiled forms of the
 two kernel paths, :func:`batched_art_rollout_fn` that of the plain chain
@@ -66,7 +70,7 @@ from biped_mpc_py_torch.control.lowlevel import low_level_control
 from biped_mpc_py_torch.control.mpc import build_mpc_qp
 from biped_mpc_py_torch.models.biped import BipedParams
 from biped_mpc_py_torch.ops.cuda.substep_kernel import fused_substeps
-from biped_mpc_py_torch.ops.cuda.tick_kernel import fused_tick
+from biped_mpc_py_torch.ops.cuda.tick_kernel import TABLE_FIELDS, fused_tick, tick_table
 from biped_mpc_py_torch.ops.qp import solve_qp
 from biped_mpc_py_torch.parallel.rollout import fallen
 from biped_mpc_py_torch.sim import engine
@@ -328,6 +332,18 @@ def _tick_field_path(terrain, gait: GaitConfig, n_lowlevel: int, minv_ll_hold: i
             and minv_ll_hold == n_lowlevel)
 
 
+def _tick_table_path(terrain, gait: GaitConfig, n_lowlevel: int, minv_ll_hold: int,
+                     x_cmd, per_env) -> bool:
+    """Whether a tick with a config per env runs its low-level loop as one
+    launch of the tick kernel's per-env variant on the card: flat ground,
+    ``x_cmd`` or ``per_env`` with no field outside
+    ``tick_kernel.TABLE_FIELDS`` (so one ``dt``), a walking gait and one
+    mass-matrix inverse a tick. Every other input runs the plain chain."""
+    return (terrain is None and (x_cmd is not None or bool(per_env))
+            and set(per_env or ()) <= set(TABLE_FIELDS)
+            and gait.flight_steps == 0 and minv_ll_hold == n_lowlevel)
+
+
 def art_closed_loop_tick(world: ArtWorld, mpc: MpcConfig, gait: GaitConfig,
                          biped: BipedParams, model: ArticulatedModel,
                          n_lowlevel: int = 8, n_substeps: int = 10,
@@ -348,12 +364,18 @@ def art_closed_loop_tick(world: ArtWorld, mpc: MpcConfig, gait: GaitConfig,
     physics is :func:`art_step`'s. On the card a field per env with one
     config, a walking gait and one inverse a tick runs the low-level loop
     as one launch of the tick kernel's field variant
-    (:func:`_tick_field_path`)."""
+    (:func:`_tick_field_path`), and a config per env on flat ground with one
+    ``dt``, a walking gait and one inverse a tick runs the tick-kernel path
+    with each env's constants (:func:`_tick_table_path`)."""
     device = world.sim.q.device
     if device.type == "cuda" and _tick_field_path(terrain, gait, n_lowlevel, minv_ll_hold,
                                                   x_cmd, per_env):
         return _tick_kernel_tick(world, biped, mpc, gait, model, _defaults(device)[1],
                                  n_lowlevel, n_substeps, terrain)
+    if device.type == "cuda" and _tick_table_path(terrain, gait, n_lowlevel, minv_ll_hold,
+                                                  x_cmd, per_env):
+        return _tick_kernel_tick(world, biped, mpc, gait, model, _defaults(device)[1],
+                                 n_lowlevel, n_substeps, x_cmd=x_cmd, per_env=per_env)
 
     def physics(sim, tau, Minv, dt):
         return art_step(model, sim, tau, dt, n_substeps, terrain, Minv=Minv)
@@ -421,6 +443,15 @@ def _check_terrains(worlds: ArtWorld, terrains: Terrain) -> None:
         )
 
 
+def split_per_env(per_env: dict | None) -> tuple:
+    """(x_cmd, the other fields) of a ``per_env`` of
+    :func:`~biped_mpc_py_torch.parallel.sweep.stack_configs`'s, which holds
+    ``x_cmd`` beside the config's fields; (None, None) for None."""
+    if per_env is None:
+        return None, None
+    return per_env.get("x_cmd"), {k: v for k, v in per_env.items() if k != "x_cmd"}
+
+
 def _plain_step(mpc: MpcConfig, gait: GaitConfig, model: ArticulatedModel | None = None,
                 n_lowlevel: int = 8, n_substeps: int = 10, minv_ll_hold: int = 1,
                 terrain: Terrain | None = None):
@@ -432,10 +463,7 @@ def _plain_step(mpc: MpcConfig, gait: GaitConfig, model: ArticulatedModel | None
 
     def step(w, bipeds, terrains=None, per_env=None):
         m = model or _defaults(w.sim.q.device)[0]
-        fields = x_cmd = None
-        if per_env is not None:
-            fields = {k: v for k, v in per_env.items() if k != "x_cmd"}
-            x_cmd = per_env.get("x_cmd")
+        x_cmd, fields = split_per_env(per_env)
         return art_closed_loop_tick(w, mpc, gait, bipeds, m, n_lowlevel, n_substeps,
                                     terrain if terrains is None else terrains, minv_ll_hold,
                                     x_cmd=x_cmd, per_env=fields)
@@ -511,7 +539,9 @@ def _substep_kernel_tick(w: ArtWorld, bipeds: BipedParams, mpc: MpcConfig,
 
 def _tick_kernel_tick(w: ArtWorld, bipeds: BipedParams, mpc: MpcConfig, gait: GaitConfig,
                       model: ArticulatedModel, biped: BipedParams, n_lowlevel: int,
-                      n_substeps: int, terrain: Terrain | None = None) -> ArtWorld:
+                      n_substeps: int, terrain: Terrain | None = None,
+                      x_cmd: torch.Tensor | None = None,
+                      per_env: dict | None = None) -> ArtWorld:
     """One tick of the tick-kernel path: the MPC stage, one mass-matrix
     inverse, one ``fused_tick``, the post stage (stages ``art.feedback``,
     ``mpc.build``, ``qp.ruiz``, ``qp.kernel``, ``qp.unscale``,
@@ -519,21 +549,33 @@ def _tick_kernel_tick(w: ArtWorld, bipeds: BipedParams, mpc: MpcConfig, gait: Ga
     (``terrain``, the terrain path on the card: :func:`_tick_field_path`)
     the kernel's field variant, with each env's robot of ``bipeds`` in the
     low-level control and the ground count started: the same tick as
-    :func:`_art_tick`'s plain periods, up to the kernel's rounding."""
+    :func:`_art_tick`'s plain periods, up to the kernel's rounding. With a
+    config per env on flat ground (``x_cmd``, ``per_env``: on the card
+    :func:`_tick_table_path`) every stage takes each env's values: the MPC
+    stage, the kernel's per-env variant with the table of each env's
+    control constants formed before it (stage ``art.tick_table``) and each
+    env's robot of ``bipeds`` in the low-level control, and the post stage
+    with the fall reset."""
     sim = w.sim
+    device = sim.q.device
     if terrain is not None:
-        start_ground_count(sim.q.device)
-    x_fb, t_g, hold, contact, sol = _art_control_stage(w, bipeds, mpc, gait, model, terrain)
+        start_ground_count(device)
+    x_fb, t_g, hold, contact, sol = _art_control_stage(w, bipeds, mpc, gait, model, terrain,
+                                                       x_cmd, per_env)
     t0 = t_g if gait.contact_clock else sim.t
-    with stage("art.minv", sim.q.device):
+    with stage("art.minv", device):
         Minv = mass_matrix_inv(model, sim.q)
-    with stage("art.tick_kernel", sim.q.device):
+    table = None
+    if x_cmd is not None or per_env:
+        with stage("art.tick_table", device):
+            table = tick_table(bipeds, mpc, gait, x_cmd, per_env)
+    with stage("art.tick_kernel", device):
         sim_new, energy = fused_tick(
             model, biped, mpc, gait, sim, sol.controls[:, 0], contact[:, 0, 0:2], t0,
             w.ctrl.cmd_ref[:, 2], w.ctrl.v_int, Minv, n_lowlevel, n_substeps,
-            terrain=terrain, bipeds=bipeds,
+            terrain=terrain, x_cmd=x_cmd, per_env=per_env, bipeds=bipeds, table=table,
         )
-    return _art_post_stage(w, sim_new, energy, x_fb, sol, t_g, hold, mpc)
+    return _art_post_stage(w, sim_new, energy, x_fb, sol, t_g, hold, mpc, x_cmd, per_env)
 
 
 @f32_precision
@@ -564,7 +606,8 @@ def batched_art_rollout_tick_kernel(worlds: ArtWorld, bipeds: BipedParams,
                                     model: ArticulatedModel | None = None,
                                     biped: BipedParams | None = None,
                                     n_lowlevel: int = 8,
-                                    n_substeps: int = 5) -> ArtWorld:
+                                    n_substeps: int = 5,
+                                    per_env: dict | None = None) -> ArtWorld:
     """``n_steps`` articulated ticks with everything below the MPC layer in
     one :func:`~biped_mpc_py_torch.ops.cuda.tick_kernel.fused_tick` call per
     tick (one kernel launch on the card): the eager form of
@@ -573,17 +616,22 @@ def batched_art_rollout_tick_kernel(worlds: ArtWorld, bipeds: BipedParams,
     Each tick: the MPC stage, one mass-matrix inverse held all tick, the
     fused tick (``n_lowlevel`` periods of feedback, low-level control and
     ``n_substeps`` substeps), then fall reset, controller state and
-    metrics. The MPC stage takes the per-env ``bipeds``; the low-level
-    control takes the leg geometry of the one robot ``biped`` (default
-    ``BipedParams()``), as in JAX. Walking gaits on flat ground; any number
-    of envs.
+    metrics. The MPC stage takes the per-env ``bipeds``. With one config the
+    low-level control takes the leg geometry of the one robot ``biped``
+    (default ``BipedParams()``), as in JAX; with a config per env
+    (``per_env`` as :func:`~biped_mpc_py_torch.parallel.sweep.stack_configs`
+    gives it, ``x_cmd`` included; no ``dt``) every stage takes each env's
+    values and the low-level control each env's robot of ``bipeds``. Walking
+    gaits on flat ground; any number of envs.
     """
     default_model, default_biped = _defaults(worlds.sim.q.device)
     model = model or default_model
     biped = biped if biped is not None else default_biped
+    x_cmd, fields = split_per_env(per_env)
     w = worlds
     for _ in range(n_steps):
-        w = _tick_kernel_tick(w, bipeds, mpc, gait, model, biped, n_lowlevel, n_substeps)
+        w = _tick_kernel_tick(w, bipeds, mpc, gait, model, biped, n_lowlevel, n_substeps,
+                              x_cmd=x_cmd, per_env=fields)
     return w
 
 

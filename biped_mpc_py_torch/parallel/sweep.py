@@ -9,13 +9,18 @@ and hands the fields that differ between envs beside it, as (N,), (N, 12)
 or (N, 13) tensors (``config.py`` describes the mechanism): every dynamic
 field may differ, as in JAX. :func:`stack_configs` builds that pair from a
 list of configs, :func:`perturbed_worlds` the perturbed initial worlds, and
-:func:`art_sweep` runs the plain articulated chain
-(``art_closed_loop_tick``) over them, with one launch of the QP kernel a
-tick that takes each env's ADMM numerics. The physics kernels are not
-used: their constant buffers and step hold one config per batch.
-:func:`art_sweep_fn` is its compiled form, the counterpart of ``jax.jit``
-of the JAX factory: one tick captured as a CUDA graph with the per-env
-values as its input, and replayed (``utils/graphs.py``).
+:func:`art_sweep` runs ``art_closed_loop_tick`` over them, with one launch
+of the QP kernel a tick that takes each env's ADMM numerics. On the card,
+with one ``dt`` for the sweep, a walking gait and the mass-matrix inverse
+held all tick (``minv_ll_hold == n_lowlevel``), everything below the MPC
+is one launch of the tick kernel's per-env variant, which reads each env's
+command and gains from a table formed in the tick
+(``ops/cuda/tick_kernel.py::tick_table``); a per-env ``dt``, a running
+gait, another hold or a field runs the plain articulated chain, as the
+CPU always does. :func:`art_sweep_fn` is its compiled form, the
+counterpart of ``jax.jit`` of the JAX factory: one tick captured as a CUDA
+graph with the per-env values as its input, and replayed
+(``utils/graphs.py``).
 """
 
 from __future__ import annotations
@@ -108,9 +113,10 @@ def art_sweep_fn(n_steps: int, mpc: MpcConfig, gait: GaitConfig,
     :func:`stack_configs`: ``mpc`` is a factory constant, as JAX's static
     fields are, and ``per_env`` (``x_cmd`` included) an input of the graph,
     as ``mpc_batch`` is traced in JAX: new values of the same shapes replay
-    the same graph, and the QP kernel reads each env's (rho, sigma, alpha)
-    from its buffers on every replay. On the CPU the same static buffers
-    step eagerly. Bit-equal to :func:`art_sweep`."""
+    the same graph, the QP kernel reads each env's (rho, sigma, alpha) from
+    its buffers on every replay, and on the tick-kernel path the table of
+    each env's control constants is formed from them in the tick. On the CPU
+    the same static buffers step eagerly. Bit-equal to :func:`art_sweep`."""
     run = graphed(_plain_step(mpc, gait, model, **tick_kw), n_steps)
 
     def fn(worlds: ArtWorld, bipeds: BipedParams, per_env: dict) -> ArtWorld:

@@ -102,29 +102,39 @@ Phases, each printed on its own lines:
    tensor-core rate, those of the bf16 steps at the bf16 rate), the
    physics kernels' from the tree's per-substep and per-period operation
    counts.
-15. sweep: 16 configs (a 4 x 4 grid of ``kp_hipyaw`` x ``kd_hipyaw``
+15. sweep: the tick kernel's per-env variant (``tick_table_check``) at
+   1024 and 4096 envs, four configs of command, swing, Raibert and heading
+   gains among them, one tick from ``tick_inputs``' states and controls
+   against its plain version (``fused_tick_reference`` with the same
+   ``x_cmd`` and ``per_env``) within ``TICK_BOUNDS``, ``t`` bit-equal; its
+   device time at 4096 envs beside the plain version's and its bound
+   (``bound_tick_table``) -> the kernels line's ``fused_tick_table``
+   entry; then 16 configs (a 4 x 4 grid of ``kp_hipyaw`` x ``kd_hipyaw``
    around the articulated config's, the last cell a repeat of the base
    config) x 64 ``perturbed_worlds`` (seed 0, scale 2e-3) = 1024 envs x 25
-   ticks of ``art_sweep`` (the plain chain, 5 substeps, Minv held all tick)
-   at the bench budget with the bf16 knobs off (its card-vs-CPU check is
-   pointwise): finite states, 25 QP and no physics launches, the
-   repeated config bit-equal to the base on the nominal world, the
-   zero-gain config apart, falls per config and env-steps/s reported; 8 of
-   its envs x 2 ticks on the card against the CPU within ``CHAIN_BOUNDS``;
+   ticks of ``art_sweep`` (one ``dt``, 5 substeps, Minv held all tick: the
+   tick path with the per-env variant) at the bench budget with the bf16
+   knobs off (its card-vs-CPU check is pointwise): finite states, 25 QP
+   and 25 tick launches, the repeated config bit-equal to the base on the
+   nominal world, the zero-gain config apart, falls per config and
+   env-steps/s reported; 8 of its envs x 2 ticks on the card against the
+   same path's plain version on the CPU within ``CHAIN_BOUNDS``;
 16. sweep numerics: every dynamic config field per env. 16 configs
    (``raibert_pitch_place`` in 0, 0.1, 0.2, 0.25 with ``raibert_pitch_nom``
    0.12, x ``admm_rho`` in 0.1, 0.3, 1, 3; the last cell a repeat of the
    base cell) x 64 ``perturbed_worlds`` = 1024 envs x 25 ticks of
    ``art_sweep`` at ``art_mpc_config()``'s bench budget: 25 QP launches
-   (each env's rho in the kernel) and no physics launch, finite, the
+   (each env's rho in the kernel) and 25 of the tick kernel's per-env
+   variant (each env's Raibert gains), finite, the
    repeated cell bit-equal to its twin, falls per config and env-steps/s
    reported, 8 envs x 2 ticks card vs CPU within ``CHAIN_BOUNDS``; the QP
    kernel on 1024 real QPs (the bench budget, bf16 knobs off) with per-env
    (rho, sigma, alpha) in four groups of 256: within 0.05 N per env of the
    plain version, bit-equal to one scalar launch per group and, with the
    config's values per env, to the scalar launch, timed beside it; per-env ``dt`` (0.03-0.045 s, 4 configs
-   x 8 worlds x 10 ticks): finite, card vs CPU within ``CHAIN_BOUNDS``,
-   each env's clock bit-equal to its config run alone;
+   x 8 worlds x 10 ticks, the plain chain: no physics launch): finite,
+   card vs CPU within ``CHAIN_BOUNDS``, each env's clock bit-equal to its
+   config run alone;
 17. one robot (N = 1) walking in place for 100 ticks under the controller
    on the card at ``tests/test_mj_contact.py``'s ``ORACLE_MPC``: through
    ``run_mujoco_closed_loop`` where MuJoCo is installed, else through its
@@ -1983,7 +1993,11 @@ def _card_vs_cpu(torch, worlds, bipeds, mpc, gait, per_env, kw, ticks, idx=None)
     """``art_sweep`` of the envs ``idx`` (all when None) on the card, then
     on the CPU, each stopping at the tick counts in ``ticks`` -> (card world
     at the last, the card run's launch counts, max |diff| per CHAIN_BOUNDS
-    key at each)."""
+    key at each). Where the card runs the tick path with the tick kernel's
+    per-env variant (``rollout_art._tick_table_path``) the CPU runs the
+    same path's plain version (``batched_art_rollout_tick_kernel(per_env=)``;
+    ``art_sweep`` on the CPU is the plain chain), else ``art_sweep``."""
+    from biped_mpc_py_torch.parallel import rollout_art
     from biped_mpc_py_torch.parallel.sweep import art_sweep
 
     if idx is not None:
@@ -1999,9 +2013,16 @@ def _card_vs_cpu(torch, worlds, bipeds, mpc, gait, per_env, kw, ticks, idx=None)
         done = n
     torch.cuda.synchronize()
     launches = _counts()
+    x_cmd, fields = rollout_art.split_per_env(per_env)
+    tick_path = rollout_art._tick_table_path(None, gait, 8, kw["minv_ll_hold"], x_cmd, fields)
     w, done, diffs = host[0], 0, []
     for n, w_c in zip(ticks, card[1:]):
-        w = art_sweep(w, host[1], n - done, mpc, gait, host[2], **kw_cpu)
+        if tick_path:
+            w = rollout_art.batched_art_rollout_tick_kernel(
+                w, host[1], n - done, mpc, gait, model=kw_cpu["model"],
+                n_substeps=kw["n_substeps"], per_env=host[2])
+        else:
+            w = art_sweep(w, host[1], n - done, mpc, gait, host[2], **kw_cpu)
         done = n
         diffs.append(_max_diff(w_c.sim, w.sim, CHAIN_BOUNDS))
     return card[-1], launches, diffs
@@ -2028,12 +2049,121 @@ def sweep_setup(torch, device):
     return mpc_s, gait, per_env, worlds, bipeds, grid
 
 
+def _sweep_table_inputs(torch, device, n):
+    """``tick_inputs``' states and controls at ``n`` envs with four configs
+    around the articulated bench config, env i under config i % 4 (the
+    command's speed and turn rate, every swing, Raibert and heading gain,
+    the touchdown overdrive), as ``tests/test_torch_cuda.py::
+    _sweep_table_values`` draws them -> (state, controls, x_cmd, per_env,
+    the robots)."""
+    import dataclasses
+
+    from biped_mpc_py_torch import BipedParams
+    from biped_mpc_py_torch.parallel.sweep import stack_configs
+
+    mpc, _ = _art_config()
+    configs = [dataclasses.replace(
+        mpc, x_cmd=tuple(mpc.x_cmd[:8]) + (0.1 * i, 0.2 + 0.2 * i) + tuple(mpc.x_cmd[10:]),
+        kp_swing=500.0 + 100 * i, kd_swing=10.0 - i, swing_height=0.04 + 0.01 * i,
+        raibert_capture_gain=0.3 + 0.05 * i, raibert_ff_scale=1.0 - 0.1 * i,
+        kp_hipyaw=0.8 * i, kd_hipyaw=0.1 * i, swing_td_overdrive=0.005 * i,
+        kv=0.01 + 0.01 * i) for i in range(4)]
+    _, per_env = stack_configs([configs[i % 4] for i in range(n)], device=device)
+    state, args = tick_inputs(torch, n, SEED)
+    return (state.to(device), [a.to(device) for a in args], per_env.pop("x_cmd"), per_env,
+            BipedParams().expand(n).to(device))
+
+
+def bound_tick_table(torch, device, n):
+    """(bound ms, what sets it) of one per-env tick call at ``n`` envs (8
+    periods of 5 substeps): the flat tick's operations (the table adds
+    none: the constants are read, not formed), and its bytes with the table
+    (n x 45 f32) read once."""
+    from biped_mpc_py_torch.ops.cuda.tick_kernel import CONTROL_NAMES
+    from biped_mpc_py_torch.sim.engine import mass_matrix_inv
+    from biped_mpc_py_torch.sim.model import hector_model
+    from biped_mpc_py_torch.utils import roofline
+
+    model = hector_model(device=device)
+    sc, ac, _, _, _ = _sweep_table_inputs(torch, device, n)
+    Minv = mass_matrix_inv(model, sc.q)
+    table = torch.zeros(n, len(CONTROL_NAMES))
+    return roofline.bound_ms(roofline.tick_ops(n, 8, 5),
+                             roofline.tensor_bytes(sc, ac, Minv, model, sc, sc.t, table))
+
+
+def tick_table_check(torch, device, model, n):
+    """One per-env tick at ``n`` envs through the kernel (one launch)
+    against its plain version (``fused_tick_reference`` with the same
+    ``x_cmd``, ``per_env`` and robots) on the card. Raises unless every state
+    field is within ``TICK_BOUNDS``, the energy within rtol 2e-3 / atol 1e-3
+    and ``t`` bit-equal -> (max |err| per field, the inputs)."""
+    from biped_mpc_py_torch import BipedParams
+    from biped_mpc_py_torch.ops.cuda.tick_kernel import fused_tick, fused_tick_reference
+    from biped_mpc_py_torch.sim.engine import mass_matrix_inv
+
+    mpc, gait = _art_config()
+    sc, ac, x_cmd, per_env, bipeds = _sweep_table_inputs(torch, device, n)
+    Minv = mass_matrix_inv(model, sc.q)
+    biped = BipedParams().to(device)
+    out_k, e_k = fused_tick(model, biped, mpc, gait, sc, *ac, Minv, x_cmd=x_cmd,
+                            per_env=per_env, bipeds=bipeds)
+    out_p, e_p = fused_tick_reference(model, biped, mpc, gait, sc, *ac, Minv, x_cmd=x_cmd,
+                                      per_env=per_env, bipeds=bipeds)
+    torch.cuda.synchronize()
+    errs = _max_diff(out_k, out_p, TICK_BOUNDS)
+    errs["energy"] = float((e_k - e_p).abs().max())
+    energy_ok = bool(torch.allclose(e_k, e_p, rtol=2e-3, atol=1e-3))
+    finite = all(bool(torch.isfinite(getattr(out_k, k)).all()) for k in TICK_BOUNDS)
+    t_equal = bool(torch.equal(out_k.t, out_p.t))
+    log(f"[sweep] tick kernel's per-env variant vs its plain version, {n} envs in 4 configs, "
+        f"8 periods of 5 substeps: max|err| {json.dumps(errs)} (bounds "
+        f"{json.dumps(TICK_BOUNDS)}, energy rtol 2e-3), finite {finite}, t bit-equal {t_equal}")
+    if (any(not errs[k] < b for k, b in TICK_BOUNDS.items()) or not energy_ok or not finite
+            or not t_equal):
+        raise AssertionError(f"the tick kernel's per-env variant left its bounds at {n} envs")
+    return errs, (sc, ac, x_cmd, per_env, bipeds, Minv)
+
+
+def phase_tick_table(torch, device):
+    """The per-env variant against its plain version at 1024 and 4096 envs,
+    and its device time at 4096 beside the plain version's and its bound
+    -> the kernels line's entry (without ``launches``)."""
+    from biped_mpc_py_torch import BipedParams
+    from biped_mpc_py_torch.ops.cuda.tick_kernel import fused_tick, fused_tick_reference
+    from biped_mpc_py_torch.sim.model import hector_model
+
+    model = hector_model(device=device)
+    mpc, gait = _art_config()
+    errs = {n: tick_table_check(torch, device, model, n) for n in (N_ENVS, 4096)}
+    sc, ac, x_cmd, per_env, bipeds, Mv = errs[4096][1]
+    biped = BipedParams().to(device)
+    kw = dict(x_cmd=x_cmd, per_env=per_env, bipeds=bipeds)
+    ms_k, = _device_ms(torch, lambda: fused_tick(model, biped, mpc, gait, sc, *ac, Mv, **kw),
+                       ("tick_kernel",), 50)
+    ms_flat, = _device_ms(torch, lambda: fused_tick(model, biped, mpc, gait, sc, *ac, Mv),
+                          ("tick_kernel",), 50)
+    ms_p = _timed(torch, lambda: fused_tick_reference(model, biped, mpc, gait, sc, *ac, Mv, **kw),
+                  3)
+    bound, by = bound_tick_table(torch, device, 4096)
+    log(f"[times] tick kernel per-env variant (4096 envs, 8 periods of 5 substeps): {ms_k:.4f} "
+        f"ms of device time (torch.profiler; the flat kernel {ms_flat:.4f} on the same inputs), "
+        f"plain per-env periods {ms_p:.3f} ms (CUDA events, eager), bound {bound:.4f} ms "
+        f"({by}, share {bound / ms_k:.3f})")
+    return {"max_abs_err": max(max(v for k, v in e.items() if k != "energy")
+                               for e, _ in errs.values()),
+            "ms": ms_k, "plain_ms": ms_p, "bound": (bound, by)}
+
+
 def phase_sweep(torch, device):
-    """16 configs x 64 perturbed worlds x 25 ticks of ``art_sweep``, then 8
-    of its envs x 2 ticks on the card against the CPU."""
+    """The tick kernel's per-env variant (``phase_tick_table``), then 16
+    configs x 64 perturbed worlds x 25 ticks of ``art_sweep``, then 8 of
+    its envs x 2 ticks on the card against the same path on the CPU -> the
+    kernels line's ``fused_tick_table`` entry."""
     from biped_mpc_py_torch.parallel.sweep import art_sweep
     from biped_mpc_py_torch.sim.model import hector_model
 
+    tick_table = phase_tick_table(torch, device)
     mpc, gait, per_env, worlds, bipeds, grid = sweep_setup(torch, device)
     n = bipeds.m.shape[0]
     kw = dict(model=hector_model(device=device), n_substeps=5, minv_ll_hold=8)
@@ -2063,13 +2193,14 @@ def phase_sweep(torch, device):
         f"zero-gain config vs base max|dq| {d_zero:.3e}; falls per config [kp, kd, falls] "
         + json.dumps([[round(kp, 4), round(kd, 4), f] for (kp, kd), f in zip(grid, falls)])
         + f"; 8 envs x 2 ticks card vs CPU {json.dumps(diffs)} (bounds {json.dumps(CHAIN_BOUNDS)})")
-    if launches != {"fused_qp_solve": SWEEP_TICKS, "fused_tick": 0, "fused_substeps": 0}:
+    if launches != {"fused_qp_solve": SWEEP_TICKS, "fused_tick": SWEEP_TICKS,
+                    "fused_substeps": 0}:
         raise AssertionError(f"sweep launch counts {launches} in {SWEEP_TICKS} ticks")
     if not (finite and equal and d_zero > 1e-5):
         raise AssertionError("the sweep failed its checks")
     if any(diffs[k] >= b for k, b in CHAIN_BOUNDS.items()):
         raise AssertionError(f"the sweep on the card and on the CPU differ: {diffs}")
-    return sec
+    return {**tick_table, "launches": launches["fused_tick"]}
 
 
 # The numerics sweep: raibert_pitch_place x admm_rho, 64 perturbed worlds each.
@@ -2099,9 +2230,10 @@ def _numerics_config():
 def sweep_numerics_rollout(torch, device):
     """16 configs (``raibert_pitch_place`` x ``admm_rho``, the last cell a
     repeat of the base cell) x 64 perturbed worlds x 25 ticks of
-    ``art_sweep``: one QP launch a tick with each env's rho, no physics
-    launch, finite, the repeated cell bit-equal to its twin on every world;
-    8 envs x 2 ticks on the card against the CPU."""
+    ``art_sweep``: one QP launch a tick with each env's rho and one launch
+    of the tick kernel's per-env variant, finite, the repeated cell
+    bit-equal to its twin on every world; 8 envs x 2 ticks on the card
+    against the same path on the CPU."""
     import dataclasses
 
     from biped_mpc_py_torch.parallel.sweep import art_sweep
@@ -2143,7 +2275,8 @@ def sweep_numerics_rollout(torch, device):
         "[pitch_place, rho, falls] "
         + json.dumps([[pp, rho, f] for (pp, rho), f in zip(grid, falls)])
         + f"; 8 envs x 2 ticks card vs CPU {json.dumps(diffs)}")
-    if launches != {"fused_qp_solve": SWEEP_TICKS, "fused_tick": 0, "fused_substeps": 0}:
+    if launches != {"fused_qp_solve": SWEEP_TICKS, "fused_tick": SWEEP_TICKS,
+                    "fused_substeps": 0}:
         raise AssertionError(f"numerics sweep launch counts {launches} in {SWEEP_TICKS} ticks")
     if not (_finite(s) and equal):
         raise AssertionError("the numerics sweep failed its checks")
@@ -2212,7 +2345,8 @@ def numerics_kernel(torch, device):
 
 def sweep_dt(torch, device):
     """4 configs with ``dt`` in ``DT_SWEEP`` x 8 perturbed worlds x 10
-    ticks on the card: one QP launch a tick and no physics launch, finite,
+    ticks on the card (a per-env ``dt``: the plain chain): one QP launch a
+    tick and no physics launch, finite,
     within ``CHAIN_BOUNDS`` of the CPU after 2 ticks (the horizon those
     bounds hold at: the closed loop's contact events flip on last-bit
     differences later, with or without per-env values, so the 10-tick
@@ -2997,7 +3131,8 @@ def _graph_paths(torch, device):
     factory's fn, the fn's inputs, expected launches per tick)} for phase
     22, at phases 4, 9, 6, 10 and 15's configurations: the plain chain
     (flat, 5 substeps, Minv held all tick), the terrain walk (randomized
-    robots on per-env 0.03 m 64 x 64 fields) and the 4 x 4 x 64 sweep."""
+    robots on per-env 0.03 m 64 x 64 fields) and the 4 x 4 x 64 sweep (the
+    tick path with the tick kernel's per-env variant)."""
     from biped_mpc_py_torch import GaitConfig
     from biped_mpc_py_torch.parallel import rollout as r
     from biped_mpc_py_torch.parallel import rollout_art as ra
@@ -3033,7 +3168,7 @@ def _graph_paths(torch, device):
                     (w_ter, b_ter, fields), per_tick),
         "sweep": (lambda k: sw.art_sweep(w_sw, b_sw, k, mpc_s, gait_s, per_env, **kw),
                   sw.art_sweep_fn(n["sweep"], mpc_s, gait_s, **kw), (w_sw, b_sw, per_env),
-                  qp_only),
+                  per_tick),
     }
 
 
@@ -3449,7 +3584,7 @@ def main() -> int:
         time_terrain(torch, device, sec_terrain, sec_chain)
         time_physics_sizes(torch, device)
         events, busy_ms, qp_tick_ms, tick_tick_ms = profile_tick_path(torch, device)
-        phase_sweep(torch, device)
+        tick_table = phase_sweep(torch, device)
         phase_sweep_numerics(torch, device)
         phase_mujoco(torch, device)
         phase_realtime(torch, device)
@@ -3465,7 +3600,8 @@ def main() -> int:
                   "probe_ops": bound_probe(torch, device),
                   "fused_ruiz": ruiz["bound"],
                   "fused_substeps_field": field["bound"],
-                  "fused_tick_field": tick_field["bound"]}
+                  "fused_tick_field": tick_field["bound"],
+                  "fused_tick_table": tick_table["bound"]}
     log("[bounds] " + json.dumps(bounds))
     rate_k = N_ENVS * N_TICKS / sec_k
     rate_p = N_ENVS * N_TICKS / sec_p
@@ -3540,6 +3676,22 @@ def main() -> int:
             # 4096 envs
             "ms": tick_field["ms"],
             "plain_ms": tick_field["plain_ms"],
+        },
+        {
+            "name": "fused_tick_table",
+            "route": "cuda",
+            "source": "biped_mpc_py_torch/csrc/tick.cu",
+            # none: the JAX package runs a config per env on the plain chain
+            # (biped_mpc_py_tpu/parallel/sweep.py; the Pallas kernel closes
+            # over one config)
+            "replaces": None,
+            # phase 15's 25 sweep ticks, 1 a tick
+            "launches": tick_table["launches"],
+            # four configs at 1024 and 4096 envs against its plain version
+            "max_abs_err": tick_table["max_abs_err"],
+            # 4096 envs
+            "ms": tick_table["ms"],
+            "plain_ms": tick_table["plain_ms"],
         },
         {
             "name": "fused_tick",

@@ -45,12 +45,22 @@ values); per-env values all equal to the config's are bit-equal to the
 scalar launch; a per-env tensor of the wrong shape, dtype, device or
 stride raises before any launch.
 
-The sweep (``parallel/sweep.py``) runs the plain chain with per-env gains,
-and with per-env MPC fields (``dt``, weights, Raibert gains, the ADMM
-numerics): 8 envs x 2 ticks on the card against the CPU within
+The sweep (``parallel/sweep.py``): with per-env gains and one ``dt`` it
+runs the tick path with the tick kernel's per-env variant, 8 envs x 2
+ticks on the card against the same path's plain version on the CPU within
 ``CHAIN_BOUNDS`` of ``tests/test_torch_rollout_art.py`` (pos 1e-4, quat
-1e-4, v_base 2e-3, q 1e-3, qd 2e-2), one QP launch per tick and no physics
-launch; the tick kernel refuses per-env values before it launches. The N = 1 loops
+1e-4, v_base 2e-3, q 1e-3, qd 2e-2), ``t`` bit-equal, one QP and one tick
+launch per tick; with per-env MPC fields and a per-env ``dt`` (weights,
+Raibert gains, the ADMM numerics) the plain chain, against the CPU within
+the same bounds, one QP launch per tick and no physics launch; the tick
+kernel refuses a per-env ``dt`` and per-env values on a field before it
+launches. The tick kernel's per-env variant (``fused_tick(x_cmd=,
+per_env=)``, each env's control constants from ``tick_table``): at 4096,
+1024 and 17 envs, four configs of command, swing, Raibert and heading
+gains, one tick against its plain version (``fused_tick_reference`` with
+the same values) within the flat kernel's bounds, ``t`` bit-equal, one
+tick launch; with every row the shared constants it steps as the flat
+kernel within the same bounds, ``t`` bit-equal. The N = 1 loops
 (``RealtimeLoop``, and ``run_mujoco_closed_loop`` where MuJoCo is
 installed) with the controller on the card against the CPU, 5 ticks at the
 bench budget: feedback attitude and position 1e-4, velocities 2e-3 (the
@@ -95,7 +105,8 @@ The compiled entry points (``*_fn``, one tick captured as a CUDA graph): at
 every leaf (SRB and the tick path 10 ticks, the substep path 5), with the
 launch counters reading the replays' launches (the plain chain, the
 per-env terrain walk and the 4 x 4 x 64 sweep 3 ticks each: the terrain
-walk's tick-kernel launches 1 a tick, the other two's none); the sharded ``*_fn`` on one NCCL rank bit-equal
+walk's and the sweep's tick-kernel launches 1 a tick, the plain chain's
+none); the sharded ``*_fn`` on one NCCL rank bit-equal
 to the eager sharded loops; ``RealtimeLoop`` on its two graphs, and the
 MuJoCo loop's ``MjController`` on its three, walk
 ``chip_smoke.EnginePlant``; replay's graphed frames and the demo's graphed
@@ -734,6 +745,95 @@ def test_tick_field_kernel_reads_each_envs_leg_geometry(cuda):
     assert float((mixed.q[0::2] - mixed.q[1::2]).abs().max()) > 0
 
 
+def _sweep_table_values(n, mpc, device):
+    """(x_cmd, per_env) of four configs around ``mpc``, env i under config
+    i % 4: the command (forward speed and turn rate), the swing, Raibert
+    and heading gains and the touchdown overdrive (also the two-lane
+    form's, ``tests/test_torch_lane_split.py``)."""
+    from biped_mpc_py_torch.parallel.sweep import stack_configs
+
+    configs = [dataclasses.replace(
+        mpc, x_cmd=tuple(mpc.x_cmd[:8]) + (0.1 * i, 0.2 + 0.2 * i) + tuple(mpc.x_cmd[10:]),
+        kp_swing=500.0 + 100 * i, kd_swing=10.0 - i, swing_height=0.04 + 0.01 * i,
+        raibert_capture_gain=0.3 + 0.05 * i, raibert_ff_scale=1.0 - 0.1 * i,
+        kp_hipyaw=0.8 * i, kd_hipyaw=0.1 * i, swing_td_overdrive=0.005 * i,
+        kv=0.01 + 0.01 * i) for i in range(4)]
+    _, per_env = stack_configs([configs[i % 4] for i in range(n)], device=device)
+    return per_env.pop("x_cmd"), per_env
+
+
+@pytest.mark.parametrize("n,preset", [(4096, "walk"), (1024, "loaded"), (17, "compat")])
+def test_tick_table_kernel_matches_plain(cuda, n, preset):
+    """The tick kernel's per-env variant (``tick_kernel<PlaneTable>``)
+    against its plain version (``fused_tick_reference`` with the same
+    ``x_cmd`` and ``per_env``: the plain per-env periods), one tick of 8
+    periods x 5 substeps from ``n`` perturbed in-contact envs with random
+    clocks and controls: the state within ``TICK_BOUNDS``, the energy within
+    rtol 2e-3 / atol 1e-3, ``t`` bit for bit, one tick launch and no substep
+    launch. The field variant read max |err| q 1.19e-6, qd 3.81e-5 against
+    its plain version at 4096 envs (PERF.md §6, the kernel table)."""
+    model = hector_model(device=cuda)
+    mpc, gait = _tick_config(preset), GaitConfig(steps_per_phase=5)
+    biped, bipeds = BipedParams().to(cuda), BipedParams().expand(n).to(cuda)
+    state = _perturbed_states(n, cuda)[0]
+    u0, c0, t0, cmd_yaw, v_int = _tick_controls(n, cuda)
+    state = dataclasses.replace(state, t=t0.clone())
+    x_cmd, per_env = _sweep_table_values(n, mpc, cuda)
+    Minv = mass_matrix_inv(model, state.q)
+    before = (tick.fused_tick.launches, sk.fused_substeps.launches)
+    out_k, e_k = tick.fused_tick(model, biped, mpc, gait, state, u0, c0, t0, cmd_yaw, v_int,
+                                 Minv, x_cmd=x_cmd, per_env=per_env, bipeds=bipeds)
+    torch.cuda.synchronize()
+    assert (tick.fused_tick.launches, sk.fused_substeps.launches) == (before[0] + 1, before[1])
+    out_p, e_p = tick.fused_tick_reference(model, biped, mpc, gait, state, u0, c0, t0, cmd_yaw,
+                                           v_int, Minv, x_cmd=x_cmd, per_env=per_env,
+                                           bipeds=bipeds)
+    for name, tol in TICK_BOUNDS.items():
+        k, p = getattr(out_k, name), getattr(out_p, name)
+        assert k.shape == p.shape and torch.isfinite(k).all(), name
+        err = float((k - p).abs().max())
+        assert err < tol, (name, err)
+    assert e_k.shape == (n,) and torch.allclose(e_k, e_p, rtol=2e-3, atol=1e-3)
+    assert torch.equal(out_k.t, out_p.t)
+    shared, _ = tick.fused_tick(model, biped, mpc, gait, state, u0, c0, t0, cmd_yaw, v_int, Minv)
+    assert float((out_k.q - shared.q)[1:4].abs().max()) > 1e-4  # the configs were felt
+
+
+@pytest.mark.parametrize("preset", ["walk", "loaded", "compat"])
+def test_tick_table_kernel_with_the_shared_constants_steps_as_the_flat_kernel(cuda, preset):
+    """Every row of the table the shared tick buffer's control block (what
+    ``tick_table`` forms with no field differing, bit for bit: ``tests/
+    test_torch_sweep_kernel.py``): the per-env variant steps as
+    ``tick_kernel<Plane>``, which reads the same constants from the buffer,
+    at 1000 envs (a partial last block), within the bounds each holds
+    against the plain version, ``t`` bit for bit. Not bit for bit in the
+    state: the two instantiations read the constants from two places, and
+    nvcc contracts and schedules some of their products into FMAs apart
+    (the "walk" preset happened to agree to the bit, "loaded" not)."""
+    n = 1000
+    model = hector_model(device=cuda)
+    mpc, gait = _tick_config(preset), GaitConfig(steps_per_phase=5)
+    biped, bipeds = BipedParams().to(cuda), BipedParams().expand(n).to(cuda)
+    state = _perturbed_states(n, cuda)[0]
+    u0, c0, t0, cmd_yaw, v_int = _tick_controls(n, cuda)
+    state = dataclasses.replace(state, t=t0.clone())
+    Minv = mass_matrix_inv(model, state.q)
+    table = tick.tick_table(bipeds, mpc, gait, None, {})
+    x_cmd = torch.tensor(mpc.x_cmd, device=cuda).expand(n, 12)
+    out_t, e_t = tick.fused_tick(model, biped, mpc, gait, state, u0, c0, t0, cmd_yaw, v_int,
+                                 Minv, x_cmd=x_cmd, bipeds=bipeds, table=table)
+    out_s, e_s = tick.fused_tick(model, biped, mpc, gait, state, u0, c0, t0, cmd_yaw, v_int,
+                                 Minv)
+    gaps = {name: float((getattr(out_t, name) - getattr(out_s, name)).abs().max())
+            for name in TICK_BOUNDS}
+    print(f"[{preset}] per-env variant with the shared constants vs tick_kernel<Plane>: "
+          f"max|gap| {gaps}")
+    for name, tol in TICK_BOUNDS.items():
+        assert torch.isfinite(getattr(out_t, name)).all() and gaps[name] < tol, (name, gaps)
+    assert torch.allclose(e_t, e_s, rtol=2e-3, atol=1e-3)
+    assert torch.equal(out_t.t, out_s.t)
+
+
 def test_art_rollout_launches_tick_kernel(cuda):
     mpc, gait = ra.art_config_for_speed(0.3, n_admm_iters=40, admm_rho_phases=1,
                                         admm_polish=False, kinv_ns_iters=10)
@@ -827,6 +927,12 @@ def _counts():
 
 
 def test_sweep_card_matches_cpu(cuda):
+    """A gain sweep with one dt at the tick path's hold: on the card the
+    tick path with the kernel's per-env variant (one QP and one tick launch
+    a tick), held to the same path's plain version on the CPU
+    (``batched_art_rollout_tick_kernel(per_env=)``; on the CPU ``art_sweep``
+    runs the plain chain), as ``test_art_rollout_launches_tick_kernel``
+    holds the flat tick path, ``t`` bit for bit."""
     from biped_mpc_py_torch.parallel.sweep import art_sweep, perturbed_worlds, stack_configs
 
     mpc, gait = _bench_art_config()
@@ -837,15 +943,17 @@ def test_sweep_card_matches_cpu(cuda):
     worlds = worlds.map(lambda t: t.repeat((4,) + (1,) * (t.dim() - 1)))
     bipeds = BipedParams().expand(8)
     kw = dict(n_substeps=5, minv_ll_hold=8)
-    out_cpu = art_sweep(worlds, bipeds, 2, mpc_s, gait, per_env, **kw)
+    out_cpu = ra.batched_art_rollout_tick_kernel(worlds, bipeds, 2, mpc_s, gait, n_substeps=5,
+                                                 per_env=per_env)
     before = _counts()
     out = art_sweep(worlds.to(cuda), bipeds.to(cuda), 2, mpc_s, gait,
                     {k: v.to(cuda) for k, v in per_env.items()}, **kw)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_counts(), before)] == [2, 0, 0]
+    assert [a - b for a, b in zip(_counts(), before)] == [2, 2, 0]
     for name, tol in CHAIN_BOUNDS.items():
         err = float((getattr(out.sim, name).cpu() - getattr(out_cpu.sim, name)).abs().max())
         assert err < tol, (name, err)
+    assert torch.equal(out.sim.t.cpu(), out_cpu.sim.t)
     assert float((out.sim.q[0] - out.sim.q[2]).abs().max()) > 1e-5  # the gains were felt
 
 
@@ -879,6 +987,10 @@ def test_sweep_numerics_card_matches_cpu(cuda):
 
 
 def test_fused_tick_raises_on_per_env_values(cuda):
+    """Per-env gains and commands go to the tick kernel's per-env variant
+    (which takes each env's robot); a per-env dt, or per-env values on a
+    field, are refused before a launch, and so is a per-env dt for the
+    substep kernel."""
     mpc, gait = _bench_art_config()
     n = 16
     model, biped = hector_model(device=cuda), BipedParams().to(cuda)
@@ -887,13 +999,18 @@ def test_fused_tick_raises_on_per_env_values(cuda):
     args = (model, biped, mpc, gait, state, torch.zeros(n, 12, device=cuda),
             torch.ones(n, 2, device=cuda), state.t, torch.zeros(n, device=cuda),
             torch.zeros(n, 2, device=cuda), Minv)
+    bipeds = BipedParams().expand(n).to(cuda)
+    fields = Terrain(heights=torch.zeros(n, 4, 4, device=cuda))
     before = _counts()
-    with pytest.raises(ValueError, match="per-env"):
-        tick.fused_tick(*args, per_env={"kp_hipyaw": torch.zeros(n, device=cuda)})
-    with pytest.raises(ValueError, match="per-env"):
-        tick.fused_tick(*args, x_cmd=torch.zeros(n, 12, device=cuda))
-    with pytest.raises(ValueError, match="per-env"):
-        tick.fused_tick(*args, per_env={"dt": torch.full((n,), 0.035, device=cuda)})
+    with pytest.raises(ValueError, match="on a Terrain run the plain chain"):
+        tick.fused_tick(*args, per_env={"kp_hipyaw": torch.zeros(n, device=cuda)},
+                        terrain=fields, bipeds=bipeds)
+    with pytest.raises(ValueError, match="on a Terrain run the plain chain"):
+        tick.fused_tick(*args, x_cmd=torch.zeros(n, 12, device=cuda), terrain=fields,
+                        bipeds=bipeds)
+    with pytest.raises(ValueError, match="per-env dt runs the plain chain"):
+        tick.fused_tick(*args, per_env={"dt": torch.full((n,), 0.035, device=cuda)},
+                        bipeds=bipeds)
     with pytest.raises(ValueError, match="one dt"):
         sk.fused_substeps(model, state, torch.zeros(n, 10, device=cuda), Minv,
                           torch.full((n,), 0.005, device=cuda), 5)
@@ -1132,8 +1249,9 @@ def _graph_case(path, device):
                for g, r in ((0.0, 0.3), (0.5, 1.0), (1.0, 0.1), (1.5, 0.3))
                for h in (0.0, 0.5, 1.0, 1.5)]
     mpc_s, per_env = stack_configs([c for c in configs for _ in range(64)], device=device)
+    # one dt and the tick path's hold: the tick kernel's per-env variant
     return (lambda k: art_sweep(w, b, k, mpc_s, gait, per_env, **kw),
-            lambda k: art_sweep_fn(k, mpc_s, gait, **kw), (w, b, per_env), (1, 0, 0))
+            lambda k: art_sweep_fn(k, mpc_s, gait, **kw), (w, b, per_env), (1, 1, 0))
 
 
 @pytest.mark.parametrize("path", list(GRAPH_TICKS))

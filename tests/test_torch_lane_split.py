@@ -39,7 +39,7 @@ from biped_mpc_py_torch.models.biped import BipedParams
 from biped_mpc_py_torch.ops.cuda import substep_kernel as sk
 from biped_mpc_py_torch.ops.cuda import tick_kernel as tk
 from biped_mpc_py_torch.sim import engine as teng
-from tests.test_torch_cuda import _tick_config
+from tests.test_torch_cuda import _sweep_table_values, _tick_config
 from tests.test_torch_sim import TM, _perturbed
 from tests.test_torch_tick_kernel import _controls
 from torch_threads import one_torch_thread  # noqa: F401
@@ -373,10 +373,15 @@ def dot3(a, b):
     return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
 
 
-def control_tau(T, flags, lane, R0, x, sole, u0, c0, t_ll, cmd_yaw, v_int):
+def control_tau(T, flags, lane, R0, x, sole, u0, c0, t_ll, cmd_yaw, v_int, table=None):
     """The lane's five joint torques: the shared part (yaw, clock, Raibert
-    target), which both lanes repeat, then its own leg."""
-    K = dict(zip(tk.CONTROL_NAMES, T[T_CTRL:].tolist()))
+    target), which both lanes repeat, then its own leg. The control
+    constants are the tick buffer's, or each env's row of ``table`` (the
+    per-env variant's)."""
+    if table is None:
+        K = dict(zip(tk.CONTROL_NAMES, T[T_CTRL:].tolist()))
+    else:
+        K = dict(zip(tk.CONTROL_NAMES, table.T))
     leg, side = lane.leg, (1.0 if lane.leg == 0 else -1.0)
     body, compat_frame = bool(flags & tk.FLAG_CMD_BODY_FRAME), bool(flags & tk.FLAG_COMPAT_FRAME)
     yaw = x[2]
@@ -447,7 +452,7 @@ def control_tau(T, flags, lane, R0, x, sole, u0, c0, t_ll, cmd_yaw, v_int):
     return tau
 
 
-def lane_period(C, T, flags, lanes, args, t_ll, Minv, ll_dt, n_substeps):
+def lane_period(C, T, flags, lanes, args, t_ll, Minv, ll_dt, n_substeps, table=None):
     """One low-level period of both lanes -> the period's energy."""
     u0, c0, _, cmd_yaw, v_int = args
     sent = [feedback_leg(C, T, lane) for lane in lanes]  # CoM sums shuffled out
@@ -455,7 +460,7 @@ def lane_period(C, T, flags, lanes, args, t_ll, Minv, ll_dt, n_substeps):
     for lane in lanes:
         R0, x = feedback_x(T, lane, sent[lane.leg], sent[1 - lane.leg])
         lane.tau = control_tau(T, flags, lane, R0, x, sent[lane.leg][2], cols(u0), cols(c0),
-                               t_ll, cmd_yaw, cols(v_int))
+                               t_ll, cmd_yaw, cols(v_int), table)
         work.append(sum((torch.clamp(lane.tau[j] * lane.qd[j], min=0.0) for j in range(1, 5)),
                         torch.clamp(lane.tau[0] * lane.qd[0], min=0.0)))
     energy = (work[0] + work[1]) * np.float32(ll_dt)  # own + other on either lane
@@ -491,6 +496,44 @@ def test_lane_split_periods(preset):
         assert err < tol, (name, err)
     np.testing.assert_allclose(energy.numpy(), e_want.numpy(), rtol=1e-4, atol=1e-5)
     assert torch.equal(got.t, want.t)
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_lane_split_periods_table(preset):
+    """The per-env variant's two-lane form, each env's control constants
+    from its row of ``tick_table``: against ``fused_tick_reference`` with
+    the same per-env values (the plain per-env periods), within the same
+    bounds as the shared form; base copies bit-equal after every substep."""
+    n, n_ll, n_sub = 64, 2, 5
+    mpc, gait = _tick_config(preset), GaitConfig(steps_per_phase=5)
+    _, state, _ = _perturbed(n, 15)
+    args = tuple(map(torch.tensor, _controls(n, 16)))
+    state = dataclasses.replace(state, t=args[2].clone())
+    Minv = teng.mass_matrix_inv(TM, state.q)
+    C = sk.model_constants(TM, "cpu")
+    T = tk.tick_constants(TM, BipedParams(), mpc, gait, "cpu")
+    x_cmd, per_env = _sweep_table_values(n, mpc, "cpu")
+    table = tk.tick_table(BipedParams().expand(n), mpc, gait, x_cmd, per_env)
+    ll_dt = mpc.dt / n_ll
+    lanes = [Lane(leg, state) for leg in (0, 1)]
+    energy = torch.zeros(n)
+    for p in range(n_ll):
+        t_ll = args[2] + np.float32(p * ll_dt)
+        energy = energy + lane_period(C, T, tk._flags(mpc), lanes, args, t_ll, Minv, ll_dt,
+                                      n_sub, table)
+    got = merged(lanes, state.t + mpc.dt)
+    want, e_want = tk.fused_tick_reference(TM, BipedParams(), mpc, gait, state, *args, Minv,
+                                           n_lowlevel=n_ll, n_substeps=n_sub, x_cmd=x_cmd,
+                                           per_env=per_env, bipeds=BipedParams().expand(n))
+    for name, tol in {"q": 2e-6, "pos": 2e-6, "quat": 2e-6, "qd": 1e-3}.items():
+        err = float((getattr(got, name) - getattr(want, name)).abs().max())
+        assert err < tol, (name, err)
+    np.testing.assert_allclose(energy.numpy(), e_want.numpy(), rtol=1e-4, atol=1e-5)
+    assert torch.equal(got.t, want.t)
+    # the configs were felt: env i and env i + 1 run apart from the same state
+    shared, _ = tk.fused_tick_reference(TM, BipedParams(), mpc, gait, state, *args, Minv,
+                                        n_lowlevel=n_ll, n_substeps=n_sub)
+    assert float((want.q - shared.q)[1:4].abs().max()) > 1e-4
 
 
 def test_packed_inertia_matches_dense():

@@ -44,6 +44,7 @@ from biped_mpc_py_torch.models import biped as tbiped
 from biped_mpc_py_torch.ops.cuda import tick_kernel
 from biped_mpc_py_torch.parallel import rollout_art as tra
 from biped_mpc_py_torch.parallel import sweep as tsweep
+from biped_mpc_py_torch.sim import contact as tterrain
 from biped_mpc_py_torch.sim.engine import mass_matrix_inv
 from biped_mpc_py_torch.sim.model import hector_model
 from biped_mpc_py_torch.utils.convert import from_numpy, to_numpy
@@ -253,20 +254,28 @@ def test_stack_configs_rejects_gait_mismatch():
 
 
 def test_fused_tick_raises_on_per_env_values():
-    """The tick kernel's constant buffer holds one config per batch: the
-    wrapper refuses per-env values before it reaches a device."""
+    """The tick kernel takes per-env gains and commands on flat ground (its
+    per-env variant, ``tests/test_torch_sweep_kernel.py``) but holds one
+    ``dt`` and, on a field, one config: the wrapper refuses a per-env
+    ``dt`` and per-env values on a ``Terrain`` before it reaches a device,
+    naming the plain chain."""
     mpc, gait = tra.art_config_for_speed(0.3, **BENCH)
     model = hector_model(device="cpu")
     w = tra.init_art_world(mpc, 2, device="cpu")
     z2, z = torch.zeros(2, 2), torch.zeros(2)
     args = (model, tbiped.BipedParams(), mpc, gait, w.sim, torch.zeros(2, 12), z2, z, z, z2,
             mass_matrix_inv(model, w.sim.q))
+    bipeds = tbiped.BipedParams().expand(2)
     _, per_env = tsweep.stack_configs(
-        [mpc, dataclasses.replace(mpc, kp_hipyaw=0.0)], device="cpu")
-    with pytest.raises(ValueError, match="per-env"):
-        tick_kernel.fused_tick(*args, per_env=per_env)
-    with pytest.raises(ValueError, match="per-env"):
-        tick_kernel.fused_tick(*args, x_cmd=torch.zeros(2, 12))
+        [mpc, dataclasses.replace(mpc, kp_hipyaw=0.0, dt=0.035)], device="cpu")
+    with pytest.raises(ValueError, match="per-env dt runs the plain chain"):
+        tick_kernel.fused_tick(*args, per_env=per_env, bipeds=bipeds)
+    fields = tterrain.Terrain(heights=torch.zeros(2, 4, 4))
+    gains = {"kp_hipyaw": per_env["kp_hipyaw"]}
+    with pytest.raises(ValueError, match="on a Terrain run the plain chain"):
+        tick_kernel.fused_tick(*args, terrain=fields, per_env=gains, bipeds=bipeds)
+    with pytest.raises(ValueError, match="on a Terrain run the plain chain"):
+        tick_kernel.fused_tick(*args, terrain=fields, x_cmd=torch.zeros(2, 12), bipeds=bipeds)
 
 
 def test_perturbed_worlds():
